@@ -1,0 +1,2 @@
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import ALIASES, arch_names, get_config

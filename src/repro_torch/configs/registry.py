@@ -1,0 +1,33 @@
+"""Architecture registry of the port: ``get_config(name, smoke=...)``.
+
+Only the dense architectures of the sampling slice are ported; asking for
+another one raises."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+# public names (assignment ids) -> module names
+ALIASES = {
+    "llama3.2-1b": "llama3_2_1b",
+    "qwen2-1.5b": "qwen2_1_5b",
+}
+
+
+def arch_names() -> list[str]:
+    return sorted(ALIASES)
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if mod_name not in ALIASES.values():
+        raise ValueError(
+            f"unknown or not yet ported architecture {name!r}; "
+            f"known: {arch_names()}"
+        )
+    cfg: ModelConfig = importlib.import_module(
+        f"repro_torch.configs.{mod_name}"
+    ).CONFIG
+    return cfg.smoke() if smoke else cfg

@@ -1,0 +1,287 @@
+"""ERA-Solver (the paper's Algorithm 1) — port of ``repro.core.era``.
+
+Implicit-Adams (Adams--Moulton order 4) corrector whose unobserved term is
+predicted by a Lagrange interpolation over an error-robustly selected
+subset of previously observed network noises.  One NFE per step.
+
+Step i (i >= k-1; the first k-1 steps are DDIM warmup while the buffer
+fills):
+
+  1. select bases  tau_{1..k}  via ERS (Eq. 16/17) from delta_eps
+  2. predict       eps_bar_{i+1} = L_eps(t_{i+1})            (Eq. 13/14)
+  3. correct       eps_ti = (9 eps_bar + 19 eps_i - 5 eps_{i-1}
+                             + eps_{i-2}) / 24               (Eq. 11)
+  4. x-update      x_{i+1} = DDIM(x_i, eps_ti)               (Eq. 8)
+  5. observe       eps_{i+1} = eps_theta(x_{i+1}, t_{i+1})   (1 NFE)
+  6. measure       delta_eps = || eps_{i+1} - eps_bar_{i+1} ||_2   (Eq. 15)
+
+The final step skips 5/6, so a run of N steps costs exactly N NFE.
+
+Port notes: the reference's ``lax.scan`` is a host loop over steps whose
+tensors (latents, Lagrange buffers, delta_eps, selections) stay on the
+device; ``lax.cond`` on the step index is a Python branch.  Steps 2-4 run
+through :func:`repro_torch.kernels.era_update.era_update` — the Triton
+kernel on the card, its plain version for CPU tensors — in one launch per
+step for the whole batch.  There is no parity gate that degrades to
+another path: a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core import lagrange
+from repro_torch.core.program import SolverProgram
+from repro_torch.core.schedules import NoiseSchedule, timesteps
+from repro_torch.core.solver_base import (
+    EpsFn,
+    SolverConfig,
+    SolverOutput,
+    buffer_append,
+    buffer_init,
+    ddim_step,
+    step_grid,
+)
+from repro_torch.kernels.era_update import era_update
+
+Tensor = torch.Tensor
+
+# Adams--Moulton order-4 corrector coefficients (paper Eq. 10/11).
+AM4 = (9.0 / 24.0, 19.0 / 24.0, -5.0 / 24.0, 1.0 / 24.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ERAConfig(SolverConfig):
+    """ERA-Solver options (defaults follow the paper's main setting)."""
+
+    k: int = 4                     # Lagrange interpolation order
+    lam: float = 5.0               # power-scale hyperparameter (Eq. 17)
+    selection: str = "ers"         # "ers" | "fixed" | "const"
+    const_power: float = 1.0       # used when selection == "const"
+    error_norm: str = "global"     # "global" (Eq. 15) | "mean"
+    # beyond-paper: independent delta_eps + base selection per batch row
+    per_sample: bool = False
+
+
+def _seq_sq_sums(d: Tensor, valid: Tensor | None) -> Tensor:
+    """Per-row sum of squared entries, features first, then accumulated
+    position by position (``cumsum`` along the sequence) so zero-masked pad
+    positions only append exact ``+ 0`` steps.  Rank-2 inputs keep the
+    plain squared norm."""
+    d = d.to(torch.float32)
+    if d.dim() < 3:
+        return torch.sum(d.reshape(d.shape[0], -1) ** 2, dim=-1)
+    p = torch.sum(d.reshape(d.shape[0], d.shape[1], -1) ** 2, dim=-1)  # (B, S)
+    if valid is not None:
+        p = torch.where(valid, p, torch.zeros((), device=p.device))
+    return torch.cumsum(p, dim=1)[:, -1]
+
+
+def _delta_eps_batch(
+    e_obs: Tensor, e_pred: Tensor, valid: Tensor | None = None
+) -> Tensor:
+    """Per-sample L2 errors (B,), reduced only over valid positions."""
+    return torch.sqrt(_seq_sq_sums(e_obs - e_pred, valid))
+
+
+def _delta_eps(
+    e_obs: Tensor, e_pred: Tensor, mode: str, valid: Tensor | None = None
+) -> Tensor:
+    if mode == "global":
+        d = (e_obs - e_pred).to(torch.float32)
+        if valid is None:
+            return torch.linalg.vector_norm(d.reshape(-1))
+        return torch.sqrt(torch.sum(_seq_sq_sums(d, valid)))
+    if mode == "mean":  # per-sample L2, averaged — batch-size invariant
+        return torch.mean(_delta_eps_batch(e_obs, e_pred, valid))
+    raise ValueError(f"unknown error_norm {mode!r}")
+
+
+def era_combine(
+    eps_sel: Tensor,     # (k, *x) selected buffer noises
+    t_sel: Tensor,       # (k,) their times
+    e_hist: Tensor,      # (3, *x) eps at steps i, i-1, i-2
+    t_next,
+) -> tuple[Tensor, Tensor]:
+    """Predictor + corrector combine: returns (eps_bar_next, eps_corr).
+    The unfused statement of steps 2-3 that the fused step is held to."""
+    eps_bar = lagrange.interpolate(eps_sel, t_sel, t_next)
+    c0, c1, c2, c3 = AM4
+    eps_corr = c0 * eps_bar + c1 * e_hist[0] + c2 * e_hist[1] + c3 * e_hist[2]
+    return eps_bar, eps_corr
+
+
+def alloc_buffers(x: Tensor, config: ERAConfig) -> tuple[Tensor, Tensor]:
+    """Fresh Lagrange eps/t buffers sized for ``config.nfe`` steps."""
+    return buffer_init(x, config.nfe + 1, config.solver_dtype)
+
+
+def sample(
+    eps_fn: EpsFn,
+    x_init: Tensor,
+    schedule: NoiseSchedule,
+    config: ERAConfig,
+    device: str | torch.device | None = None,
+) -> SolverOutput:
+    """Self-contained entry on ``device`` (the card unless the caller
+    passes ``"cpu"``): allocates buffers, then runs the loop."""
+    return ERAProgram().sample(eps_fn, x_init, schedule, config, device=device)
+
+
+def sample_scan(
+    eps_fn: EpsFn,
+    x_init: Tensor,
+    eps_buf: Tensor,     # (nfe+1, *x.shape), updated in place
+    t_buf: Tensor,       # (nfe+1,), updated in place
+    schedule: NoiseSchedule,
+    config: ERAConfig,
+    lengths: Tensor | None = None,  # (B,) valid seq lengths of a right-
+                                    # padded batch; masks the ERS norms
+) -> SolverOutput:
+    n, k = config.nfe, config.k
+    if n < k:
+        raise ValueError(f"ERA-Solver needs nfe >= k ({n} < {k})")
+    if lengths is not None and x_init.dim() < 3:
+        raise ValueError(
+            "lengths masking needs batch-of-sequences latents (B, S, ...); "
+            f"got x of rank {x_init.dim()}"
+        )
+    if tuple(eps_buf.shape) != (n + 1,) + tuple(x_init.shape):
+        raise ValueError(
+            f"eps buffer shape {tuple(eps_buf.shape)} != "
+            f"{(n + 1,) + tuple(x_init.shape)}"
+        )
+    if tuple(t_buf.shape) != (n + 1,):
+        raise ValueError(f"t buffer shape {tuple(t_buf.shape)} != {(n + 1,)}")
+    dev = x_init.device
+    ts = timesteps(schedule, n, config.scheme, t_end=config.t_end, device=dev)
+    dt = config.solver_dtype
+    valid = (
+        None
+        if lengths is None
+        else torch.arange(x_init.shape[1], device=dev) < lengths[:, None]
+    )  # (B, S) position-validity mask for the error norms
+    batch = x_init.shape[0]
+    # the fused step's rows: one per sample under per-sample ERS, else one
+    # row spanning the whole batch (the reference's shared scalar delta_eps)
+    rows = batch if config.per_sample else 1
+    cap = n + 1
+
+    x = x_init.to(dt)
+    # Alg. 1 line 2/3: delta_eps starts at lambda (power 1, uniform
+    # selection); the initial observation is entry 0
+    buffer_append(eps_buf, t_buf, 0, eps_fn(x, ts[0]), ts[0])
+    delta_eps = torch.full(
+        (batch,) if config.per_sample else (), config.lam,
+        dtype=torch.float32, device=dev,
+    )
+    tau_shape = (batch, k) if config.per_sample else (k,)
+    de_hist, tau_hist, traj = [], [], [x]
+    for i, t_cur, t_next in zip(*step_grid(ts)):
+        if i < k - 1:
+            # DDIM warmup; prediction placeholder is the held noise
+            eps_bar = eps_buf[i]
+            x_next = ddim_step(schedule, x, eps_bar, t_cur, t_next)
+            tau = torch.zeros(tau_shape, dtype=torch.int32, device=dev)
+        else:
+            tau = lagrange.select_bases(
+                i, k, delta_eps, config.lam, config.selection,
+                config.const_power,
+            )
+            lag_w = lagrange.lagrange_weights(t_buf[tau.long()], t_next)
+            cx, ce = schedule.ddim_coeffs(t_cur, t_next)
+            # history entries i, i-1, i-2; a negative entry wraps to the
+            # still-empty last slot, as the reference's dynamic index does
+            hist = (i, (i - 1) % cap, (i - 2) % cap)
+            x_next, eps_bar = era_update(
+                x.reshape(rows, -1),
+                eps_buf.reshape(cap, rows, -1),
+                tau.reshape(rows, k).contiguous(),
+                hist,
+                lag_w.reshape(rows, k).contiguous(),
+                AM4, cx, ce,
+            )
+            x_next = x_next.reshape(x.shape)
+            eps_bar = eps_bar.reshape(x.shape)
+        # observe eps at the new point, except on the final step, whose
+        # x_next is the output (exactly nfe evaluations); nothing reads the
+        # buffer entry the reference fills with zeros there
+        if i + 1 < n:
+            e_new = eps_fn(x_next, t_next).to(dt)
+            # Alg. 1 line 16: delta_eps updates once predictions are real
+            if i >= k - 1:
+                delta_eps = (
+                    _delta_eps_batch(e_new, eps_bar, valid)
+                    if config.per_sample
+                    else _delta_eps(e_new, eps_bar, config.error_norm, valid)
+                )
+            buffer_append(eps_buf, t_buf, i + 1, e_new, t_next)
+        de_hist.append(delta_eps)
+        tau_hist.append(tau)
+        if config.return_trajectory:
+            traj.append(x_next)
+        x = x_next
+
+    aux: dict[str, Any] = {}
+    de_hist = torch.stack(de_hist)
+    if config.per_sample:
+        aux["delta_eps_history_per_sample"] = de_hist        # (nfe, B)
+        aux["delta_eps_history"] = torch.mean(de_hist, dim=-1)
+        aux["ers_selection_history"] = torch.stack(tau_hist)  # (nfe, B, k)
+    else:
+        aux["delta_eps_history"] = de_hist
+    if config.return_trajectory:
+        aux["trajectory"] = torch.stack(traj)                # (nfe+1, B, ...)
+    return SolverOutput(x0=x.to(x_init.dtype), nfe=n, aux=aux)
+
+
+class ERAProgram(SolverProgram):
+    """ERA-Solver as a serving program.  The paper default shares one
+    delta_eps across the batch, which couples rows, so it is not fusable;
+    the engine default turns on per-sample ERS, which makes a batch-of-N
+    run equal to N independent runs."""
+
+    name = "era"
+    config_cls = ERAConfig
+    aux_row_axes = {
+        "trajectory": 1,
+        "delta_eps_history_per_sample": 1,
+        "ers_selection_history": 1,
+    }
+
+    def engine_config(self) -> ERAConfig:
+        return ERAConfig(per_sample=True)
+
+    def fusable(self, cfg: ERAConfig) -> bool:
+        return cfg.per_sample
+
+    def validate(self, req, cfg: ERAConfig) -> None:
+        super().validate(req, cfg)
+        if req.nfe < cfg.k:
+            raise ValueError(
+                f"ERA-Solver needs nfe >= k ({req.nfe} < {cfg.k}); "
+                "lower k in the engine's solver_config or raise nfe"
+            )
+
+    def alloc_buffers(self, x_like, cfg: ERAConfig):
+        return alloc_buffers(x_like, cfg)
+
+    def sample_scan(
+        self, eps_fn, x_init, buffers, schedule, cfg, lengths=None
+    ):
+        eps_buf, t_buf = buffers
+        return sample_scan(
+            eps_fn, x_init, eps_buf, t_buf, schedule, cfg, lengths=lengths
+        )
+
+    def scope_aux(self, aux: dict, off: int, batch: int) -> dict:
+        scoped = super().scope_aux(aux, off, batch)
+        if scoped is not aux and "delta_eps_history_per_sample" in scoped:
+            # the batch-mean diagnostic covers only this request's rows
+            scoped["delta_eps_history"] = torch.mean(
+                scoped["delta_eps_history_per_sample"], dim=-1
+            )
+        return scoped

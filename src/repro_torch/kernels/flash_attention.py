@@ -1,0 +1,177 @@
+"""Flash attention forward (prefill / denoising path), CUDA C++ for Hopper.
+
+Replaces the TPU kernel ``repro.kernels.flash_attention._flash_kernel``
+(wrapper ``repro.kernels.ops.flash_attention``).  The kernel source is
+``src/repro_torch/csrc/flash_attention.cu``; its header comment gives the
+design and what bounds it on the H100.  In short: one thread block per
+(batch*head, 64-query tile) loops over 64-key tiles with the online-softmax
+state in shared memory (the TPU's sequential kv grid axis and VMEM
+scratch), Q.K^T and P.V run on the tensor cores in bf16 with f32
+accumulation, GQA reads kv head ``h // G`` by index, and the kernel reads
+and writes the model layout ``(B, S, H, hd)`` with no transposes.  It is
+built with ``nvcc`` for ``sm_90a`` at first use and bound with ctypes; the
+C entry point returns ``cudaGetLastError()`` after the launch and the
+wrapper raises if it is not 0.
+
+Semantics (shared with :func:`flash_attention_plain`): keys with
+``kv_pos < 0`` or a zero ``kv_mask`` entry are invalid; causal, window and
+protected-sink predicates apply on positions; an optional tanh softcap
+applies to the scaled scores; ``scale = hd ** -0.5``; a query row with no
+valid key gives zeros.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+Tensor = torch.Tensor
+NEG_INF = -1e30
+SOURCE = "flash_attention.cu"
+HEAD_DIMS = (32, 64, 128)
+MAX_GRID_Y = 65535
+
+
+def flash_attention_plain(
+    q: Tensor,          # (B, Sq, H, hd)
+    k: Tensor,          # (B, Sk, KV, hd)
+    v: Tensor,          # (B, Sk, KV, hd)
+    q_pos: Tensor,      # (Sq,) int
+    kv_pos: Tensor,     # (Sk,) int, < 0 = invalid slot
+    *,
+    kv_mask: Tensor | None = None,  # (B, Sk), nonzero = valid key
+    window: int = 0,
+    causal: bool = True,
+    softcap: float = 0.0,
+    protected: int = 0,
+) -> Tensor:
+    """The kernel's function in plain PyTorch, all math in float32."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qf = q.to(torch.float32).reshape(b, sq, kvh, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32)) * hd**-0.5
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    qp = q_pos.to(torch.int64)[:, None]
+    kp = kv_pos.to(torch.int64)[None, :]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window > 0:
+        in_w = kp > qp - window
+        if protected > 0:
+            in_w = in_w | (kp < protected)
+        valid = valid & in_w
+    valid = valid[None, None, None]                        # (1,1,1,Sq,Sk)
+    if kv_mask is not None:
+        valid = valid & (kv_mask != 0)[:, None, None, None, :]
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=s.device))
+    w = torch.softmax(s, dim=-1)
+    any_valid = torch.amax(s, dim=-1, keepdim=True) > NEG_INF / 2
+    w = torch.where(any_valid, w, torch.zeros((), device=w.device))
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
+    tensors = [("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
+               ("kv_pos", kv_pos)]
+    if kv_mask is not None:
+        tensors.append(("kv_mask", kv_mask))
+    for name, t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention: {name} is on {t.device}, not cuda")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on another card")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
+    for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos), ("kv_mask", kv_mask)):
+        if t is not None and t.dtype != torch.int32:
+            raise TypeError(f"flash_attention: {name} must be int32, got {t.dtype}")
+    b, sq, h, hd = q.shape
+    _, sk, kvh, _ = k.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if k.shape != (b, sk, kvh, hd) or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+            f"match q {tuple(q.shape)}"
+        )
+    if kvh < 1 or h % kvh:
+        raise ValueError(f"flash_attention: {h} heads not a multiple of {kvh}")
+    if sq < 1 or sk < 1:
+        raise ValueError("flash_attention: empty sequence")
+    if q_pos.shape != (sq,) or kv_pos.shape != (sk,):
+        raise ValueError("flash_attention: q_pos must be (Sq,), kv_pos (Sk,)")
+    if kv_mask is not None and kv_mask.shape != (b, sk):
+        raise ValueError(f"flash_attention: kv_mask must be ({b}, {sk})")
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: B*H = {b * h} exceeds {MAX_GRID_Y}")
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    fn = lib.repro_flash_attention_fwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 6
+        + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(
+    q: Tensor,          # (B, Sq, H, hd) model layout
+    k: Tensor,          # (B, Sk, KV, hd)
+    v: Tensor,
+    q_pos: Tensor,      # (Sq,)
+    kv_pos: Tensor,     # (Sk,)
+    *,
+    kv_mask: Tensor | None = None,
+    window: int = 0,
+    causal: bool = True,
+    softcap: float = 0.0,
+    protected: int = 0,
+) -> Tensor:
+    """GQA flash attention in the model layout.  CPU tensors take
+    :func:`flash_attention_plain`; CUDA tensors launch the kernel (bf16,
+    head_dim 32/64/128) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, q_pos, kv_pos, kv_mask=kv_mask, window=window,
+            causal=causal, softcap=softcap, protected=protected,
+        )
+    if kv_mask is not None and kv_mask.dtype != torch.int32:
+        kv_mask = kv_mask.to(torch.int32)
+    _check(q, k, v, q_pos, kv_pos, kv_mask)
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = _library().repro_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_pos.data_ptr(), kv_pos.data_ptr(),
+        None if kv_mask is None else kv_mask.data_ptr(),
+        b, h, kvh, sq, sk, hd,
+        hd**-0.5, float(softcap), int(window), int(causal), int(protected),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+

@@ -1,0 +1,98 @@
+"""Diffusion-LM wrapper: the block stack as an eps-prediction denoiser
+(port of ``repro.models.diffusion``).
+
+x_t lives in embedding space (B, S, d).  The wrapper adds sinusoidal time
+conditioning, runs the block stack non-causally and projects to a noise
+estimate; each NFE of an ERA run is one :meth:`DiffusionLM.eps`.
+
+The module owns its weights.  It is built on the card unless the caller
+passes ``device="cpu"``, with the reference's init rules drawn from a
+seeded ``torch.Generator`` (``eps_head`` starts at zero, as in the
+reference).  Reference weights map in through
+:func:`repro_torch.interop.params_from_jax` and ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.model import Backbone
+
+Tensor = torch.Tensor
+
+#: block kinds safe to run right-padded with per-row ``lengths`` (every
+#: cross-position mixing is an attention softmax that takes the kv mask, or
+#: a left-to-right scan).  The reference's full set; only "dense" is ported.
+MASKABLE_BLOCKS = frozenset(
+    {
+        "dense", "moe", "enc", "xdec",
+        "mlstm", "slstm", "hymba_swa", "hymba_full",
+        "mla_moe",
+    }
+)
+
+
+class DiffusionLM(nn.Module):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        *,
+        device: str | torch.device | None = None,
+        seed: int = 0,
+        causal: bool = False,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        d = cfg.d_model
+        self.config = cfg
+        self.causal = causal  # attention families denoise bidirectionally
+        self.backbone = Backbone(cfg, generator=gen, device=dev)
+        self.time_mlp = L.TimeMLP(d, generator=gen, device=dev)
+        self.in_proj = L.Linear(d, d, generator=gen, device=dev, dtype=cfg.dtype)
+        self.eps_head = L.Linear(
+            d, d, bias=True, init="zeros", generator=gen, device=dev,
+            dtype=cfg.dtype,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.in_proj.w.device
+
+    @property
+    def supports_length_masking(self) -> bool:
+        """True iff every block kind is in :data:`MASKABLE_BLOCKS`."""
+        return all(kind in MASKABLE_BLOCKS for kind, _ in self.config.blocks)
+
+    @torch.no_grad()
+    def eps(
+        self, x_t: Tensor, t, lengths: Tensor | None = None
+    ) -> Tensor:
+        """Noise prediction eps_theta(x_t, t).  x_t: (B, S, d); t a scalar
+        shared by the batch, or per-row times (B,).  Returns
+        ``eps + x_t`` in x_t's dtype, computed in float32.  ``lengths``
+        ((B,) int) masks pad keys out of every softmax and zeroes eps at
+        pad positions, so a padded row's tail stays inert."""
+        cfg = self.config
+        t = torch.as_tensor(t, dtype=torch.float32, device=x_t.device)
+        tcond = self.time_mlp(t.reshape(-1))                   # (1|B, d)
+        h = self.in_proj(x_t.to(cfg.dtype))
+        h = h + tcond[:, None, :].to(h.dtype)
+        h = self.backbone(h, causal=self.causal, lengths=lengths)
+        eps = self.eps_head(h)
+        out = (eps.to(torch.float32) + x_t.to(torch.float32)).to(x_t.dtype)
+        if lengths is not None:
+            valid = (
+                torch.arange(out.shape[1], device=out.device)
+                < lengths[:, None]
+            )
+            out = torch.where(valid[..., None], out, out.new_zeros(()))
+        return out
+
+    def eps_fn(self, lengths: Tensor | None = None):
+        """Closure matching the solver API: ``eps_fn(x, t) -> eps``."""
+        return lambda x, t: self.eps(x, t, lengths=lengths)

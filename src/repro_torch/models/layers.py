@@ -1,0 +1,156 @@
+"""Common layers (port of ``repro.models.layers``).
+
+Parameters live in ``nn.Module``s.  The reference keeps float32 parameters
+and casts them to the activation dtype at every use (``x @ w.astype(
+x.dtype)``); the port casts each weight once, when it is created or
+loaded, to the dtype the reference would use it in — which gives the same
+numbers.  So linear weights of the block stack are stored in the compute
+dtype (bf16 at full width), while the norm scales and the time-embedding
+MLP, which the reference runs in float32, stay float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+
+
+def init_tensor(
+    shape: tuple[int, ...], init: str, generator: torch.Generator,
+    device, dtype, scale: float = 1.0,
+) -> Tensor:
+    """The reference's ``P.initialize`` rules: fan_in | zeros | ones |
+    normal | embed, drawn in float32 from ``generator`` then cast."""
+    if init == "zeros":
+        return torch.zeros(shape, device=device, dtype=dtype)
+    if init == "ones":
+        return torch.ones(shape, device=device, dtype=dtype)
+    z = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    if init == "normal":
+        w = scale * z
+    elif init == "embed":
+        w = z * 0.02 * scale
+    elif init == "fan_in":
+        fan_in = shape[0] if len(shape) >= 2 else 1
+        w = z * (scale / math.sqrt(max(fan_in, 1)))
+    else:
+        raise ValueError(f"unknown init {init!r}")
+    return w.to(dtype)
+
+
+class Linear(nn.Module):
+    """``y = x @ w + b`` with ``w`` stored (d_in, d_out) like the reference
+    (so weights map across without a transpose)."""
+
+    def __init__(
+        self, d_in: int, d_out: int, *, bias: bool = False, init: str = "fan_in",
+        generator: torch.Generator, device, dtype,
+    ):
+        super().__init__()
+        self.w = nn.Parameter(
+            init_tensor((d_in, d_out), init, generator, device, dtype),
+            requires_grad=False,
+        )
+        self.b = (
+            nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype),
+                         requires_grad=False)
+            if bias else None
+        )
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = x @ self.w.to(x.dtype)
+        if self.b is not None:
+            y = y + self.b.to(x.dtype)
+        return y
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float = 1e-5, *, device):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(
+            torch.ones(d, device=device, dtype=torch.float32),
+            requires_grad=False,
+        )
+
+    def forward(self, x: Tensor) -> Tensor:
+        return rmsnorm(x, self.scale, self.eps)
+
+
+def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.to(torch.float32)).to(dt)
+
+
+class MLP(nn.Module):
+    """Gated MLP: swiglu (``act="silu"``) or geglu (``act="gelu"``)."""
+
+    def __init__(self, d: int, d_ff: int, act: str = "silu", *, generator,
+                 device, dtype):
+        super().__init__()
+        if act not in ("silu", "gelu"):
+            raise NotImplementedError(f"mlp_act {act!r} is not ported yet")
+        self.act = F.silu if act == "silu" else F.gelu
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.wg = Linear(d, d_ff, **kw)
+        self.wi = Linear(d, d_ff, **kw)
+        self.wo = Linear(d_ff, d, **kw)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.wo(self.act(self.wg(x)) * self.wi(x))
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (
+        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                               device=device) / head_dim)
+    )
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_time_embed(t: Tensor, dim: int, max_period: float = 1e4) -> Tensor:
+    """t: scalar or (B,) in [0, 1] -> (B?, dim) float32 embedding."""
+    t = t.to(torch.float32) * 1000.0  # scale to a DDPM-like range
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    ang = t[..., None] * freqs
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+class TimeMLP(nn.Module):
+    """Sinusoidal embedding -> linear -> silu -> linear, in float32."""
+
+    def __init__(self, d_model: int, d_time: int = 256, *, generator, device):
+        super().__init__()
+        self.d_time = d_time
+        kw = dict(bias=True, generator=generator, device=device,
+                  dtype=torch.float32)
+        self.w1 = Linear(d_time, d_model, **kw)
+        self.w2 = Linear(d_model, d_model, **kw)
+
+    def forward(self, t: Tensor) -> Tensor:
+        h = sinusoidal_time_embed(t, self.d_time)
+        return self.w2(F.silu(self.w1(h)))

@@ -1,0 +1,13 @@
+from repro_torch.serving import result_keys
+from repro_torch.serving.diffusion_sampler import BatchedSampler, SamplerService
+from repro_torch.serving.executor import (
+    DEFAULT_MAX_BATCH,
+    DEFAULT_MAX_NFE,
+    DEFAULT_MAX_SEQ_LEN,
+    SEED_MAX,
+    SEED_MIN,
+    FusedExecutor,
+    SampleRequest,
+    SampleResult,
+)
+from repro_torch.serving.metrics import MetricsRegistry

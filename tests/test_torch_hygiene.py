@@ -1,0 +1,116 @@
+"""Walls around the port's package boundary and device rules.
+
+* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX
+  nor the reference package ``repro`` — checked both by importing every
+  module in a fresh interpreter and by scanning the source.
+* Nothing falls back silently: without a card, entry points that were not
+  asked for the CPU raise, and the kernel modules and the solver core hold
+  no ``try`` (a CUDA tensor launches its kernel or raises).
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as D
+from repro_torch.configs import get_config
+from repro_torch.core import ERAConfig, get_solver, linear_schedule
+from repro_torch.core import era
+from repro_torch.models import DiffusionLM
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro") or name.startswith("jax")
+
+
+def test_importing_the_port_loads_no_jax_or_reference():
+    script = f"""
+import importlib, importlib.util, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "repro_torch.core.era" in out["imported"]
+    assert "repro_torch.kernels.flash_attention" in out["imported"]
+    bad = [m for m in out["loaded"] if _forbidden(m)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_or_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted((PKG / "kernels").glob("*.py")) + sorted((PKG / "core").glob("*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_kernels_and_solver_hold_no_fallback_try(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            D.resolve_device(dev)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DiffusionLM(cfg)
+    x = torch.randn(1, 4, 8)
+    eps = lambda x, t: x  # noqa: E731
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        era.sample(eps, x, linear_schedule(), ERAConfig(nfe=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_solver("era")(eps, x, linear_schedule(), ERAConfig(nfe=4))
+
+
+def test_cpu_is_only_taken_when_asked(no_card):
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    assert D.resolve_device("cpu").type == "cpu"
+    assert DiffusionLM(cfg, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+        text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

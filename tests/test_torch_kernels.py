@@ -1,0 +1,157 @@
+"""The port's kernel modules against the JAX reference, on the CPU.
+
+A CPU tensor takes each wrapper's plain PyTorch version (the CUDA kernels
+are checked against the same plain versions on the card by
+``chip_smoke.py``).  Inputs are float32 numpy arrays from a fixed seed.
+
+Tolerances: the fused ERA step uses the reference's own fused-step bar,
+1e-5 (``repro.core.era._FUSED_TOL``).  Attention in float32 agrees to
+summation-order rounding of a softmax over at most 160 keys: atol 2e-6.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.era import AM4 as J_AM4
+from repro.kernels import ops, ref
+from repro_torch.core.era import AM4
+from repro_torch.core.lagrange import lagrange_weights
+from repro_torch.kernels import era_update as ku
+from repro_torch.kernels import flash_attention as kf
+
+ERA_TOL = 1e-5
+ATTN_TOL = 2e-6
+
+
+def _era_case(rows, n, k=4, cap=9, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, n), np.float32)
+    buf = rng.standard_normal((cap, rows, n), np.float32)
+    # ERS selections at step i = 6 always end at i; t_next is the next knot
+    tau = np.stack([
+        np.append(np.sort(rng.choice(6, k - 1, replace=False)), 6)
+        for _ in range(rows)
+    ])
+    t_buf = np.linspace(1.0, 0.2, cap).astype(np.float32)
+    t_next = t_buf[7]
+    cx = rng.uniform(0.9, 1.1, rows).astype(np.float32)
+    ce = rng.uniform(-0.1, 0.1, rows).astype(np.float32)
+    return x, buf, tau.astype(np.int32), t_buf, t_next, cx, ce
+
+
+@pytest.mark.parametrize("rows,n", [(1, 96), (3, 100), (4, 4096 + 7)])
+def test_era_update_plain_matches_reference(rows, n):
+    """Each row of the fused step equals ``ref.era_update_ref`` and the
+    reference's fused ``ops.era_step`` (Pallas, interpret mode) on that row."""
+    x, buf, tau, t_buf, t_next, cx, ce = _era_case(rows, n)
+    hist = (6, 5, 4)
+    lag_w = lagrange_weights(torch.from_numpy(t_buf[tau]), torch.tensor(t_next))
+    got_x, got_e = ku.era_update(
+        torch.from_numpy(x), torch.from_numpy(buf), torch.from_numpy(tau), hist,
+        lag_w, AM4, torch.from_numpy(cx), torch.from_numpy(ce),
+    )
+    assert ku.era_update.launches == 0
+    assert AM4 == J_AM4
+    am4 = jnp.asarray(J_AM4, jnp.float32)
+    for r in range(rows):
+        eps_sel = jnp.asarray(buf[tau[r], r])          # (k, N)
+        e_hist = jnp.asarray(buf[list(hist), r])       # (3, N)
+        want_x, want_e = ref.era_update_ref(
+            jnp.asarray(x[r]), eps_sel, jnp.asarray(lag_w[r].numpy()), e_hist,
+            am4, jnp.float32(cx[r]), jnp.float32(ce[r]),
+        )
+        np.testing.assert_allclose(got_x[r].numpy(), want_x, atol=ERA_TOL)
+        np.testing.assert_allclose(got_e[r].numpy(), want_e, atol=ERA_TOL)
+        fx, fe = ops.era_step(
+            jnp.asarray(x[r]), eps_sel, jnp.asarray(t_buf[tau[r]]), e_hist,
+            jnp.float32(t_next), jnp.float32(cx[r]), jnp.float32(ce[r]), am4,
+        )
+        np.testing.assert_allclose(got_x[r].numpy(), fx, atol=ERA_TOL)
+        np.testing.assert_allclose(got_e[r].numpy(), fe, atol=ERA_TOL)
+
+
+def test_era_update_scalar_coefficients_broadcast():
+    """One (cx, ce) pair for every row equals passing it per row."""
+    x, buf, tau, t_buf, t_next, cx, ce = _era_case(3, 50, seed=1)
+    args = (torch.from_numpy(x), torch.from_numpy(buf), torch.from_numpy(tau),
+            (6, 5, 4), torch.rand(3, 4), AM4)
+    a = ku.era_update(*args, torch.tensor(0.97), torch.tensor(-0.05))
+    b = ku.era_update(*args, torch.full((3,), 0.97), torch.full((3,), -0.05))
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_era_update_cuda_checks_reject_cpu_tensors():
+    """The kernel path's checks raise on input the kernel does not take."""
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="not cuda"):
+        ku._check(x, torch.zeros(3, 2, 8), torch.zeros(2, 4, dtype=torch.int32),
+                  (0, 0, 0), torch.zeros(2, 4), torch.zeros(2), torch.zeros(2))
+
+
+def _attn_case(b, s, h, kvh, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, hd), np.float32)
+    k = rng.standard_normal((b, s, kvh, hd), np.float32)
+    v = rng.standard_normal((b, s, kvh, hd), np.float32)
+    return q, k, v
+
+
+FLASH_CASES = {
+    "gqa non-causal": dict(b=2, s=40, h=4, kvh=2, hd=32, kw=dict(causal=False)),
+    "mha causal": dict(b=1, s=33, h=2, kvh=2, hd=64, kw=dict(causal=True)),
+    "kv_mask + fully masked row": dict(
+        b=3, s=24, h=4, kvh=1, hd=32, kw=dict(causal=False), lengths=(24, 9, 0)
+    ),
+    "causal window protected": dict(
+        b=1, s=48, h=4, kvh=2, hd=32,
+        kw=dict(causal=True, window=8, protected=3),
+    ),
+    "softcap": dict(b=2, s=20, h=4, kvh=2, hd=32,
+                    kw=dict(causal=False, softcap=2.0)),
+    "long kv, 128 head dim": dict(b=1, s=160, h=2, kvh=1, hd=128,
+                                  kw=dict(causal=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_plain_matches_reference(case):
+    c = FLASH_CASES[case]
+    q, k, v = _attn_case(c["b"], c["s"], c["h"], c["kvh"], c["hd"])
+    pos = np.arange(c["s"], dtype=np.int32)
+    kw = dict(c["kw"])
+    mask = None
+    if "lengths" in c:
+        mask = (pos[None, :] < np.asarray(c["lengths"])[:, None]).astype(np.int32)
+    got = kf.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(pos), torch.from_numpy(pos),
+        kv_mask=None if mask is None else torch.from_numpy(mask), **kw,
+    ).numpy()
+    assert kf.flash_attention.launches == 0
+    jm = None if mask is None else jnp.asarray(mask)
+    # the oracle, in the kernel layout (B, H, S, hd)
+    want = ref.flash_attention_ref(
+        jnp.asarray(q.transpose(0, 2, 1, 3)), jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(pos), jnp.asarray(pos),
+        kv_mask=jm, **kw,
+    )
+    np.testing.assert_allclose(got, np.asarray(want).transpose(0, 2, 1, 3),
+                               atol=ATTN_TOL)
+    # the Pallas kernel through its wrapper (interpret mode), model layout
+    pallas = ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        jnp.asarray(pos), kv_mask=jm, **kw,
+    )
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=ATTN_TOL)
+    if "lengths" in c:
+        assert np.all(got[2] == 0.0)  # every key masked -> zeros
+
+
+def test_flash_cuda_checks_reject_bad_input():
+    q = torch.zeros(1, 4, 2, 32)
+    pos = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not cuda"):
+        kf._check(q, q, q, pos, pos, None)
