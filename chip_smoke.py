@@ -91,19 +91,31 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def era_inputs(rows: int, n: int, k: int, cap: int, gen):
+def era_inputs(rows: int, n: int, k: int, cap: int, gen, i: int = 6):
+    """Inputs of the ERA step at step ``i``: as ERS selects them, each row's
+    bases are strictly increasing entries of [0, i] ending at ``i`` itself,
+    and the corrector's history is entries (i, i-1, i-2)."""
     dev = "cuda"
     x = torch.randn(rows, n, generator=gen, device=dev)
     buf = torch.randn(cap, rows, n, generator=gen, device=dev)
-    # strictly increasing selections within [0, 6], as ERS produces
+    last = torch.full((1,), i, device=dev)
     tau = torch.stack([
-        torch.sort(torch.randperm(7, generator=gen, device=dev)[:k]).values
+        torch.cat([torch.sort(
+            torch.randperm(i, generator=gen, device=dev)[: k - 1]).values, last])
         for _ in range(rows)
     ]).to(torch.int32)
     lag_w = torch.randn(rows, k, generator=gen, device=dev)
     cx = torch.rand(rows, generator=gen, device=dev) + 0.5
     ce = torch.randn(rows, generator=gen, device=dev) * 0.1
-    return x, buf, tau, (6, 5, 4), lag_w, cx, ce
+    return x, buf, tau, (i, i - 1, i - 2), lag_w, cx, ce
+
+
+def era_bytes(x, tau, hist) -> float:
+    """Bytes the step must move: x and each distinct buffer entry a row
+    reads (its bases and history, which overlap) once, two outputs once."""
+    n = x.shape[1]
+    words = sum(1 + len(set(row) | set(hist)) + 2 for row in tau.tolist())
+    return 4.0 * n * words
 
 
 def phase_era(ku):
@@ -131,12 +143,16 @@ def phase_era(ku):
             plain_ms = time_ms(
                 lambda: ku.era_update_plain(x, buf, tau, hist, lag_w, AM4, cx, ce)
             )
-            nbytes = 4.0 * rows * n * (1 + K + 3 + 2)  # reads once, writes once
+            nbytes = era_bytes(x, tau, hist)
             # predictor 2k, corrector 7, DDIM update 3 flops an element
             flops = float(rows * n * (2 * K + 10))
-            bound_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+            bound_ms = max(t_bytes, t_ops) * 1e3
             timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes" if t_bytes >= t_ops else "operations",
                           library_ms=None, shape=f"B={rows} N={n} k={K}")
+            log(f"era_update bound: {nbytes / (rows * n * 4):.2f} float32 "
+                f"words an element, {bound_ms:.5f} ms")
     return max(errs.values()), timing
 
 
@@ -303,10 +319,12 @@ def phase_slice(ku, kf):
 
     # the batch-of-3 request alone: its rows must not depend on batch-mates.
     # Both runs pad to the same 8-row bucket, so every matrix product has the
-    # same shape; we expect agreement to bf16 rounding of the latents.  This
-    # drain also runs under the profiler, for the time breakdown.
+    # same shape; we expect agreement to bf16 rounding of the latents.
     _, solo_fut = eng.submit_with_future(reqs[1])
-    profile_drain(eng)
+    t0 = time.perf_counter()
+    eng.drain()
+    torch.cuda.synchronize()
+    solo_wall_ms = (time.perf_counter() - t0) * 1e3
     solo = solo_fut.result()
     fused_res = results[1]
     diff = float((solo.x0 - fused_res.x0).abs().max())
@@ -317,13 +335,20 @@ def phase_slice(ku, kf):
         f"ERS selections equal {same_sel}")
     check(same_sel, "ERS selections differ between fused and solo runs")
     check(diff <= 1e-2, f"fused vs solo x0 differ by {diff}")
+
+    # the same solo drain once more, under the profiler, for the breakdown
+    eng.submit_with_future(reqs[1])
+    profile_drain(eng, solo_wall_ms)
     per_nfe_ms = drain_s / (fused * NFE) * 1e3
     return launches, drain_s, per_nfe_ms
 
 
-def profile_drain(eng) -> None:
+def profile_drain(eng, plain_wall_ms: float) -> None:
     """Drain once under torch.profiler; print the device-time breakdown by
-    kernel and the device's idle share over the drain's wall time."""
+    kernel and the device's idle share, 1 - busy / wall.  The profiler adds
+    host time of its own, so the wall is that of the same drain unprofiled
+    (``plain_wall_ms``); the share over the trace's own device span (first
+    device op to last) is printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -332,6 +357,10 @@ def profile_drain(eng) -> None:
         eng.drain()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(spans), "profiler traced no device op")
+    span_ms = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3
     rows = []
     for evt in prof.key_averages():
         # device-side events only (kernels, memcpy, memset); the CPU-side
@@ -346,9 +375,11 @@ def profile_drain(eng) -> None:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    log(f"profile (one fused batch of 8x256, nfe={NFE}): wall {wall_ms:.1f} ms, "
-        f"device busy {busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"{launches} device ops ({launches / NFE:.0f} per NFE)")
+    log(f"profile (one fused batch of 8x256, nfe={NFE}): device busy "
+        f"{busy_ms:.1f} ms, {launches} device ops ({launches / NFE:.0f} per NFE)")
+    log(f"  unprofiled wall {plain_wall_ms:.1f} ms: idle share "
+        f"{1 - busy_ms / plain_wall_ms:.3f}; trace device span {span_ms:.1f} ms: "
+        f"idle share {1 - busy_ms / span_ms:.3f}; profiled wall {wall_ms:.1f} ms")
     for ms, count, name in rows[:12]:
         log(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
 
@@ -381,7 +412,7 @@ def main() -> None:
              replaces="src/repro/kernels/era_update.py:31",
              launches=launches["era_update"], max_abs_err=era_err,
              ms=era_t["ms"], kernel_ms=era_t["ms"], plain_ms=era_t["plain_ms"],
-             bound_ms=era_t["bound_ms"], bound_by="bytes",
+             bound_ms=era_t["bound_ms"], bound_by=era_t["bound_by"],
              library_ms=None, shape=era_t["shape"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",

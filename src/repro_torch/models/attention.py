@@ -9,8 +9,9 @@ Three SDPA implementations, chosen by ``impl``:
 * ``flash``   — :func:`repro_torch.kernels.flash_attention.flash_attention`,
   the hand-written kernel on the card.
 
-``auto`` picks ``flash`` for CUDA tensors and, for CPU tensors, naive or
-chunked by the reference's size rule.  Masking is positional (every key
+CUDA tensors always take ``flash`` (``auto`` or ``flash``; naming a plain
+version for them raises).  For CPU tensors ``auto`` picks naive or chunked
+by the reference's size rule.  Masking is positional (every key
 carries an absolute position) plus an optional per-row ``kv_mask``.  The
 sliding-window banded path and the KV cache wait for a later slice: the
 dense architectures ported so far have no sliding window.
@@ -124,10 +125,15 @@ def _chunked_sdpa(
 
 
 def resolve_impl(impl: str, device: torch.device, sq: int, sk: int) -> str:
+    if device.type == "cuda":
+        if impl not in ("auto", "flash"):
+            raise ValueError(
+                f"attention impl {impl!r} is a plain version for CPU tensors; "
+                f"CUDA tensors take the flash kernel"
+            )
+        return "flash"
     if impl != "auto":
         return impl
-    if device.type == "cuda":
-        return "flash"
     return "naive" if sq * sk <= 1024 * 2048 else "chunked"
 
 

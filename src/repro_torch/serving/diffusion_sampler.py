@@ -1,7 +1,8 @@
 """Diffusion sampling service (port of ``repro.serving.diffusion_sampler``).
 
 * :class:`BatchedSampler` — the sync engine: ``submit_with_future()``
-  enqueues a request (from any thread) and returns its Future; ``drain()``
+  enqueues a request (from any thread) and returns its Future
+  (``submit()`` returns only its ticket); ``drain()``
   groups pending requests by ``(solver, seq_len, nfe)``, packs each group
   into chunks padded to a batch bucket, and runs every chunk through the
   shared :class:`~repro_torch.serving.executor.FusedExecutor`.
@@ -22,7 +23,6 @@ from __future__ import annotations
 
 import threading
 import time
-import warnings
 from concurrent.futures import Future
 from typing import Callable
 
@@ -83,14 +83,8 @@ class BatchedSampler:
 
     # ---- request queue ---------------------------------------------------
     def submit(self, req: SampleRequest) -> int:
-        """Deprecated: enqueue and return an int ticket for the drain()
-        result map; use :meth:`submit_with_future`."""
-        warnings.warn(
-            "BatchedSampler.submit (int tickets) is deprecated; use "
-            "submit_with_future() and wait on the returned Future",
-            DeprecationWarning,
-            stacklevel=2,
-        )
+        """Validate, enqueue, and return the request's ticket: the key of
+        its result in the map that ``drain()`` returns."""
         return self.submit_with_future(req)[0]
 
     def submit_with_future(self, req: SampleRequest) -> tuple[int, Future]:

@@ -22,7 +22,6 @@ Chunk execution serializes under one re-entrant lock.
 from __future__ import annotations
 
 import dataclasses
-import math
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
@@ -52,17 +51,13 @@ DEFAULT_MAX_SEQ_LEN = 8192
 
 @dataclasses.dataclass(frozen=True)
 class SampleRequest:
-    """One sampling request.  ``seed`` fully determines its initial noise;
-    ``priority`` and ``deadline_ms`` are scheduling hints carried for the
-    continuous-batching scheduler (no-ops on the sync drain path)."""
+    """One sampling request.  ``seed`` fully determines its initial noise."""
 
     batch: int
     seq_len: int
     nfe: int = 10
     solver: str | None = None   # None = the engine's default solver
     seed: int = 0
-    priority: int = 0
-    deadline_ms: float | None = None
 
 
 @dataclasses.dataclass
@@ -213,20 +208,6 @@ class FusedExecutor:
                 f"seed must fit in a signed 64-bit integer "
                 f"({SEED_MIN} <= seed <= {SEED_MAX}), got {req.seed}"
             )
-        if not isinstance(req.priority, int) or isinstance(req.priority, bool):
-            raise ValueError(f"priority must be an int, got {req.priority!r}")
-        if req.deadline_ms is not None:
-            ok = (
-                isinstance(req.deadline_ms, (int, float))
-                and not isinstance(req.deadline_ms, bool)
-                and math.isfinite(req.deadline_ms)
-                and req.deadline_ms > 0
-            )
-            if not ok:
-                raise ValueError(
-                    f"deadline_ms must be a positive finite number of "
-                    f"milliseconds (or None), got {req.deadline_ms!r}"
-                )
         program = self.program_for(req.solver)  # unknown solver raises here
         program.validate(req, self.config_for(req.solver))
 

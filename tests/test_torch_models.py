@@ -25,6 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.interop import params_from_jax
 from repro_torch.models import DiffusionLM
 from repro_torch.models import layers as TL
+from repro_torch.models.attention import resolve_impl
 
 TOL = 5e-4
 ARCHS = ["qwen2-1.5b", "llama3.2-1b"]
@@ -88,6 +89,22 @@ def test_eps_matches_reference(arch, impls, masked):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
         if masked:
             assert np.all(got.numpy()[1, 7:] == 0.0)
+
+
+@pytest.mark.parametrize("impl,want", [
+    ("auto", "flash"), ("flash", "flash"), ("naive", None), ("chunked", None),
+])
+def test_cuda_tensors_always_take_the_flash_kernel(impl, want):
+    """The plain SDPA versions serve CPU tensors only; naming one for a
+    CUDA tensor raises instead of running it on the card."""
+    cuda = torch.device("cuda")
+    if want is None:
+        with pytest.raises(ValueError, match="CPU tensors"):
+            resolve_impl(impl, cuda, 256, 256)
+    else:
+        assert resolve_impl(impl, cuda, 256, 256) == want
+    cpu = torch.device("cpu")
+    assert resolve_impl(impl, cpu, 256, 256) == ("naive" if impl == "auto" else impl)
 
 
 def test_state_dict_covers_every_parameter():

@@ -112,8 +112,6 @@ def _engine(**kw):
     (dict(batch=1, seq_len=4, nfe=2000), "max_nfe"),
     (dict(batch=1, seq_len=4, seed=SEED_MAX + 1), "64-bit"),
     (dict(batch=1, seq_len=4, seed=True), "seed"),
-    (dict(batch=1, seq_len=4, priority=1.5), "priority"),
-    (dict(batch=1, seq_len=4, deadline_ms=-1.0), "deadline_ms"),
     (dict(batch=1, seq_len=4, solver="ddim"), "solver"),
 ])
 def test_validate_rejects_at_submit(req, match):
@@ -134,6 +132,15 @@ def test_noise_is_seed_deterministic_across_batches():
     assert mate.result().padded_batch == 8
     torch.testing.assert_close(again.result().x0, solo.result().x0,
                                atol=1e-5, rtol=0)
+
+
+def test_submit_ticket_keys_the_drain_result():
+    eng = _engine()
+    t0 = eng.submit(SampleRequest(batch=1, seq_len=4, seed=1))
+    t1 = eng.submit(SampleRequest(batch=2, seq_len=4, seed=2))
+    results = eng.drain()
+    assert sorted(results) == [t0, t1] and t0 != t1
+    assert results[t1].x0.shape == (2, 4, eng.dlm.config.d_model)
 
 
 def test_pack_chunks_to_the_largest_bucket():
