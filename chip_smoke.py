@@ -2,18 +2,26 @@
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
-1. prints the card's name and power limit, builds the kernels from the
-   sources in the checkout;
+1. prints the card's name and power limit, builds the CUDA kernels from the
+   sources in the checkout (one ``nvcc`` each, in parallel);
 2. holds the Triton ``era_update`` kernel against its plain PyTorch version
    (max abs error <= 1e-5, the reference's fused-step tolerance);
 3. holds the CUDA ``flash_attention`` kernel against its plain version
    (all-float32 math) at qwen2-1.5b shapes in bf16 and in the masking,
    softcap, ragged-tile and head-dim variants;
-4. serves requests through the port's ``BatchedSampler`` on a full-width
-   qwen2-1.5b denoiser (28 layers, d_model 1536, bf16, random seeded
-   weights) with ERA at nfe=10, checks the outputs, and checks from the
-   kernels' launch counters that the sampling path ran both kernels;
-5. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+4. the ERA path: serves requests through the port's ``BatchedSampler`` on a
+   full-width qwen2-1.5b denoiser (28 layers, d_model 1536, bf16, random
+   seeded weights) with ERA at nfe=10, checks the outputs, and checks from
+   the kernels' launch counters that the sampling path ran its kernels;
+5. holds the CUDA ``decode_attention`` kernel against its plain version at
+   the AR path's shape (half-empty cache), a wrapped ring with window and
+   protected slots, G=5, head dims 64 and 32, and a batch large enough
+   for one split (no combine pass);
+6. the AR path: ``Engine.generate`` on the full-width qwen2-1.5b token model
+   (vocab padded to 153,600, random seeded weights), batch 8, prompt 512,
+   64 new tokens, 1024 cache slots; checks the launch counters, that the
+   decode logits equal a fresh prefill's, and profiles the decode loop;
+7. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times beside its bound, then the result line.
 
 It imports nothing of the JAX package.  Any failed check raises, so the
@@ -51,6 +59,22 @@ K = 4
 FLASH_ATOL = 2 ** -6
 FLASH_RTOL = 2 ** -7
 ERA_TOL = 1e-5
+# the decode kernel against its plain version: both compute in float32 and
+# round the output to bf16 once, so they differ by at most one bf16 ulp of
+# |o| (2^-7 relative); near zero by the float32 difference of the sums
+DECODE_RTOL = 2 ** -7
+DECODE_ATOL = 1e-5
+
+# the AR path: batch, prompt, new tokens, cache slots (max_len)
+AR_BATCH, AR_PROMPT, AR_GEN, AR_MAX_LEN = 8, 512, 64, 1024
+AR_CHECK_STEPS = (1, 32, AR_GEN - 1)
+# decode vs prefill logits, max |diff| <= AR_LOGIT_RTOL * max |logit|.  The
+# two paths round to bf16 in different places at each of the 28 layers
+# (GEMMs of 8 rows against 8 * S rows; the flash kernel rounds P to bf16,
+# the decode kernel keeps it in float32): a few percent of the logits'
+# scale at most.  A wrong cache slot or mask changes the attended keys and
+# with them the hidden state, an O(1) relative change.
+AR_LOGIT_RTOL = 0.05
 
 
 def check(cond: bool, msg: str) -> None:
@@ -235,7 +259,7 @@ def phase_flash(kf):
 # ---------------------------------------------------------------------------
 
 
-def phase_slice(ku, kf):
+def phase_slice(ku, kf, kd):
     from repro_torch.configs import get_config
     from repro_torch.core import linear_schedule
     from repro_torch.models import DiffusionLM
@@ -270,8 +294,8 @@ def phase_slice(ku, kf):
     eng.drain()
 
     futs = [eng.submit_with_future(r)[1] for r in reqs]
-    ku.era_update.launches = 0
-    kf.flash_attention.launches = 0
+    for counted in (ku.era_update, kf.flash_attention, kd.decode_attention):
+        counted.launches = 0
     t0 = time.perf_counter()
     eng.drain()
     torch.cuda.synchronize()
@@ -279,6 +303,7 @@ def phase_slice(ku, kf):
     launches = {
         "era_update": ku.era_update.launches,
         "flash_attention": kf.flash_attention.launches,
+        "decode_attention": kd.decode_attention.launches,
     }
     results = [f.result() for f in futs]
     fused = len({(r.seq_len, r.nfe) for r in reqs})
@@ -290,6 +315,7 @@ def phase_slice(ku, kf):
     check(launches["flash_attention"] == fused * cfg.num_layers * NFE,
           f"flash_attention launches {launches['flash_attention']} != "
           f"{fused * cfg.num_layers * NFE}")
+    check(launches["decode_attention"] == 0, "the ERA path ran decode_attention")
     for req, res in zip(reqs, results):
         check(tuple(res.x0.shape) == (req.batch, req.seq_len, cfg.d_model),
               f"x0 shape {tuple(res.x0.shape)}")
@@ -338,23 +364,242 @@ def phase_slice(ku, kf):
 
     # the same solo drain once more, under the profiler, for the breakdown
     eng.submit_with_future(reqs[1])
-    profile_drain(eng, solo_wall_ms)
+    profile_device(eng.drain, f"one fused batch of 8x256, nfe={NFE}",
+                   solo_wall_ms, NFE, "NFE")
     per_nfe_ms = drain_s / (fused * NFE) * 1e3
     return launches, drain_s, per_nfe_ms
 
 
-def profile_drain(eng, plain_wall_ms: float) -> None:
-    """Drain once under torch.profiler; print the device-time breakdown by
-    kernel and the device's idle share, 1 - busy / wall.  The profiler adds
-    host time of its own, so the wall is that of the same drain unprofiled
-    (``plain_wall_ms``); the share over the trace's own device span (first
-    device op to last) is printed beside it."""
+# ---------------------------------------------------------------------------
+# phase 5: decode_attention
+# ---------------------------------------------------------------------------
+
+
+def phase_decode(kd):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dev = "cuda"
+
+    def run(name, b, h, kvh, s, hd, *, empty=0, shift=0, window=0, prot=0):
+        """A cache of ``s`` slots holding positions 0.. in order, its last
+        ``empty`` slots empty (-1), rotated by ``shift`` slots as a wrapped
+        ring is; the query sits at the largest position."""
+        q = torch.randn(b, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(b, s, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, s, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)
+        pos[s - empty:] = -1
+        pos = torch.roll(pos, shift)
+        q_pos = s - empty - 1
+        kw = dict(window=window, protected=prot)
+        got = kd.decode_attention(q, k, v, q_pos, pos, **kw)
+        want = kd.decode_attention_plain(q, k, v, q_pos, pos, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()), f"decode {name}: non-finite")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        excess = float((diff - DECODE_RTOL * want.float().abs()).max())
+        log(f"decode_attention {name}: max_abs_err {err:.3e}")
+        check(excess <= DECODE_ATOL,
+              f"decode {name} error {err} beyond {DECODE_ATOL} + {DECODE_RTOL}*|o|")
+        return err, (q, k, v, q_pos, pos)
+
+    b, h, kvh, s, hd = 8, 12, 2, 1024, 128
+    errs = []
+    err, (q, k, v, q_pos, pos) = run(
+        "qwen2 B=8 H=12 KV=2 S=1024 hd=128, 512 empty slots",
+        b, h, kvh, s, hd, empty=512)
+    errs.append(err)
+    errs.append(run("qwen2 full cache", b, h, kvh, s, hd)[0])
+    errs.append(run("wrapped ring, 7 empty, window=200+protected=4",
+                    b, h, kvh, s, hd, empty=7, shift=300, window=200,
+                    prot=4)[0])
+    errs.append(run("G=5 (hymba heads H=25 KV=5) hd=64", 2, 25, 5, 300, 64,
+                    empty=20, window=64, prot=8)[0])
+    errs.append(run("hd=64 (llama3.2-1b heads H=32 KV=8)", 8, 32, 8, 1024, 64,
+                    empty=100)[0])
+    errs.append(run("hd=32 (smoke heads)", 2, 4, 2, 96, 32)[0])
+    check(kd.split_plan(64, 8, 512)[0] == 1, "batch-64 case has splits")
+    errs.append(run("one split (B*KV=512: llama heads at batch 64)",
+                    64, 32, 8, 512, 64, empty=30)[0])
+    # a query with no valid slot gives exact zeros
+    none = torch.full((s,), -1, dtype=torch.int32, device=dev)
+    check(bool((kd.decode_attention(q, k, v, q_pos, none) == 0).all()),
+          "decode with no valid slot is not zero")
+
+    # timing at the first case (the AR path's cache half full): device time
+    # of the kernel's launches, of its plain version and of SDPA on the same
+    # inputs (GQA expanded and the slot mask built outside the timed call)
+    ms = device_ms(lambda: kd.decode_attention(q, k, v, q_pos, pos))
+    wrapper_ms = time_ms(lambda: kd.decode_attention(q, k, v, q_pos, pos))
+    plain_ms = device_ms(
+        lambda: kd.decode_attention_plain(q, k, v, q_pos, pos), iters=5
+    )
+    g = h // kvh
+    qt = q[:, :, None, :]
+    kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    mask = ((pos >= 0) & (pos <= q_pos))[None, None, None, :]
+    library_ms = device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    )
+    nbytes = 2.0 * (2 * b * s * kvh * hd + 2 * b * h * hd) + 4.0 * s
+    # every slot is scored (masked or not) and weights V: 4 flops a slot,
+    # head and dim; the softmax's exps are a lower-order term
+    flops = 4.0 * b * h * s * hd
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    timing = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        shape=f"B={b} H={h} KV={kvh} S={s} hd={hd} bf16, 512 empty slots",
+        wrapper_ms=wrapper_ms,
+    )
+    log(f"decode_attention timing: kernel {ms:.5f} ms device "
+        f"({wrapper_ms:.5f} ms a wrapper call, host included), plain "
+        f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
+        f"{timing['bound_ms']:.5f} ms ({timing['bound_by']}), "
+        f"nsplit/chunk {kd.split_plan(b, kvh, s)}")
+    return max(errs), timing
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the AR serving path
+# ---------------------------------------------------------------------------
+
+
+def phase_ar(ku, kf, kd):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_config("qwen2-1.5b")
+    check(
+        (cfg.num_layers, cfg.d_model, cfg.padded_vocab, cfg.dtype)
+        == (28, 1536, 153600, torch.bfloat16),
+        f"unexpected config {cfg}",
+    )
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)  # on the card
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"AR model: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} vocab "
+        f"{cfg.vocab_size} padded to {cfg.padded_vocab}, "
+        f"{n_params / 1e9:.3f}B params, built in {time.perf_counter() - t0:.1f}s")
+    eng = Engine(model, ServeConfig(max_len=AR_MAX_LEN))
+    check(eng.slots == AR_MAX_LEN, f"cache slots {eng.slots}")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (AR_BATCH, AR_PROMPT))
+    ).to(torch.int32).cuda()
+
+    eng.generate(prompts, AR_GEN)  # warm: cuBLAS plans, allocator
+    torch.cuda.synchronize()
+    for counted in (ku.era_update, kf.flash_attention, kd.decode_attention):
+        counted.launches = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, AR_GEN)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {
+        "era_update": ku.era_update.launches,
+        "flash_attention": kf.flash_attention.launches,
+        "decode_attention": kd.decode_attention.launches,
+    }
+    log(f"generate: {tuple(toks.shape)} in {gen_s:.3f}s "
+        f"({AR_BATCH * AR_GEN / gen_s:.1f} tok/s), launches {launches}")
+    check(tuple(toks.shape) == (AR_BATCH, AR_GEN), "generated shape")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "a generated token is outside the vocabulary")
+    check(launches == {"era_update": 0, "flash_attention": cfg.num_layers,
+                       "decode_attention": cfg.num_layers * (AR_GEN - 1)},
+          f"AR launches {launches}")
+
+    # the same generation step by step, timed: prefill, then the decode
+    # loop; the decode logits at a few steps are kept for the check below
+    keep = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill_step(prompts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nxt = [eng.sample_token(logits)]
+    for i in range(AR_GEN - 1):
+        logits, cache = eng.decode_step(cache, nxt[-1][:, None], AR_PROMPT + i)
+        if i + 1 in AR_CHECK_STEPS:
+            keep[i + 1] = logits
+        nxt.append(eng.sample_token(logits))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(torch.equal(torch.stack(nxt, dim=1), toks), "step-by-step tokens differ")
+    prefill_ms = (t1 - t0) * 1e3
+    decode_wall_ms = (t2 - t1) * 1e3
+    per_token_ms = decode_wall_ms / (AR_GEN - 1)
+    log(f"AR timing: prefill {prefill_ms:.2f} ms ({AR_BATCH}x{AR_PROMPT}), "
+        f"decode {per_token_ms:.3f} ms per step of {AR_BATCH} tokens "
+        f"({decode_wall_ms:.1f} ms for {AR_GEN - 1} steps)")
+
+    # end to end, flash kernel against decode kernel through the whole
+    # model: the decode logits at step i equal the last-token logits of a
+    # fresh prefill over prompt + the first i generated tokens
+    for i, dec in keep.items():
+        seq = torch.cat([prompts, toks[:, :i]], dim=1)
+        ref, _ = model.prefill(seq, AR_MAX_LEN)
+        ref = ref.float()
+        diff = float((dec.float() - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(f"decode vs prefill logits at step {i}: max_abs_diff {diff:.4f}, "
+            f"max |logit| {scale:.3f}, ratio {diff / scale:.4f}")
+        check(diff <= AR_LOGIT_RTOL * scale,
+              f"decode logits at step {i} differ from prefill by {diff} "
+              f"(> {AR_LOGIT_RTOL} x {scale})")
+
+    # the decode loop once more under the profiler, for the breakdown
+    logits, cache = eng.prefill_step(prompts)
+
+    def decode_loop():
+        lg, c = logits, cache
+        t = eng.sample_token(lg)
+        for i in range(AR_GEN - 1):
+            lg, c = eng.decode_step(c, t[:, None], AR_PROMPT + i)
+            t = eng.sample_token(lg)
+
+    idle = profile_device(
+        decode_loop, f"decode loop, {AR_GEN - 1} steps of {AR_BATCH} tokens",
+        decode_wall_ms, AR_GEN - 1, "step",
+    )
+    return launches, dict(prefill_ms=prefill_ms, decode_ms_per_step=per_token_ms,
+                          tok_s=AR_BATCH * AR_GEN / gen_s, idle_share=idle)
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call: the profiler's device time of every
+    kernel ``iters`` calls launch, over ``iters``.  Unlike :func:`time_ms`
+    it leaves out the host time of a wrapper whose kernels are shorter than
+    its own Python."""
+    for _ in range(warmup):
+        fn()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    rows, _, _ = device_events(run)
+    return sum(r[0] for r in rows) / iters
+
+
+def device_events(fn):
+    """Run ``fn`` under torch.profiler; return ((device ms, count, name)
+    rows sorted by time, device span ms, profiled wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.drain()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
@@ -373,15 +618,29 @@ def profile_drain(eng, plain_wall_ms: float) -> None:
         if dev_us > 0:
             rows.append((dev_us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
+    return rows, span_ms, wall_ms
+
+
+def profile_device(fn, what: str, plain_wall_ms: float, per: int,
+                   unit: str) -> float:
+    """Run ``fn`` once under torch.profiler; print the device-time breakdown
+    by kernel and the device's idle share, 1 - busy / wall, and return that
+    share.  The profiler adds host time of its own, so the wall is that of
+    the same work run unprofiled (``plain_wall_ms``); the share over the
+    trace's own device span (first device op to last) is printed beside
+    it."""
+    rows, span_ms, wall_ms = device_events(fn)
     busy_ms = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    log(f"profile (one fused batch of 8x256, nfe={NFE}): device busy "
-        f"{busy_ms:.1f} ms, {launches} device ops ({launches / NFE:.0f} per NFE)")
-    log(f"  unprofiled wall {plain_wall_ms:.1f} ms: idle share "
-        f"{1 - busy_ms / plain_wall_ms:.3f}; trace device span {span_ms:.1f} ms: "
-        f"idle share {1 - busy_ms / span_ms:.3f}; profiled wall {wall_ms:.1f} ms")
+    idle = 1 - busy_ms / plain_wall_ms
+    log(f"profile ({what}): device busy {busy_ms:.1f} ms, {launches} device "
+        f"ops ({launches / per:.0f} per {unit})")
+    log(f"  unprofiled wall {plain_wall_ms:.1f} ms: idle share {idle:.3f}; "
+        f"trace device span {span_ms:.1f} ms: idle share "
+        f"{1 - busy_ms / span_ms:.3f}; profiled wall {wall_ms:.1f} ms")
     for ms, count, name in rows[:12]:
         log(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
+    return idle
 
 
 def main() -> None:
@@ -395,35 +654,54 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import era_update as ku
     from repro_torch.kernels import flash_attention as kf
 
     t0 = time.perf_counter()
-    lib = build.build(kf.SOURCE)
-    log(f"built {lib.name} in {time.perf_counter() - t0:.1f}s")
+    libs = build.build_all([kf.SOURCE, kd.SOURCE])
+    log(f"built {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f}s")
 
     era_err, era_t = phase_era(ku)
     flash_err, flash_t = phase_flash(kf)
-    launches, drain_s, per_nfe_ms = phase_slice(ku, kf)
+    era_launches, drain_s, per_nfe_ms = phase_slice(ku, kf, kd)
+    decode_err, decode_t = phase_decode(kd)
+    ar_launches, ar = phase_ar(ku, kf, kd)
+
+    def counts(name):
+        by_path = {"era": era_launches[name], "ar": ar_launches[name]}
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
         dict(name="era_update", route="triton",
              source="src/repro_torch/kernels/era_update.py",
              replaces="src/repro/kernels/era_update.py:31",
-             launches=launches["era_update"], max_abs_err=era_err,
+             **counts("era_update"), max_abs_err=era_err,
              ms=era_t["ms"], kernel_ms=era_t["ms"], plain_ms=era_t["plain_ms"],
              bound_ms=era_t["bound_ms"], bound_by=era_t["bound_by"],
              library_ms=None, shape=era_t["shape"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:34",
-             launches=launches["flash_attention"], max_abs_err=flash_err,
+             **counts("flash_attention"), max_abs_err=flash_err,
              ms=flash_t["ms"], kernel_ms=flash_t["ms"],
              plain_ms=flash_t["plain_ms"], bound_ms=flash_t["bound_ms"],
              bound_by=flash_t["bound_by"], library_ms=flash_t["library_ms"],
              shape=flash_t["shape"]),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:23",
+             **counts("decode_attention"), max_abs_err=decode_err,
+             ms=decode_t["ms"], kernel_ms=decode_t["ms"],
+             wrapper_ms=decode_t["wrapper_ms"],
+             plain_ms=decode_t["plain_ms"], bound_ms=decode_t["bound_ms"],
+             bound_by=decode_t["bound_by"],
+             library_ms=decode_t["library_ms"], shape=decode_t["shape"]),
     ]
-    log(f"slice: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
+    log(f"ERA path: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
+    log(f"AR path: prefill {ar['prefill_ms']:.2f} ms, decode "
+        f"{ar['decode_ms_per_step']:.3f} ms per step, {ar['tok_s']:.1f} tok/s, "
+        f"decode-loop idle share {ar['idle_share']:.3f}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,2 +1,7 @@
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import ALIASES, arch_names, get_config
+from repro_torch.configs.registry import (
+    ALIASES,
+    arch_names,
+    get_config,
+    long_context_policy,
+)

@@ -1,13 +1,15 @@
 """Model configuration: the :class:`ModelConfig` fields the dense family reads.
 
-Ports ``repro.configs.base`` for the dense architectures this slice serves
-(qwen2-1.5b, llama3.2-1b).  Dtypes are torch dtypes.  The MoE / MLA / SSM /
-frontend sub-configs wait for the slices that port those families.
+Ports ``repro.configs.base`` for the dense architectures the port serves
+(qwen2-1.5b, llama3.2-1b), on the diffusion and the autoregressive paths.
+Dtypes are torch dtypes.  The MoE / MLA / SSM / frontend sub-configs wait
+for the slices that port those families.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -30,14 +32,18 @@ class ModelConfig:
     use_rope: bool = True
     max_position: int = 32768
     sliding_window: int = 0        # 0 => full attention
+    long_context_window: int = 8192  # window of the long-context variant
     attn_logit_softcap: float = 0.0
     # ---- blocks ----
     stack_pattern: tuple[tuple[str, int], ...] = ()
     mlp_act: str = "silu"          # silu (swiglu) | gelu (geglu)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    num_meta_tokens: int = 0       # Hymba learnable prefix tokens
     # ---- numerics / system ----
     dtype: Any = torch.bfloat16    # compute dtype of the block stack
+    vocab_pad_multiple: int = 2048  # the embedding's rows are padded to it
+    kv_quant: str = "none"         # none | int8 (decode cache quantization)
     attention_impl: str = "auto"   # auto | naive | chunked | flash
     attn_chunk: int = 1024
     source: str = ""
@@ -46,6 +52,11 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return int(math.ceil(self.vocab_size / m) * m)
 
     @property
     def blocks(self) -> tuple[tuple[str, int], ...]:
@@ -71,11 +82,14 @@ class ModelConfig:
             num_kv_heads=min(self.num_kv_heads, 2),
             d_ff=min(self.d_ff, 256) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
+            vocab_pad_multiple=64,
             max_position=512,
             head_dim=min(self.resolved_head_dim, 32),
             dtype=torch.float32,
+            num_meta_tokens=min(self.num_meta_tokens, 8),
             sliding_window=(
                 min(self.sliding_window, 64) if self.sliding_window else 0
             ),
+            long_context_window=64,
             attn_chunk=64,
         )

@@ -1,7 +1,7 @@
-"""Architecture registry of the port: ``get_config(name, smoke=...)``.
+"""Architecture registry of the port: ``get_config(name, smoke=...)`` and
+``long_context_policy``.
 
-Only the dense architectures of the sampling slice are ported; asking for
-another one raises."""
+Only the dense architectures are ported; asking for another one raises."""
 
 from __future__ import annotations
 
@@ -31,3 +31,14 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
         f"repro_torch.configs.{mod_name}"
     ).CONFIG
     return cfg.smoke() if smoke else cfg
+
+
+def long_context_policy(cfg: ModelConfig) -> str:
+    """How this arch runs a very long generation: ``native`` when it is
+    sub-quadratic by construction (SSM / hybrid / native sliding window),
+    ``swa`` when a dense arch is served with the sliding-window variant."""
+    if cfg.family in ("ssm", "hybrid"):
+        return "native"
+    if cfg.sliding_window:
+        return "native"
+    return "swa"

@@ -1,15 +1,23 @@
-"""Weight interop: the reference's parameter tree -> the port's modules.
+"""Weight interop: the reference's parameter trees -> the port's modules.
 
-``params_from_jax(tree, cfg)`` takes the dict that
-``repro.models.diffusion.DiffusionLM.init`` returns, with every leaf
-converted to a numpy array, and returns a state dict for
-``repro_torch.models.DiffusionLM.load_state_dict``.  The reference stacks
-each segment's per-layer parameters on a leading layer axis under
-``params["backbone"]["segs"]["<i>_<kind>"]``; a linear weight is
-``(d_in, d_out)`` in both packages, so nothing is transposed.  qwen2 has
-biases on wq/wk/wv, llama has none.  The token embedding (and LM head) of
-the reference tree are not used by the denoiser and are dropped.
-Loading casts each tensor to the dtype of the module parameter it fills.
+Each function takes a reference parameter tree with every leaf converted
+to a numpy array and returns a state dict for ``load_state_dict``:
+
+* ``params_from_jax(tree, cfg)``: the tree of
+  ``repro.models.diffusion.DiffusionLM.init``, for
+  ``repro_torch.models.DiffusionLM``.  Its token embedding (and LM head)
+  are not used by the denoiser and are dropped.
+* ``model_params_from_jax(tree, cfg)``: the tree of
+  ``repro.models.build_model(cfg).init(key)`` (``embed``, ``final_norm``,
+  ``segs``, and ``lm_head`` where the embeddings are untied), for
+  ``repro_torch.models.Model``.  The reference's ``embed`` already has
+  ``padded_vocab`` rows, so it is copied as it is.
+
+The reference stacks each segment's per-layer parameters on a leading
+layer axis under ``segs["<i>_<kind>"]``; a linear weight is ``(d_in,
+d_out)`` in both packages, so nothing is transposed.  qwen2 has biases on
+wq/wk/wv, llama has none.  Loading casts each tensor to the dtype of the
+module parameter it fills.
 """
 
 from __future__ import annotations
@@ -34,14 +42,15 @@ def _linear(prefix: str, p: dict, layer: int | None = None) -> dict:
     return out
 
 
-def params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
+def _backbone(segs: dict, final_norm: dict, cfg: ModelConfig) -> dict:
+    """``backbone.*`` entries: the per-layer parameters of every segment,
+    then the final norm."""
     sd: dict[str, torch.Tensor] = {}
-    bb = tree["backbone"]
     layer0 = 0
     for seg_i, (kind, count) in enumerate(cfg.blocks):
         if kind != "dense":
             raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-        seg = bb["segs"][f"{seg_i}_{kind}"]
+        seg = segs[f"{seg_i}_{kind}"]
         for j in range(count):
             pre = f"backbone.layers.{layer0 + j}"
             sd[f"{pre}.ln1.scale"] = _t(seg["ln1"]["scale"][j])
@@ -51,9 +60,23 @@ def params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
             for name in seg["mlp"]:
                 sd.update(_linear(f"{pre}.mlp.{name}", seg["mlp"][name], j))
         layer0 += count
-    sd["backbone.final_norm.scale"] = _t(bb["final_norm"]["scale"])
+    sd["backbone.final_norm.scale"] = _t(final_norm["scale"])
+    return sd
+
+
+def params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
+    bb = tree["backbone"]
+    sd = _backbone(bb["segs"], bb["final_norm"], cfg)
     for name in ("w1", "w2"):
         sd.update(_linear(f"time_mlp.{name}", tree["time_mlp"][name]))
     sd.update(_linear("in_proj", tree["in_proj"]))
     sd.update(_linear("eps_head", tree["eps_head"]))
+    return sd
+
+
+def model_params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
+    sd = _backbone(tree["segs"], tree["final_norm"], cfg)
+    sd["embed"] = _t(tree["embed"])
+    if not cfg.tie_embeddings:
+        sd["lm_head.w"] = _t(tree["lm_head"])
     return sd

@@ -50,20 +50,34 @@ def compile_command(source: str, out: Path) -> list[str]:
 
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless its library is already built."""
-    out = library_path(source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        compile_command(source, tmp), capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}"
+    return build_all([source])[0]
+
+
+def build_all(sources: list[str]) -> list[Path]:
+    """Compile every ``csrc/<source>`` whose library is not built yet, one
+    ``nvcc`` process each, all started together; raise if any fails."""
+    outs = [library_path(src) for src in sources]
+    procs = []
+    for src, out in zip(sources, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            compile_command(src, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
         )
-    os.replace(tmp, out)
-    return out
+        procs.append((src, out, tmp, proc))
+    failed = []
+    for src, out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -1,2 +1,2 @@
 from repro_torch.models.diffusion import MASKABLE_BLOCKS, DiffusionLM
-from repro_torch.models.model import Backbone
+from repro_torch.models.model import Backbone, Model, build_model

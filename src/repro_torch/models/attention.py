@@ -1,7 +1,7 @@
-"""GQA attention for the denoising (train-mode) path — port of
-``repro.models.attention``.
+"""GQA attention with a KV cache — port of ``repro.models.attention``.
 
-Three SDPA implementations, chosen by ``impl``:
+Three SDPA implementations for the full-sequence modes (train, prefill),
+chosen by ``impl``:
 
 * ``naive``   — materializes (Sq, Sk) scores (the reference's
   ``_naive_sdpa``, same dtype behaviour);
@@ -12,9 +12,25 @@ Three SDPA implementations, chosen by ``impl``:
 CUDA tensors always take ``flash`` (``auto`` or ``flash``; naming a plain
 version for them raises).  For CPU tensors ``auto`` picks naive or chunked
 by the reference's size rule.  Masking is positional (every key
-carries an absolute position) plus an optional per-row ``kv_mask``.  The
-sliding-window banded path and the KV cache wait for a later slice: the
-dense architectures ported so far have no sliding window.
+carries an absolute position) plus an optional per-row ``kv_mask``.
+
+Decode (one token over the cache) goes through
+:func:`repro_torch.kernels.decode_attention.decode_attention`: the
+hand-written kernel on the card, its plain version for CPU tensors.  The
+reference's decode picks naive SDPA (its Pallas decode kernel is reached
+only by its kernel tests); the port routes decode to its kernel the way
+it routes the full-sequence modes to ``flash``.
+
+The KV cache keeps the reference's semantics (slots carry absolute
+positions, -1 = empty; ring slot ``pos % slots``, or ``protected + (pos -
+protected) % ring`` past protected prefix slots; a prefill longer than the
+cache keeps its last ``slots`` entries) in one dict per model: ``k`` and
+``v`` of shape (L, B, slots, KV, hd) and one ``pos`` (slots,) int32, where
+the reference stacks an identical ``pos`` for every layer.  The reference
+donates its cache buffers to each jitted decode step; the port updates
+the cache tensors in place instead.  The int8 cache and the banded
+windowed prefill (``_banded_sdpa``, a faster layout of the same windowed
+attention) wait for a later slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -23,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
@@ -129,12 +146,24 @@ def resolve_impl(impl: str, device: torch.device, sq: int, sk: int) -> str:
         if impl not in ("auto", "flash"):
             raise ValueError(
                 f"attention impl {impl!r} is a plain version for CPU tensors; "
-                f"CUDA tensors take the flash kernel"
+                f"CUDA tensors take the hand-written kernels"
             )
         return "flash"
     if impl != "auto":
         return impl
     return "naive" if sq * sk <= 1024 * 2048 else "chunked"
+
+
+def check_decode(impl: str, device: torch.device, softcap: float) -> None:
+    """Decode takes the decode kernel for CUDA tensors (naming a plain impl
+    for them raises) and its plain version for CPU tensors.  Neither has a
+    softcap, like the TPU decode kernel: no ported architecture sets one."""
+    resolve_impl(impl, device, 1, 1)
+    if softcap > 0.0:
+        raise ValueError(
+            f"decode attention has no softcap (got {softcap}); no ported "
+            f"architecture sets one"
+        )
 
 
 def sdpa(
@@ -171,8 +200,70 @@ def sdpa(
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
+# ---------------------------------------------------------------------------
+# KV cache: one per model, updated in place
+# ---------------------------------------------------------------------------
+
+
+def init_cache(
+    num_layers: int, batch: int, slots: int, kv_heads: int, head_dim: int,
+    dtype, device,
+) -> dict:
+    """An empty cache: zero K/V and every slot position -1."""
+    shape = (num_layers, batch, slots, kv_heads, head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((slots,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def cache_slot(pos: int, slots: int, protected: int = 0) -> int:
+    """Ring slot of absolute position ``pos`` (a host int, so choosing the
+    slot costs no device sync)."""
+    if 0 < protected < slots:
+        if pos < protected:
+            return pos
+        return protected + (pos - protected) % (slots - protected)
+    return pos % slots
+
+
+def cache_insert(cache: dict, pos: int, protected: int = 0) -> int:
+    """Record one decode step at absolute position ``pos`` in the shared
+    slot positions; returns the slot every layer writes its K/V to
+    (:func:`cache_write`)."""
+    slot = cache_slot(pos, cache["pos"].shape[0], protected)
+    cache["pos"][slot] = pos
+    return slot
+
+
+def cache_fill(cache: dict, s: int) -> int:
+    """Record a prefill of ``s`` steps from position 0; returns how many of
+    them the cache keeps — the last ``min(s, slots)``, written from slot 0
+    on, as the reference does."""
+    slots = cache["pos"].shape[0]
+    keep = min(s, slots)
+    cache["pos"][:keep] = torch.arange(
+        s - keep, s, dtype=torch.int32, device=cache["pos"].device
+    )
+    return keep
+
+
+def cache_write(cache: dict, layer: int, k: Tensor, v: Tensor, slot: int) -> None:
+    """Write ``k``/``v`` (B, n, KV, hd) of ``layer`` at slots
+    ``slot .. slot + n``, in place."""
+    n = k.shape[1]
+    cache["k"][layer, :, slot : slot + n] = k
+    cache["v"][layer, :, slot : slot + n] = v
+
+
+def cache_kv(cache: dict, layer: int) -> tuple[Tensor, Tensor]:
+    """K/V of ``layer``, (B, slots, KV, hd) views of the cache."""
+    return cache["k"][layer], cache["v"][layer]
+
+
 class Attention(nn.Module):
-    """Projections + rope + SDPA, train mode (full-sequence layout)."""
+    """Projections + rope + SDPA in the train, prefill and decode modes."""
 
     def __init__(self, cfg, *, generator, device, dtype):
         super().__init__()
@@ -186,10 +277,18 @@ class Attention(nn.Module):
         self.wo = L.Linear(h * hd, d, **kw)
 
     def forward(
-        self, x: Tensor, *, window: int = 0, causal: bool = True,
-        protected: int = 0, lengths: Tensor | None = None,
+        self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
+        layer: int = 0, pos: int | None = None, window: int = 0,
+        causal: bool = True, protected: int = 0,
+        lengths: Tensor | None = None,
     ) -> Tensor:
-        """``lengths`` ((B,) int) marks positions >= lengths[b] as
+        """``mode``: ``train`` (the full sequence, no cache), ``prefill``
+        (causal over the prompt at positions ``arange(S)``, also filling
+        ``layer`` of ``cache``) or ``decode`` (one token at the host-int
+        absolute position ``pos``: its K/V go into ``layer`` of ``cache``,
+        whose slot positions the caller has already recorded with
+        :func:`cache_insert`, and the query attends over the whole cache).
+        ``lengths`` ((B,) int, train mode) marks positions >= lengths[b] as
         right-padding: those keys are masked out of every row's softmax."""
         cfg = self.cfg
         b, s, _ = x.shape
@@ -197,15 +296,35 @@ class Attention(nn.Module):
         q = self.wq(x).reshape(b, s, h, hd)
         k = self.wk(x).reshape(b, s, kvh, hd)
         v = self.wv(x).reshape(b, s, kvh, hd)
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        if mode == "decode":
+            positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        else:
+            positions = torch.arange(s, dtype=torch.int32, device=x.device)
         if cfg.use_rope:
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
-        kv_mask = None if lengths is None else positions < lengths[:, None]
-        out = sdpa(
-            q, k, v, positions, positions,
-            window=window, causal=causal, softcap=cfg.attn_logit_softcap,
-            impl=cfg.attention_impl, chunk=cfg.attn_chunk,
-            protected=protected, kv_mask=kv_mask,
-        )
+        if mode == "decode":
+            out = self._decode(q, k, v, cache, layer, pos, window, protected)
+        else:
+            if mode == "prefill" and cache is not None:
+                keep = min(s, cache["pos"].shape[0])
+                cache_write(cache, layer, k[:, s - keep :], v[:, s - keep :], 0)
+            kv_mask = None if lengths is None else positions < lengths[:, None]
+            out = sdpa(
+                q, k, v, positions, positions,
+                window=window, causal=causal, softcap=cfg.attn_logit_softcap,
+                impl=cfg.attention_impl, chunk=cfg.attn_chunk,
+                protected=protected, kv_mask=kv_mask,
+            )
         return self.wo(out.reshape(b, s, h * hd))
+
+    def _decode(self, q, k, v, cache, layer, pos, window, protected) -> Tensor:
+        cfg = self.cfg
+        slots = cache["pos"].shape[0]
+        check_decode(cfg.attention_impl, q.device, cfg.attn_logit_softcap)
+        cache_write(cache, layer, k, v, cache_slot(pos, slots, protected))
+        k_all, v_all = cache_kv(cache, layer)
+        return decode_attention(
+            q, k_all, v_all, pos, cache["pos"], window=window,
+            protected=protected,
+        )

@@ -26,11 +26,20 @@ class DenseBlock(nn.Module):
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, **kw)
 
     def forward(
-        self, x: Tensor, *, causal: bool = True, lengths: Tensor | None = None
+        self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
+        layer: int = 0, pos: int | None = None, window_override: int = -1,
+        protected: int = 0, causal: bool = True,
+        lengths: Tensor | None = None,
     ) -> Tensor:
+        """``window_override`` < 0 keeps the block's own window (the
+        reference's ``_window``); 0 is full attention, > 0 a window."""
+        window = (
+            self.cfg.sliding_window if window_override < 0 else window_override
+        )
         h = self.ln1(x)
         x = x + self.attn(
-            h, window=self.cfg.sliding_window, causal=causal, lengths=lengths
+            h, mode=mode, cache=cache, layer=layer, pos=pos, window=window,
+            causal=causal, protected=protected, lengths=lengths,
         )
         return x + self.mlp(self.ln2(x))
 

@@ -1,19 +1,24 @@
-"""The block stack of a model (port of ``repro.models.model``).
+"""Model assembly (port of ``repro.models.model``): the block stack, and the
+token model that serves the autoregressive path.
 
-Only the part the diffusion denoiser runs is ported: the dense block stack
-and ``final_norm`` (``Model.backbone``).  The token embedding and LM head
-are left out because ``DiffusionLM.eps`` never reads them; the
-autoregressive prefill / decode path waits for a later slice.  The
-reference scans stacked per-layer parameters; here the layers are a
-``ModuleList`` run in order.
+:class:`Backbone` is the dense block stack and ``final_norm``; the
+diffusion denoiser runs it on embedded states.  :class:`Model` adds the
+token embedding and the LM head (tied to ``embed.T`` where the config ties
+them) and mirrors the reference ``Model``'s cache, ``prefill`` and
+``decode``.  The reference scans stacked per-layer parameters; here the
+layers are a ``ModuleList`` run in order.  The meta-token and image-patch
+prefixes, and the families other than dense, wait for later slices.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS
 
@@ -36,10 +41,127 @@ class Backbone(nn.Module):
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
 
     def forward(
-        self, h: Tensor, causal: bool = True, lengths: Tensor | None = None
+        self, h: Tensor, causal: bool = True, lengths: Tensor | None = None,
+        *, mode: str = "train", cache: dict | None = None,
+        pos: int | None = None, window_override: int = -1, protected: int = 0,
     ) -> Tensor:
         """Run the stack on embedded states (B, S, d); ``lengths`` (B,)
-        masks right-padding keys out of every attention softmax."""
-        for layer in self.layers:
-            h = layer(h, causal=causal, lengths=lengths)
+        masks right-padding keys out of every attention softmax.  In the
+        prefill and decode modes, layer ``i`` reads and writes layer ``i``
+        of ``cache`` (see :class:`repro_torch.models.attention.Attention`)."""
+        for i, layer in enumerate(self.layers):
+            h = layer(
+                h, mode=mode, cache=cache, layer=i, pos=pos,
+                window_override=window_override, protected=protected,
+                causal=causal, lengths=lengths,
+            )
         return self.final_norm(h)
+
+
+class Model(nn.Module):
+    """Token embedding + block stack + LM head, with a KV cache.
+
+    Built on the card unless the caller passes ``device="cpu"``, with the
+    reference's init rules drawn from a seeded ``torch.Generator``.  Every
+    weight is stored in the compute dtype (``layers.py``); reference
+    weights map in through :func:`repro_torch.interop.model_params_from_jax`
+    and ``load_state_dict``.
+    """
+
+    def __init__(
+        self, cfg: ModelConfig, *, device: str | torch.device | None = None,
+        seed: int = 0,
+    ):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                f"(ROADMAP queue 1 item 6)"
+            )
+        if cfg.kv_quant != "none":
+            raise NotImplementedError(
+                f"kv_quant={cfg.kv_quant!r}: the int8 KV cache is not ported "
+                f"yet (ROADMAP queue 1 item 7)"
+            )
+        if cfg.num_meta_tokens:
+            raise NotImplementedError(
+                "meta-token prefixes are not ported yet (ROADMAP queue 1 item 7)"
+            )
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        d = cfg.d_model
+        self.config = cfg
+        self.embed = nn.Parameter(
+            L.init_tensor((cfg.padded_vocab, d), "embed", gen, dev, cfg.dtype),
+            requires_grad=False,
+        )
+        self.backbone = Backbone(cfg, generator=gen, device=dev)
+        self.lm_head = (
+            None if cfg.tie_embeddings
+            else L.Linear(d, cfg.padded_vocab, generator=gen, device=dev,
+                          dtype=cfg.dtype)
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ---- caches ----
+    def _slots_for(self, kind: str, slots: int) -> int:
+        """Sliding-window blocks only need ring buffers of window size."""
+        cfg = self.config
+        if kind in ("dense", "moe") and cfg.sliding_window > 0:
+            return min(slots, cfg.sliding_window + cfg.num_meta_tokens)
+        return slots
+
+    def init_cache(self, batch: int, slots: int) -> dict:
+        cfg = self.config
+        (kind, count), = cfg.blocks
+        return A.init_cache(
+            count, batch, self._slots_for(kind, slots), cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.dtype, self.device,
+        )
+
+    # ---- forward passes ----
+    def _logits(self, h: Tensor) -> Tensor:
+        if self.lm_head is None:
+            return h @ self.embed.T.to(h.dtype)
+        return self.lm_head(h)
+
+    @torch.no_grad()
+    def prefill(
+        self, tokens: Tensor, slots: int, window_override: int = -1
+    ) -> tuple[Tensor, dict]:
+        """Process the prompts ``tokens`` (B, S); returns the last token's
+        logits (B, 1, padded_vocab) and a new cache of ``slots`` slots."""
+        cache = self.init_cache(tokens.shape[0], slots)
+        A.cache_fill(cache, tokens.shape[1])
+        h = F.embedding(tokens, self.embed)
+        h = self.backbone(
+            h, mode="prefill", cache=cache, window_override=window_override,
+            protected=self.config.num_meta_tokens,
+        )
+        return self._logits(h[:, -1:, :]), cache
+
+    @torch.no_grad()
+    def decode(
+        self, cache: dict, tokens: Tensor, pos: int, window_override: int = -1
+    ) -> tuple[Tensor, dict]:
+        """One decode step: ``tokens`` (B, 1) at the absolute position
+        ``pos`` (a host int).  Updates ``cache`` in place and returns the
+        logits (B, 1, padded_vocab) and the cache."""
+        protected = self.config.num_meta_tokens
+        A.cache_insert(cache, pos, protected)
+        h = F.embedding(tokens, self.embed)
+        h = self.backbone(
+            h, mode="decode", cache=cache, pos=pos,
+            window_override=window_override, protected=protected,
+        )
+        return self._logits(h), cache
+
+
+def build_model(
+    cfg: ModelConfig, device: str | torch.device | None = None, seed: int = 0
+) -> Model:
+    """The token model of ``cfg``, on the card unless ``device="cpu"``."""
+    return Model(cfg, device=device, seed=seed)

@@ -1,5 +1,11 @@
 from repro_torch.serving import result_keys
 from repro_torch.serving.diffusion_sampler import BatchedSampler, SamplerService
+from repro_torch.serving.engine import (
+    Engine,
+    ServeConfig,
+    cache_slots,
+    resolve_window,
+)
 from repro_torch.serving.executor import (
     DEFAULT_MAX_BATCH,
     DEFAULT_MAX_NFE,

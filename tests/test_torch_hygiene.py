@@ -4,8 +4,9 @@
   nor the reference package ``repro`` — checked both by importing every
   module in a fresh interpreter and by scanning the source.
 * Nothing falls back silently: without a card, entry points that were not
-  asked for the CPU raise, and the kernel modules and the solver core hold
-  no ``try`` (a CUDA tensor launches its kernel or raises).
+  asked for the CPU raise, and the kernel modules, the solver core, the
+  attention module and the AR engine hold no ``try`` (a CUDA tensor
+  launches its kernel or raises).
 """
 
 import ast
@@ -22,7 +23,10 @@ from repro_torch import device as D
 from repro_torch.configs import get_config
 from repro_torch.core import ERAConfig, get_solver, linear_schedule
 from repro_torch.core import era
-from repro_torch.models import DiffusionLM
+from repro_torch.launch import serve
+from repro_torch.models import DiffusionLM, build_model
+from repro_torch.models.attention import check_decode
+from repro_torch.serving import Engine, ServeConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
@@ -53,6 +57,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.era" in out["imported"]
     assert "repro_torch.kernels.flash_attention" in out["imported"]
+    assert "repro_torch.kernels.decode_attention" in out["imported"]
+    assert "repro_torch.launch.serve" in out["imported"]
     bad = [m for m in out["loaded"] if _forbidden(m)]
     assert not bad, bad
 
@@ -72,7 +78,8 @@ def test_source_imports_no_jax_or_reference(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted((PKG / "kernels").glob("*.py")) + sorted((PKG / "core").glob("*.py")),
+    sorted((PKG / "kernels").glob("*.py")) + sorted((PKG / "core").glob("*.py"))
+    + [PKG / "serving" / "engine.py", PKG / "models" / "attention.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_kernels_and_solver_hold_no_fallback_try(path):
@@ -104,6 +111,49 @@ def test_cpu_is_only_taken_when_asked(no_card):
     cfg = get_config("qwen2-1.5b", smoke=True)
     assert D.resolve_device("cpu").type == "cpu"
     assert DiffusionLM(cfg, device="cpu").device.type == "cpu"
+
+
+def test_ar_entry_points_raise_without_a_card(no_card):
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg, device="cuda")
+    for mode in ("ar", "diffusion"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--smoke", "--mode", mode])
+
+
+def test_ar_path_takes_the_cpu_only_when_asked(no_card, capsys):
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    model = build_model(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    toks = Engine(model, ServeConfig(max_len=16)).generate(
+        torch.zeros(1, 4, dtype=torch.int32), 3
+    )
+    assert toks.device.type == "cpu" and toks.shape == (1, 3)
+    serve.main(["--smoke", "--device", "cpu", "--gen", "2"])
+    assert capsys.readouterr().out.startswith("generated (4, 2)")
+
+
+@pytest.mark.parametrize("impl,ok", [
+    ("auto", True), ("flash", True), ("naive", False), ("chunked", False),
+])
+def test_cuda_decode_takes_the_decode_kernel(impl, ok):
+    """A CUDA-tensor decode takes the decode kernel: naming a plain impl for
+    it raises, and so does a softcap (on any device: neither the kernel nor
+    its plain version has one).  CPU tensors take the plain version under
+    any impl."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    if ok:
+        check_decode(impl, cuda, 0.0)
+    else:
+        with pytest.raises(ValueError, match="CPU tensors"):
+            check_decode(impl, cuda, 0.0)
+    check_decode(impl, cpu, 0.0)
+    for dev in (cuda, cpu):
+        with pytest.raises(ValueError, match="softcap"):
+            check_decode(impl if ok else "auto", dev, 30.0)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -7,6 +7,9 @@ are checked against the same plain versions on the card by
 Tolerances: the fused ERA step uses the reference's own fused-step bar,
 1e-5 (``repro.core.era._FUSED_TOL``).  Attention in float32 agrees to
 summation-order rounding of a softmax over at most 160 keys: atol 2e-6.
+Decode attention takes the reference's own bars (``tests/test_kernels.py``):
+atol 2e-5 in float32, and 3e-2 in bfloat16, where both outputs are
+rounded to bf16 (one ulp of |o| < 4 is 2^-6).
 """
 
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ from repro.core.era import AM4 as J_AM4
 from repro.kernels import ops, ref
 from repro_torch.core.era import AM4
 from repro_torch.core.lagrange import lagrange_weights
+from repro_torch.kernels import decode_attention as kd
 from repro_torch.kernels import era_update as ku
 from repro_torch.kernels import flash_attention as kf
 
@@ -155,3 +159,109 @@ def test_flash_cuda_checks_reject_bad_input():
     pos = torch.arange(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="not cuda"):
         kf._check(q, q, q, pos, pos, None)
+
+
+# the reference's DECODE_CASES (tests/test_kernels.py):
+# (b, h, kv, s, hd, window, protected, dtype) — windows, sinks, G=5, bf16
+DECODE_CASES = [
+    (2, 8, 2, 256, 64, 0, 0, "float32"),
+    (1, 4, 4, 300, 128, 64, 0, "float32"),
+    (2, 6, 3, 200, 80, 32, 4, "float32"),
+    (1, 25, 5, 130, 64, 48, 8, "float32"),   # hymba head counts, G = 5
+    (2, 8, 1, 256, 64, 0, 0, "bfloat16"),
+]
+
+
+def _decode_case(b, h, kv, s, hd, dtype, seed=0):
+    """q (B, H, hd), k/v in the cache layout (B, S, KV, hd); the last 10
+    slots are empty (-1) and the query sits at s - 11."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, hd), np.float32)
+    k = rng.standard_normal((b, s, kv, hd), np.float32)
+    v = rng.standard_normal((b, s, kv, hd), np.float32)
+    kv_pos = np.where(np.arange(s) < s - 10, np.arange(s), -1).astype(np.int32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    return (tq, tk, tv), (jq, jk, jv), kv_pos, s - 11
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_decode_plain_matches_reference(case):
+    """The plain version equals ``ref.decode_attention_ref`` (on the same,
+    float32-widened inputs) and the Pallas kernel through
+    ``ops.decode_attention`` (interpret mode), in the case's dtype."""
+    b, h, kv, s, hd, window, prot, dtype = case
+    (tq, tk, tv), (jq, jk, jv), kv_pos, qpos = _decode_case(b, h, kv, s, hd, dtype)
+    got = kd.decode_attention(
+        tq, tk, tv, qpos, torch.from_numpy(kv_pos), window=window,
+        protected=prot,
+    )
+    assert kd.decode_attention.launches == 0
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    got = got.to(torch.float32).numpy()
+    atol = 3e-2 if dtype == "bfloat16" else 2e-5
+    want = ref.decode_attention_ref(
+        jq.astype(jnp.float32),
+        jk.transpose(0, 2, 1, 3).astype(jnp.float32),
+        jv.transpose(0, 2, 1, 3).astype(jnp.float32),
+        jnp.int32(qpos), jnp.asarray(kv_pos), window=window, protected=prot,
+    )
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=atol)
+    pallas = ops.decode_attention(
+        jq, jk, jv, jnp.int32(qpos), jnp.asarray(kv_pos), window=window,
+        protected=prot,
+    )
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32), atol=atol)
+
+
+def test_decode_matches_flash_single_row():
+    """Decode == flash attention with Sq = 1 on the same cache (the
+    reference's own check, at its tolerance 3e-5)."""
+    (q, k, v), _, _, _ = _decode_case(1, 4, 2, 128, 64, "float32")
+    kv_pos = torch.arange(128, dtype=torch.int32)
+    dec = kd.decode_attention(q, k, v, 127, kv_pos)
+    fl = kf.flash_attention(
+        q[:, None], k, v, torch.tensor([127], dtype=torch.int32), kv_pos,
+        causal=True,
+    )[:, 0]
+    np.testing.assert_allclose(dec.numpy(), fl.numpy(), atol=3e-5)
+
+
+def test_decode_wrapped_ring_and_empty_cache():
+    """Empty slots anywhere in a wrapped ring are masked (the result equals
+    attention over the valid slots alone, reordered), and a query with no
+    valid slot gives exact zeros."""
+    (q, k, v), _, _, _ = _decode_case(2, 6, 2, 64, 32, "float32", seed=3)
+    # ring of 64 slots holding positions 40..99 with 4 holes, query at 99,
+    # window 32 with 2 protected sinks that were evicted long ago
+    pos = torch.arange(40, 104, dtype=torch.int32)
+    pos[[3, 17, 50, 63]] = -1
+    ring = torch.roll(pos, 40 % 64)
+    kr, vr = torch.roll(k, 40 % 64, dims=1), torch.roll(v, 40 % 64, dims=1)
+    got = kd.decode_attention(q, kr, vr, 99, ring, window=32, protected=2)
+    keep = (pos >= 0) & (pos > 99 - 32) & (pos <= 99)
+    want = kd.decode_attention(q, k[:, keep], v[:, keep], 99, pos[keep])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-6)
+    empty = torch.full((64,), -1, dtype=torch.int32)
+    assert torch.equal(kd.decode_attention(q, k, v, 99, empty),
+                       torch.zeros_like(q))
+
+
+def test_decode_split_plan_covers_the_cache():
+    """Splits are whole tiles, cover every slot once and give at least the
+    target block count where the cache has that many tiles."""
+    for b, kvh, s in [(8, 2, 1024), (1, 2, 130), (64, 8, 4096), (2, 1, 64)]:
+        n, chunk = kd.split_plan(b, kvh, s)
+        assert chunk % kd.TILE == 0
+        assert (n - 1) * chunk < s <= n * chunk
+        assert n * b * kvh >= min(kd.TARGET_BLOCKS, -(-s // kd.TILE) * b * kvh)
+    assert kd.split_plan(8, 2, 1024) == (16, 64)
+
+
+def test_decode_cuda_checks_reject_bad_input():
+    q = torch.zeros(1, 4, 32)
+    k = torch.zeros(1, 8, 2, 32)
+    pos = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not cuda"):
+        kd._check(q, k, k, pos)
