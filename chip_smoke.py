@@ -7,22 +7,30 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 2. holds the Triton ``era_update`` kernel against its plain PyTorch version
    (max abs error <= 1e-5, the reference's fused-step tolerance);
 3. holds the CUDA ``flash_attention`` kernel against its plain version
-   (all-float32 math) at qwen2-1.5b shapes in bf16 and in the masking,
-   softcap, ragged-tile and head-dim variants;
+   (all-float32 math) at qwen2-1.5b shapes in bf16 (the ERA path's and the
+   AR prefill's, causal 8x512) and in the masking, softcap, ragged-tile and
+   head-dim variants, and times it at both path shapes;
 4. the ERA path: serves requests through the port's ``BatchedSampler`` on a
    full-width qwen2-1.5b denoiser (28 layers, d_model 1536, bf16, random
    seeded weights) with ERA at nfe=10, checks the outputs, and checks from
    the kernels' launch counters that the sampling path ran its kernels;
 5. holds the CUDA ``decode_attention`` kernel against its plain version at
-   the AR path's shape (half-empty cache), a wrapped ring with window and
-   protected slots, G=5, head dims 64 and 32, and a batch large enough
-   for one split (no combine pass);
+   the AR path's shape (half-empty and full cache), a wrapped ring with
+   window and protected slots, G=5, head dims 64 and 32, and a batch large
+   enough for one split (no combine pass), and times it on both caches;
 6. the AR path: ``Engine.generate`` on the full-width qwen2-1.5b token model
    (vocab padded to 153,600, random seeded weights), batch 8, prompt 512,
-   64 new tokens, 1024 cache slots; checks the launch counters, that the
-   decode logits equal a fresh prefill's, and profiles the decode loop;
+   64 new tokens, 1024 cache slots; checks the launch counters and, as a
+   smoke check, that the decode logits equal a fresh prefill's, and that
+   this check sees a planted fault; profiles the decode loop and counts
+   the rope's share of its device ops;
 7. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times beside its bound, then the result line.
+
+``python3 chip_smoke.py --era-ab PARENT/src`` instead times only the ERA
+path's host cost (one denoiser forward and a drain) with the
+``repro_torch`` under ``PARENT/src`` against this checkout's, in the
+order parent, this, this, parent, one process each.
 
 It imports nothing of the JAX package.  Any failed check raises, so the
 script exits non-zero and prints no result line; it also fails when no
@@ -68,12 +76,15 @@ DECODE_ATOL = 1e-5
 # the AR path: batch, prompt, new tokens, cache slots (max_len)
 AR_BATCH, AR_PROMPT, AR_GEN, AR_MAX_LEN = 8, 512, 64, 1024
 AR_CHECK_STEPS = (1, 32, AR_GEN - 1)
-# decode vs prefill logits, max |diff| <= AR_LOGIT_RTOL * max |logit|.  The
-# two paths round to bf16 in different places at each of the 28 layers
-# (GEMMs of 8 rows against 8 * S rows; the flash kernel rounds P to bf16,
-# the decode kernel keeps it in float32): a few percent of the logits'
-# scale at most.  A wrong cache slot or mask changes the attended keys and
-# with them the hidden state, an O(1) relative change.
+# decode vs prefill logits, max |diff| <= AR_LOGIT_RTOL * max |logit|: a
+# smoke check of the whole path, not a kernel check.  The two paths round
+# to bf16 in different places at each of the 28 layers (GEMMs of 8 rows
+# against 8 * S rows; the flash kernel rounds P to bf16, the decode kernel
+# keeps it in float32): a few percent of the logits' scale (1.6-1.8% on
+# the H100).  Phase 6 plants a fault, the newest prompt key dropped from
+# the cache, and requires the check to see it (8.5% on the H100); subtler
+# faults in one key are left to the kernel checks of phases 3 and 5, which
+# hold the kernels to their plain versions at the path's shapes.
 AR_LOGIT_RTOL = 0.05
 
 
@@ -223,6 +234,12 @@ def phase_flash(kf):
     err, (q, k, v, pos) = run("qwen2 B=8 S=256 H=12 KV=2 hd=128 non-causal",
                               b, s, h, kvh, hd, causal=False)
     errs.append(err)
+    # the AR path's prefill: causal over the 512-token prompt, no window
+    pb, ps = AR_BATCH, AR_PROMPT
+    err, (pq, pk, pv, ppos) = run(
+        f"AR prefill B={pb} S={ps} H=12 KV=2 hd=128 causal",
+        pb, ps, h, kvh, hd, causal=True)
+    errs.append(err)
     errs.append(run("kv_mask padded rows + fully masked row", b, s, h, kvh, hd,
                     causal=False, kv_mask="padded")[0])
     errs.append(run("causal+window=48+protected=4", b, s, h, kvh, hd,
@@ -234,23 +251,59 @@ def phase_flash(kf):
                     causal=False)[0])
     errs.append(run("hd=32 (smoke heads)", 2, 96, 4, 2, 32, causal=True)[0])
 
-    ms = time_ms(lambda: kf.flash_attention(q, k, v, pos, pos, causal=False))
-    plain_ms = time_ms(
-        lambda: kf.flash_attention_plain(q, k, v, pos, pos, causal=False), iters=5
-    )
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    flops = 4.0 * b * h * s * s * hd
-    nbytes = 2.0 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-    timing = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        shape=f"B={b} S={s} H={h} KV={kvh} hd={hd} bf16",
-    )
+    g = h // kvh
+
+    def library(q, k, v, causal):
+        """One SDPA call on the same tensors: K/V as (B, KV, S, hd) views,
+        the G query heads of a kv head folded into the query axis when no
+        causal mask ties a query to its position, else ``enable_gqa``
+        (SDPA's flash backend forced, so no K/V copy is made)."""
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        if not causal:
+            bb, ss = q.shape[:2]
+            qf = q.reshape(bb, ss, kvh, g, hd).permute(0, 2, 3, 1, 4)
+            qf = qf.reshape(bb, kvh, g * ss, hd)
+            return lambda: F.scaled_dot_product_attention(qf, kt, vt)
+        qt = q.transpose(1, 2)
+
+        def call():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        return call
+
+    def timed(q, k, v, pos, causal):
+        """Device time of the kernel, its plain version and SDPA: the
+        profiler's, since host time can exceed a short call's device time
+        and CUDA events would then time the host."""
+        bb, ss = q.shape[:2]
+        ms = device_ms(lambda: kf.flash_attention(q, k, v, pos, pos, causal=causal))
+        plain_ms = device_ms(
+            lambda: kf.flash_attention_plain(q, k, v, pos, pos, causal=causal),
+            iters=5,
+        )
+        library_ms = device_ms(library(q, k, v, causal))
+        # a causal mask leaves (S + 1) / 2S of the scores to compute
+        frac = (ss + 1) / (2 * ss) if causal else 1.0
+        flops = 4.0 * bb * h * ss * ss * hd * frac
+        nbytes = 2.0 * (2 * bb * ss * h * hd + 2 * bb * ss * kvh * hd)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        return dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            shape=f"B={bb} S={ss} H={h} KV={kvh} hd={hd} bf16"
+                  + (" causal" if causal else ""),
+        )
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    timing = timed(q, k, v, pos, causal=False)
+    timing["prefill"] = timed(pq, pk, pv, ppos, causal=True)
+    for t in (timing, timing["prefill"]):
+        log(f"flash_attention timing {t['shape']}: kernel {t['ms']:.5f} ms, "
+            f"plain {t['plain_ms']:.5f} ms, SDPA {t['library_ms']:.5f} ms, "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
     return max(errs), timing
 
 
@@ -411,7 +464,8 @@ def phase_decode(kd):
         "qwen2 B=8 H=12 KV=2 S=1024 hd=128, 512 empty slots",
         b, h, kvh, s, hd, empty=512)
     errs.append(err)
-    errs.append(run("qwen2 full cache", b, h, kvh, s, hd)[0])
+    err, full = run("qwen2 full cache", b, h, kvh, s, hd)
+    errs.append(err)
     errs.append(run("wrapped ring, 7 empty, window=200+protected=4",
                     b, h, kvh, s, hd, empty=7, shift=300, window=200,
                     prot=4)[0])
@@ -428,39 +482,50 @@ def phase_decode(kd):
     check(bool((kd.decode_attention(q, k, v, q_pos, none) == 0).all()),
           "decode with no valid slot is not zero")
 
-    # timing at the first case (the AR path's cache half full): device time
-    # of the kernel's launches, of its plain version and of SDPA on the same
-    # inputs (GQA expanded and the slot mask built outside the timed call)
-    ms = device_ms(lambda: kd.decode_attention(q, k, v, q_pos, pos))
-    wrapper_ms = time_ms(lambda: kd.decode_attention(q, k, v, q_pos, pos))
-    plain_ms = device_ms(
-        lambda: kd.decode_attention_plain(q, k, v, q_pos, pos), iters=5
-    )
+    # timing at the first case (the AR path's cache half full) and on the
+    # full cache: device time of the kernel's launches, of its plain version
+    # and of one SDPA call on the same tensors (the G query heads of a kv
+    # head as the query axis against K/V viewed as (B, KV, S, hd), the slot
+    # mask built outside the timed call)
     g = h // kvh
-    qt = q[:, :, None, :]
-    kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
-    vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
-    mask = ((pos >= 0) & (pos <= q_pos))[None, None, None, :]
-    library_ms = device_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-    )
-    nbytes = 2.0 * (2 * b * s * kvh * hd + 2 * b * h * hd) + 4.0 * s
-    # every slot is scored (masked or not) and weights V: 4 flops a slot,
-    # head and dim; the softmax's exps are a lower-order term
-    flops = 4.0 * b * h * s * hd
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
-    timing = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        shape=f"B={b} H={h} KV={kvh} S={s} hd={hd} bf16, 512 empty slots",
-        wrapper_ms=wrapper_ms,
-    )
-    log(f"decode_attention timing: kernel {ms:.5f} ms device "
-        f"({wrapper_ms:.5f} ms a wrapper call, host included), plain "
-        f"{plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
-        f"{timing['bound_ms']:.5f} ms ({timing['bound_by']}), "
-        f"nsplit/chunk {kd.split_plan(b, kvh, s)}")
+
+    def timed(q, k, v, q_pos, pos, what):
+        ms = device_ms(lambda: kd.decode_attention(q, k, v, q_pos, pos))
+        plain_ms = device_ms(
+            lambda: kd.decode_attention_plain(q, k, v, q_pos, pos), iters=5
+        )
+        qg = q.view(b, kvh, g, hd)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        valid = (pos >= 0) & (pos <= q_pos)
+        mask = valid[None, None, None, :]
+        library_ms = device_ms(
+            lambda: F.scaled_dot_product_attention(qg, kt, vt, attn_mask=mask)
+        )
+        # the function needs K/V of the valid slots only, once; q, out and
+        # kv_pos once.  Each valid slot costs 4 flops a head and dim.
+        n_valid = int(valid.sum())
+        nbytes = 2.0 * (2 * b * n_valid * kvh * hd + 2 * b * h * hd) + 4.0 * s
+        flops = 4.0 * b * h * n_valid * hd
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        t = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            shape=f"B={b} H={h} KV={kvh} S={s} hd={hd} bf16, {what}",
+        )
+        log(f"decode_attention timing ({what}): kernel {ms:.5f} ms device, "
+            f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {n_valid} valid "
+            f"slots), nsplit/chunk {kd.split_plan(b, kvh, s)}")
+        return t
+
+    timing = timed(q, k, v, q_pos, pos, f"{s - 512} of {s} slots valid")
+    timing["wrapper_ms"] = time_ms(
+        lambda: kd.decode_attention(q, k, v, q_pos, pos))
+    log(f"decode_attention: a wrapper call {timing['wrapper_ms']:.5f} ms, "
+        f"host included")
+    fq, fk, fv, fq_pos, fpos = full
+    timing["full"] = timed(fq, fk, fv, fq_pos, fpos, "full cache")
     return max(errs), timing
 
 
@@ -542,9 +607,10 @@ def phase_ar(ku, kf, kd):
         f"decode {per_token_ms:.3f} ms per step of {AR_BATCH} tokens "
         f"({decode_wall_ms:.1f} ms for {AR_GEN - 1} steps)")
 
-    # end to end, flash kernel against decode kernel through the whole
-    # model: the decode logits at step i equal the last-token logits of a
-    # fresh prefill over prompt + the first i generated tokens
+    # end to end, a smoke check of the whole path (the kernels themselves
+    # are held to their plain versions at these shapes in phases 3 and 5):
+    # the decode logits at step i equal the last-token logits of a fresh
+    # prefill over prompt + the first i generated tokens
     for i, dec in keep.items():
         seq = torch.cat([prompts, toks[:, :i]], dim=1)
         ref, _ = model.prefill(seq, AR_MAX_LEN)
@@ -557,6 +623,28 @@ def phase_ar(ku, kf, kd):
               f"decode logits at step {i} differ from prefill by {diff} "
               f"(> {AR_LOGIT_RTOL} x {scale})")
 
+    # the smoke check must see a planted fault: the last checked step
+    # decoded again from a prefill of the tokens before it, once as served
+    # and once with the newest prompt key's slot marked empty (one of the
+    # 512+ keys every layer attends over)
+    i = AR_CHECK_STEPS[-1]
+    seq = torch.cat([prompts, toks[:, :i]], dim=1)
+    ref = model.prefill(seq, AR_MAX_LEN)[0].float()
+    scale = float(ref.abs().max())
+    ratios = {}
+    for fault in (False, True):
+        _, c = model.prefill(seq[:, :-1], AR_MAX_LEN)
+        if fault:
+            c["pos"][AR_PROMPT - 1] = -1
+        lg = model.decode(c, seq[:, -1:], seq.shape[1] - 1)[0].float()
+        ratios[fault] = float((lg - ref).abs().max()) / scale
+    log(f"decode vs prefill at step {i}: ratio {ratios[False]:.4f} as "
+        f"served, {ratios[True]:.4f} with one key dropped (tolerance "
+        f"{AR_LOGIT_RTOL})")
+    check(ratios[False] <= AR_LOGIT_RTOL < ratios[True],
+          f"the smoke check does not tell a dropped key from the served "
+          f"path: {ratios}")
+
     # the decode loop once more under the profiler, for the breakdown
     logits, cache = eng.prefill_step(prompts)
 
@@ -567,12 +655,35 @@ def phase_ar(ku, kf, kd):
             lg, c = eng.decode_step(c, t[:, None], AR_PROMPT + i)
             t = eng.sample_token(lg)
 
-    idle = profile_device(
+    idle, n_ops = profile_device(
         decode_loop, f"decode loop, {AR_GEN - 1} steps of {AR_BATCH} tokens",
         decode_wall_ms, AR_GEN - 1, "step",
     )
+    # the rope's share of those ops: the device ops of the loop's rope
+    # calls (q and k in every layer of every step) at the decode shapes,
+    # profiled as long as the loop (the count of a one-step trace varied by
+    # ~100 ops from run to run on the H100)
+    from repro_torch.models import layers as L
+
+    hd = cfg.resolved_head_dim
+    qx = torch.randn(AR_BATCH, 1, cfg.num_heads, hd, device="cuda")
+    kx = torch.randn(AR_BATCH, 1, cfg.num_kv_heads, hd, device="cuda")
+    qx, kx = qx.to(cfg.dtype), kx.to(cfg.dtype)
+    at = torch.full((1,), AR_PROMPT, dtype=torch.int32, device="cuda")
+
+    def loop_ropes():
+        for _ in range((AR_GEN - 1) * cfg.num_layers):
+            L.apply_rope(qx, at, cfg.rope_theta)
+            L.apply_rope(kx, at, cfg.rope_theta)
+
+    rows, _, _ = device_events(loop_ropes)
+    rope_ops = sum(r[1] for r in rows)
+    per_layer = rope_ops / ((AR_GEN - 1) * cfg.num_layers)
+    log(f"rope: {per_layer:.2f} device ops a layer (q and k), {rope_ops} "
+        f"of the decode loop's {n_ops} ({rope_ops / n_ops:.3f})")
     return launches, dict(prefill_ms=prefill_ms, decode_ms_per_step=per_token_ms,
-                          tok_s=AR_BATCH * AR_GEN / gen_s, idle_share=idle)
+                          tok_s=AR_BATCH * AR_GEN / gen_s, idle_share=idle,
+                          rope_op_share=rope_ops / n_ops)
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -622,10 +733,10 @@ def device_events(fn):
 
 
 def profile_device(fn, what: str, plain_wall_ms: float, per: int,
-                   unit: str) -> float:
+                   unit: str) -> tuple[float, int]:
     """Run ``fn`` once under torch.profiler; print the device-time breakdown
     by kernel and the device's idle share, 1 - busy / wall, and return that
-    share.  The profiler adds host time of its own, so the wall is that of
+    share and the number of device ops.  The profiler adds host time of its own, so the wall is that of
     the same work run unprofiled (``plain_wall_ms``); the share over the
     trace's own device span (first device op to last) is printed beside
     it."""
@@ -640,15 +751,95 @@ def profile_device(fn, what: str, plain_wall_ms: float, per: int,
         f"{1 - busy_ms / span_ms:.3f}; profiled wall {wall_ms:.1f} ms")
     for ms, count, name in rows[:12]:
         log(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
-    return idle
+    return idle, launches
+
+
+# ---------------------------------------------------------------------------
+# optional: the ERA path's host cost, one tree against another
+# ---------------------------------------------------------------------------
+
+
+def era_host(src: str) -> None:
+    """Time the ERA path with the ``repro_torch`` package under ``src``:
+    one denoiser forward at 8x256 (host time to issue it, its wall with a
+    sync, its device busy time) and three drains of the 8-row-bucket
+    request of phase 4; print them as one JSON line."""
+    import statistics
+
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.configs import get_config
+    from repro_torch.core import linear_schedule
+    from repro_torch.models import DiffusionLM
+    from repro_torch.serving import BatchedSampler, SampleRequest
+
+    cfg = get_config("qwen2-1.5b")
+    dlm = DiffusionLM(cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn(cfg.d_model, cfg.d_model, generator=gen, device="cuda")
+    dlm.eps_head.w.copy_(w * (0.5 / cfg.d_model**0.5))
+    x = torch.randn(8, 256, cfg.d_model, generator=gen, device="cuda")
+    for _ in range(3):
+        dlm.eps(x, 0.5)
+    issue, wall = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dlm.eps(x, 0.5)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    rows, _, _ = device_events(lambda: dlm.eps(x, 0.5))
+    eng = BatchedSampler(dlm, linear_schedule())
+    req = SampleRequest(batch=3, seq_len=256, nfe=NFE, solver="era", seed=12)
+    drains = []
+    for _ in range(4):  # the first one warms the Triton kernel and cuBLAS
+        eng.submit_with_future(req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.drain()
+        torch.cuda.synchronize()
+        drains.append((time.perf_counter() - t0) * 1e3 / NFE)
+    print(json.dumps(dict(
+        src=src, forward_issue_ms=statistics.median(issue),
+        forward_wall_ms=statistics.median(wall),
+        forward_busy_ms=sum(r[0] for r in rows),
+        forward_ops=sum(r[1] for r in rows),
+        drain_ms_per_nfe=drains[1:],
+    )), flush=True)
+
+
+def era_ab(parent_src: str) -> None:
+    """:func:`era_host` for ``parent_src`` and this checkout's ``src`` in
+    the order parent, this, this, parent, each in a process of its own."""
+    this_src = str(ROOT / "src")
+    for src in (parent_src, this_src, this_src, parent_src):
+        out = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--era-host", src],
+            capture_output=True, text=True, timeout=600, check=True,
+        )
+        log(out.stdout.strip().splitlines()[-1])
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--era-ab", metavar="PARENT_SRC",
+                    help="only time the ERA path's host cost: the "
+                         "repro_torch under PARENT_SRC against this one")
+    ap.add_argument("--era-host", metavar="SRC", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.era_host:
+        return era_host(args.era_host)
     smi = nvidia_smi()
+    log(smi)
+    if args.era_ab:
+        return era_ab(args.era_ab)
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -687,7 +878,7 @@ def main() -> None:
              ms=flash_t["ms"], kernel_ms=flash_t["ms"],
              plain_ms=flash_t["plain_ms"], bound_ms=flash_t["bound_ms"],
              bound_by=flash_t["bound_by"], library_ms=flash_t["library_ms"],
-             shape=flash_t["shape"]),
+             shape=flash_t["shape"], ar_prefill=flash_t["prefill"]),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:23",
@@ -696,12 +887,14 @@ def main() -> None:
              wrapper_ms=decode_t["wrapper_ms"],
              plain_ms=decode_t["plain_ms"], bound_ms=decode_t["bound_ms"],
              bound_by=decode_t["bound_by"],
-             library_ms=decode_t["library_ms"], shape=decode_t["shape"]),
+             library_ms=decode_t["library_ms"], shape=decode_t["shape"],
+             full_cache=decode_t["full"]),
     ]
     log(f"ERA path: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
     log(f"AR path: prefill {ar['prefill_ms']:.2f} ms, decode "
         f"{ar['decode_ms_per_step']:.3f} ms per step, {ar['tok_s']:.1f} tok/s, "
-        f"decode-loop idle share {ar['idle_share']:.3f}")
+        f"decode-loop idle share {ar['idle_share']:.3f}, rope "
+        f"{ar['rope_op_share']:.3f} of its device ops")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

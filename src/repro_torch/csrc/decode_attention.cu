@@ -10,12 +10,16 @@
 // Empty slots (-1) may sit anywhere in a wrapped ring, so every slot is
 // tested and nothing stops early.
 //
-// Bound.  The work is 4*B*H*S*hd flops against K and V of every slot
-// (2*B*S*KV*hd bf16) plus q, out and kv_pos: about G flops a byte, far
-// below the H100's ridge (~295 for bf16 tensor cores, ~20 for the float32
-// units this kernel uses), so memory bytes bound it.  At the AR
-// path's shapes (B = 8, S = 1024, KV = 2, hd = 128) that is 8.4 MB, about
-// 2.5 us at 3.35 TB/s.
+// Bound.  The function needs K and V of the V valid slots (2*B*V*KV*hd
+// bf16) plus q, out and kv_pos, and 4*B*H*V*hd flops: about G flops a
+// byte, far below the H100's ridge (~295 for bf16 tensor cores, ~20 for
+// the float32 units this kernel uses), so memory bytes bound it.  At the
+// AR path's shapes (B = 8, KV = 2, hd = 128, 1024 slots) that is 4.2 MB,
+// about 1.27 us at 3.35 TB/s, with the cache half full, and twice that
+// when it is full.  The kernel stages every slot's K/V: its time on the
+// H100 is set by each block's serial chain over its tile (stage, scores,
+// softmax, P.V), not by bytes, and reading only the valid slots' K/V
+// does not shorten that chain.
 //
 // Design.  The TPU kernel's one idea is kept: the G query heads that share
 // a kv head are processed together, so each K/V slot is read from device

@@ -28,8 +28,7 @@ class DenseBlock(nn.Module):
     def forward(
         self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
         layer: int = 0, pos: int | None = None, window_override: int = -1,
-        protected: int = 0, causal: bool = True,
-        lengths: Tensor | None = None,
+        causal: bool = True, lengths: Tensor | None = None,
     ) -> Tensor:
         """``window_override`` < 0 keeps the block's own window (the
         reference's ``_window``); 0 is full attention, > 0 a window."""
@@ -39,7 +38,7 @@ class DenseBlock(nn.Module):
         h = self.ln1(x)
         x = x + self.attn(
             h, mode=mode, cache=cache, layer=layer, pos=pos, window=window,
-            causal=causal, protected=protected, lengths=lengths,
+            causal=causal, lengths=lengths,
         )
         return x + self.mlp(self.ln2(x))
 

@@ -43,7 +43,7 @@ class Backbone(nn.Module):
     def forward(
         self, h: Tensor, causal: bool = True, lengths: Tensor | None = None,
         *, mode: str = "train", cache: dict | None = None,
-        pos: int | None = None, window_override: int = -1, protected: int = 0,
+        pos: int | None = None, window_override: int = -1,
     ) -> Tensor:
         """Run the stack on embedded states (B, S, d); ``lengths`` (B,)
         masks right-padding keys out of every attention softmax.  In the
@@ -52,8 +52,8 @@ class Backbone(nn.Module):
         for i, layer in enumerate(self.layers):
             h = layer(
                 h, mode=mode, cache=cache, layer=i, pos=pos,
-                window_override=window_override, protected=protected,
-                causal=causal, lengths=lengths,
+                window_override=window_override, causal=causal,
+                lengths=lengths,
             )
         return self.final_norm(h)
 
@@ -107,18 +107,15 @@ class Model(nn.Module):
         return self.embed.device
 
     # ---- caches ----
-    def _slots_for(self, kind: str, slots: int) -> int:
+    def _slots_for(self, slots: int) -> int:
         """Sliding-window blocks only need ring buffers of window size."""
-        cfg = self.config
-        if kind in ("dense", "moe") and cfg.sliding_window > 0:
-            return min(slots, cfg.sliding_window + cfg.num_meta_tokens)
-        return slots
+        window = self.config.sliding_window
+        return min(slots, window) if window > 0 else slots
 
     def init_cache(self, batch: int, slots: int) -> dict:
         cfg = self.config
-        (kind, count), = cfg.blocks
         return A.init_cache(
-            count, batch, self._slots_for(kind, slots), cfg.num_kv_heads,
+            cfg.num_layers, batch, self._slots_for(slots), cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.dtype, self.device,
         )
 
@@ -138,8 +135,7 @@ class Model(nn.Module):
         A.cache_fill(cache, tokens.shape[1])
         h = F.embedding(tokens, self.embed)
         h = self.backbone(
-            h, mode="prefill", cache=cache, window_override=window_override,
-            protected=self.config.num_meta_tokens,
+            h, mode="prefill", cache=cache, window_override=window_override
         )
         return self._logits(h[:, -1:, :]), cache
 
@@ -150,12 +146,11 @@ class Model(nn.Module):
         """One decode step: ``tokens`` (B, 1) at the absolute position
         ``pos`` (a host int).  Updates ``cache`` in place and returns the
         logits (B, 1, padded_vocab) and the cache."""
-        protected = self.config.num_meta_tokens
-        A.cache_insert(cache, pos, protected)
+        A.cache_insert(cache, pos)
         h = F.embedding(tokens, self.embed)
         h = self.backbone(
             h, mode="decode", cache=cache, pos=pos,
-            window_override=window_override, protected=protected,
+            window_override=window_override,
         )
         return self._logits(h), cache
 
