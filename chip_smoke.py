@@ -7,9 +7,14 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 2. holds the Triton ``era_update`` kernel against its plain PyTorch version
    (max abs error <= 1e-5, the reference's fused-step tolerance);
 3. holds the CUDA ``flash_attention`` kernel against its plain version
-   (all-float32 math) at qwen2-1.5b shapes in bf16 (the ERA path's and the
-   AR prefill's, causal 8x512) and in the masking, softcap, ragged-tile and
-   head-dim variants, and times it at both path shapes;
+   (all-float32 math) at qwen2-1.5b shapes in bf16 (the ERA path's 8x256
+   and 8x128, the AR prefill's causal 8x512) and in the masking, softcap,
+   ragged-tile and head-dim variants, and in cases whose positions are not
+   tile indices (queries offset from keys, a wrapped ring with empty slots,
+   whole kv tiles masked in some rows), so that a tile skip decided from
+   indices would fail; prints each instance's registers, spills (none
+   allowed at hd=128) and shared memory; times it at the three path shapes
+   beside SDPA;
 4. the ERA path: serves requests through the port's ``BatchedSampler`` on a
    full-width qwen2-1.5b denoiser (28 layers, d_model 1536, bf16, random
    seeded weights) with ERA at nfe=10, checks the outputs, and checks from
@@ -31,6 +36,9 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 path's host cost (one denoiser forward and a drain) with the
 ``repro_torch`` under ``PARENT/src`` against this checkout's, in the
 order parent, this, this, parent, one process each.
+``python3 chip_smoke.py --flash-ab PARENT/src`` instead compares flash
+kernels in one process: the one under ``PARENT/src``, this checkout's and
+tile variants of it, each checked and then timed beside SDPA, in turns.
 
 It imports nothing of the JAX package.  Any failed check raises, so the
 script exits non-zero and prints no result line; it also fails when no
@@ -40,6 +48,7 @@ CUDA device is present or the port's sources are missing.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -196,26 +205,25 @@ def phase_era(ku):
 # ---------------------------------------------------------------------------
 
 
-def phase_flash(kf):
-    import torch.nn.functional as F
-
+def flash_cases(kf) -> float:
+    """Hold the kernel against its plain version in every case; return the
+    largest error."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = "cuda"
+    h, kvh, hd = 12, 2, 128
 
-    def inputs(b, s, h, kvh, hd):
+    def run(name, b, s, h, kvh, hd, *, sk=None, q_pos=None, kv_pos=None,
+            zero_row=None, **kw):
+        sk = s if sk is None else sk
         q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(b, s, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(b, s, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
-        pos = torch.arange(s, dtype=torch.int32, device=dev)
-        return q, k, v, pos
-
-    def run(name, b, s, h, kvh, hd, **kw):
-        q, k, v, pos = inputs(b, s, h, kvh, hd)
-        if kw.get("kv_mask") == "padded":
-            lengths = torch.tensor([s, s // 2, 1, 0] + [s] * (b - 4), device=dev)
-            kw["kv_mask"] = (pos[None, :] < lengths[:, None]).to(torch.int32)
-        got = kf.flash_attention(q, k, v, pos, pos, **kw)
-        want = kf.flash_attention_plain(q, k, v, pos, pos, **kw)
+        k = torch.randn(b, sk, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, sk, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
+        if q_pos is None:
+            q_pos = torch.arange(s, dtype=torch.int32, device=dev)
+        if kv_pos is None:
+            kv_pos = torch.arange(sk, dtype=torch.int32, device=dev)
+        got = kf.flash_attention(q, k, v, q_pos, kv_pos, **kw)
+        want = kf.flash_attention_plain(q, k, v, q_pos, kv_pos, **kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got.float()).all()), f"flash {name}: non-finite")
         diff = (got.float() - want.float()).abs()
@@ -224,33 +232,67 @@ def phase_flash(kf):
         log(f"flash_attention {name}: max_abs_err {err:.3e}")
         check(excess <= FLASH_ATOL,
               f"flash {name} error {err} beyond {FLASH_ATOL} + {FLASH_RTOL}*|o|")
-        if "kv_mask" in kw:
+        if zero_row is not None:
             # the row whose every key is masked must come out exactly zero
-            check(bool((got[3] == 0).all()), f"flash {name}: masked row not zero")
-        return err, (q, k, v, pos)
+            check(bool((got[zero_row] == 0).all()),
+                  f"flash {name}: masked row not zero")
+        return err
 
-    b, s, h, kvh, hd = 8, 256, 12, 2, 128
-    errs = []
-    err, (q, k, v, pos) = run("qwen2 B=8 S=256 H=12 KV=2 hd=128 non-causal",
-                              b, s, h, kvh, hd, causal=False)
-    errs.append(err)
-    # the AR path's prefill: causal over the 512-token prompt, no window
-    pb, ps = AR_BATCH, AR_PROMPT
-    err, (pq, pk, pv, ppos) = run(
-        f"AR prefill B={pb} S={ps} H=12 KV=2 hd=128 causal",
-        pb, ps, h, kvh, hd, causal=True)
-    errs.append(err)
-    errs.append(run("kv_mask padded rows + fully masked row", b, s, h, kvh, hd,
-                    causal=False, kv_mask="padded")[0])
-    errs.append(run("causal+window=48+protected=4", b, s, h, kvh, hd,
-                    causal=True, window=48, protected=4)[0])
-    errs.append(run("softcap=30", b, s, h, kvh, hd, causal=False,
-                    softcap=30.0)[0])
-    errs.append(run("S=200 (ragged tile)", 2, 200, h, kvh, hd, causal=False)[0])
-    errs.append(run("hd=64 (llama3.2-1b heads)", 2, 256, 32, 8, 64,
-                    causal=False)[0])
-    errs.append(run("hd=32 (smoke heads)", 2, 96, 4, 2, 32, causal=True)[0])
+    b, s = 8, 256
+    pos = torch.arange(s, device=dev)
+    lengths = torch.tensor([s, s // 2, 1, 0] + [s] * (b - 4), device=dev)
+    padded = (pos[None, :] < lengths[:, None]).to(torch.int32)
+    # whole 64-key tiles masked in some rows and not in others; row 3 has
+    # every tile masked
+    dead_tiles = [(), (0,), (1, 2), (0, 1, 2, 3), (3,), (0, 2), (1,), (0, 1, 3)]
+    tiles = (pos // 64)[None, :]
+    tile_mask = torch.stack([
+        ~torch.isin(tiles[0], torch.tensor(d, device=dev, dtype=torch.long))
+        for d in dead_tiles
+    ]).to(torch.int32)
+    # a wrapped ring: slot j holds position (j - 200) mod 512, slots 64-127
+    # are empty; an index-driven causal or window skip would drop live tiles
+    ring = torch.roll(torch.arange(512, dtype=torch.int32, device=dev), 200)
+    ring[64:128] = -1
+    ps = AR_PROMPT
+    errs = [
+        run(f"qwen2 B={b} S={s} H={h} KV={kvh} hd={hd} non-causal",
+            b, s, h, kvh, hd, causal=False),
+        run(f"qwen2 B={b} S=128 non-causal (ERA seq-128 batch)",
+            b, 128, h, kvh, hd, causal=False),
+        # the AR path's prefill: causal over the 512-token prompt, no window
+        run(f"AR prefill B={AR_BATCH} S={ps} H={h} KV={kvh} hd={hd} causal",
+            AR_BATCH, ps, h, kvh, hd, causal=True),
+        run("kv_mask padded rows + fully masked row", b, s, h, kvh, hd,
+            causal=False, kv_mask=padded, zero_row=3),
+        run("kv_mask whole 64-key tiles per row + fully masked row",
+            b, s, h, kvh, hd, causal=False, kv_mask=tile_mask, zero_row=3),
+        run("q_pos = arange(312, 512), Sq=200 < Sk=512, causal",
+            b, 200, h, kvh, hd, sk=512, causal=True,
+            q_pos=torch.arange(312, 512, dtype=torch.int32, device=dev)),
+        run("ring kv_pos (rolled by 200, slots 64-127 empty), "
+            "causal+window=96+protected=4",
+            b, 512, h, kvh, hd, kv_pos=ring, causal=True, window=96,
+            protected=4),
+        run("causal+window=48+protected=4", b, s, h, kvh, hd,
+            causal=True, window=48, protected=4),
+        run("softcap=30", b, s, h, kvh, hd, causal=False, softcap=30.0),
+        run("S=200 (ragged tile)", 2, 200, h, kvh, hd, causal=False),
+        run("hd=64 (llama3.2-1b heads)", 2, 256, 32, 8, 64, causal=False),
+        run("hd=32 (smoke heads)", 2, 96, 4, 2, 32, causal=True),
+    ]
+    return max(errs)
 
+
+def flash_timings(kf) -> dict:
+    """Device time of the kernel, its plain version and one SDPA call at
+    the three shapes the main paths run: ERA 8x256 and 8x128 (non-causal),
+    AR prefill 8x512 (causal)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h, kvh, hd = 12, 2, 128
     g = h // kvh
 
     def library(q, k, v, causal):
@@ -272,11 +314,12 @@ def phase_flash(kf):
                     qt, kt, vt, is_causal=True, enable_gqa=True)
         return call
 
-    def timed(q, k, v, pos, causal):
-        """Device time of the kernel, its plain version and SDPA: the
-        profiler's, since host time can exceed a short call's device time
-        and CUDA events would then time the host."""
-        bb, ss = q.shape[:2]
+    def timed(bb, ss, causal):
+        """The profiler's device time, since host time can exceed a short
+        call's device time and CUDA events would then time the host."""
+        q, k, v = (torch.randn(bb, ss, n, hd, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (h, kvh, kvh))
+        pos = torch.arange(ss, dtype=torch.int32, device="cuda")
         ms = device_ms(lambda: kf.flash_attention(q, k, v, pos, pos, causal=causal))
         plain_ms = device_ms(
             lambda: kf.flash_attention_plain(q, k, v, pos, pos, causal=causal),
@@ -288,23 +331,92 @@ def phase_flash(kf):
         flops = 4.0 * bb * h * ss * ss * hd * frac
         nbytes = 2.0 * (2 * bb * ss * h * hd + 2 * bb * ss * kvh * hd)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-        return dict(
+        t = dict(
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            kernel_over_library=ms / library_ms,
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             shape=f"B={bb} S={ss} H={h} KV={kvh} hd={hd} bf16"
                   + (" causal" if causal else ""),
         )
-
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    timing = timed(q, k, v, pos, causal=False)
-    timing["prefill"] = timed(pq, pk, pv, ppos, causal=True)
-    for t in (timing, timing["prefill"]):
-        log(f"flash_attention timing {t['shape']}: kernel {t['ms']:.5f} ms, "
-            f"plain {t['plain_ms']:.5f} ms, SDPA {t['library_ms']:.5f} ms, "
+        log(f"flash_attention timing {t['shape']}: kernel {ms:.5f} ms, "
+            f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, "
+            f"kernel_over_library {t['kernel_over_library']:.3f}, "
             f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
-    return max(errs), timing
+        return t
+
+    timing = timed(8, 256, causal=False)
+    timing["era_seq128"] = timed(8, 128, causal=False)
+    timing["prefill"] = timed(AR_BATCH, AR_PROMPT, causal=True)
+    return timing
+
+
+def ptxas_start(build, source: str):
+    """Start a second ``nvcc`` of ``source`` with ``-Xptxas -v`` (beside the
+    build, into a file that is thrown away) for its register and spill
+    report."""
+    out = build.BUILD_DIR / f"ptxas-{Path(source).stem}.{os.getpid()}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [*build.compile_command(source, out), "-Xptxas", "-v"]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def parse_ptxas(text: str) -> dict:
+    """{hd: {registers, spill_stores, spill_loads}} of each flash instance
+    in ``nvcc -Xptxas -v`` output."""
+    import re
+
+    report, hd = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            hd = re.search(r"flash_fwd_kernelILi(\d+)E", m.group(1))
+            hd = int(hd.group(1)) if hd else None
+            continue
+        if hd is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report.setdefault(hd, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report.setdefault(hd, {})["registers"] = int(m.group(1))
+    return report
+
+
+def ptxas_report(started, kf) -> dict:
+    """Each flash instance's registers, spills, shared memory and resident
+    blocks an SM, from ptxas and the CUDA occupancy API; fails on a spill
+    at hd=128."""
+    import ctypes
+
+    out, proc = started
+    text, _ = proc.communicate()
+    out.unlink(missing_ok=True)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+    lib = kf._library()
+    smem_fn = lib.repro_flash_attention_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int] * 2
+    smem_fn.restype = ctypes.c_longlong
+    occ_fn = lib.repro_flash_attention_blocks_per_sm
+    occ_fn.argtypes = [ctypes.c_int] * 2
+    occ_fn.restype = ctypes.c_int
+    report = parse_ptxas(text)
+    for d in kf.HEAD_DIMS:
+        check(d in report and "registers" in report[d],
+              f"no ptxas report for flash hd={d}:\n{text}")
+        r = report[d]
+        r["smem_bytes_s256"] = int(smem_fn(d, 256))
+        r["blocks_per_sm_s256"] = int(occ_fn(d, 256))
+        log(f"flash_attention hd={d}: {r['registers']} registers, spill "
+            f"stores {r['spill_stores']} B, loads {r['spill_loads']} B, "
+            f"{r['smem_bytes_s256']} B shared memory at Sk=256, "
+            f"{r['blocks_per_sm_s256']} blocks an SM")
+    check(report[128]["spill_stores"] == 0 and report[128]["spill_loads"] == 0,
+          "flash_attention hd=128 spills registers")
+    return {str(k): v for k, v in sorted(report.items())}
 
 
 # ---------------------------------------------------------------------------
@@ -698,7 +810,14 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
 
-    rows, _, _ = device_events(run)
+    for attempt in range(3):
+        try:
+            rows, _, _ = device_events(run)
+            break
+        except RuntimeError:
+            # the profiler can drop a whole short trace; time it again
+            if attempt == 2:
+                raise
     return sum(r[0] for r in rows) / iters
 
 
@@ -821,6 +940,70 @@ def era_ab(parent_src: str) -> None:
         log(out.stdout.strip().splitlines()[-1])
 
 
+# tile variants of the shipped flash kernel that --flash-ab times beside it:
+# (keys a kv tile, blocks an SM its register budget is set for)
+FLASH_VARIANTS = ((64, 2), (64, 3), (32, 2))
+
+
+def flash_ab(parent_src: str) -> None:
+    """Build the flash kernel of ``parent_src``, this checkout's and the
+    tile variants of this one (``FLASH_VARIANTS``), each with ``-Xptxas
+    -v``; hold each against the plain version in every phase-3 case, then
+    time each at the three path shapes beside SDPA, in the order given and
+    then reversed.  Prints one JSON line per variant and round."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kf
+
+    import re
+
+    this = (build.CSRC_DIR / kf.SOURCE).read_text()
+    consts = {}
+    for key in ("BK", "MIN_BLOCKS"):
+        m = re.findall(rf"constexpr int {key} = (\d+);", this)
+        check(len(m) == 1, f"flash source: no single {key} constant")
+        consts[key] = int(m[0])
+    sources = {f"this: BK={consts['BK']}, {consts['MIN_BLOCKS']} blocks an SM": this}
+    for bk, mb in FLASH_VARIANTS:
+        text = this
+        for key, val in (("BK", bk), ("MIN_BLOCKS", mb)):
+            text = text.replace(f"constexpr int {key} = {consts[key]};",
+                                f"constexpr int {key} = {val};")
+        sources[f"BK={bk}, {mb} blocks an SM"] = text
+    sources["parent"] = (Path(parent_src) / "repro_torch" / "csrc" / kf.SOURCE).read_text()
+    vdir = build.BUILD_DIR / f"flash_ab.{os.getpid()}"
+    vdir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, text) in enumerate(sources.items()):
+        cu, so = vdir / f"v{i}.cu", vdir / f"v{i}.so"
+        cu.write_text(text)
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(cu)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    libs, regs = {}, {}
+    for name, (so, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on flash variant {name}:\n{text}")
+        regs[name] = parse_ptxas(text).get(128, {})
+        libs[name] = kf.bind(ctypes.CDLL(str(so)))
+    for name, lib in libs.items():
+        kf._library = lambda lib=lib: lib
+        log(f"flash variant {name}: ptxas hd=128 {regs[name]}, "
+            f"max_abs_err {flash_cases(kf):.3e}")
+    names = list(libs)
+    for rnd, order in enumerate((names, names[::-1])):
+        for name in order:
+            kf._library = lambda lib=libs[name]: lib
+            t = flash_timings(kf)
+            row = dict(variant=name, round=rnd, ptxas_hd128=regs[name])
+            for key, shape in (("era", t), ("era_seq128", t["era_seq128"]),
+                               ("prefill", t["prefill"])):
+                row[key] = {k: shape[k] for k in
+                            ("ms", "library_ms", "kernel_over_library", "bound_ms")}
+            log(json.dumps(row))
+
+
 def main() -> None:
     import argparse
 
@@ -828,6 +1011,9 @@ def main() -> None:
     ap.add_argument("--era-ab", metavar="PARENT_SRC",
                     help="only time the ERA path's host cost: the "
                          "repro_torch under PARENT_SRC against this one")
+    ap.add_argument("--flash-ab", metavar="PARENT_SRC",
+                    help="only compare flash kernels: the one under "
+                         "PARENT_SRC, this one and its tile variants")
     ap.add_argument("--era-host", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -840,6 +1026,8 @@ def main() -> None:
     log(smi)
     if args.era_ab:
         return era_ab(args.era_ab)
+    if args.flash_ab:
+        return flash_ab(args.flash_ab)
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -850,11 +1038,13 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as kf
 
     t0 = time.perf_counter()
+    ptxas = ptxas_start(build, kf.SOURCE)
     libs = build.build_all([kf.SOURCE, kd.SOURCE])
     log(f"built {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f}s")
+    flash_ptxas = ptxas_report(ptxas, kf)
 
     era_err, era_t = phase_era(ku)
-    flash_err, flash_t = phase_flash(kf)
+    flash_err, flash_t = flash_cases(kf), flash_timings(kf)
     era_launches, drain_s, per_nfe_ms = phase_slice(ku, kf, kd)
     decode_err, decode_t = phase_decode(kd)
     ar_launches, ar = phase_ar(ku, kf, kd)
@@ -878,7 +1068,9 @@ def main() -> None:
              ms=flash_t["ms"], kernel_ms=flash_t["ms"],
              plain_ms=flash_t["plain_ms"], bound_ms=flash_t["bound_ms"],
              bound_by=flash_t["bound_by"], library_ms=flash_t["library_ms"],
-             shape=flash_t["shape"], ar_prefill=flash_t["prefill"]),
+             kernel_over_library=flash_t["kernel_over_library"],
+             shape=flash_t["shape"], era_seq128=flash_t["era_seq128"],
+             ar_prefill=flash_t["prefill"], ptxas=flash_ptxas),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:23",

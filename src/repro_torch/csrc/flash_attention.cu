@@ -1,48 +1,95 @@
 // Flash attention forward for Hopper (sm_90a): bf16 inputs, f32 math.
 //
-// Replaces the TPU kernel repro.kernels.flash_attention._flash_kernel.
-// What it computes is the same: online-softmax GQA attention in which query
+// Replaces the TPU kernel repro.kernels.flash_attention._flash_kernel
+// (src/repro/kernels/flash_attention.py:34, pallas_call at :160).  It
+// computes the same function: online-softmax GQA attention in which query
 // head h reads kv head h / (H / KV), masked by positions (kv_pos < 0 is an
 // invalid key; causal, sliding-window and protected-sink predicates), an
 // optional per-row kv_mask, an optional tanh softcap, and zeros for a row
-// whose every key is masked.
+// whose every key is masked.  It reads and writes the model layout
+// (B, S, H, hd) directly: no transposes, and kv heads are never replicated.
 //
-// Design.  The TPU walks the kv axis as a sequential grid dimension and
-// keeps (acc, m, l) in VMEM scratch between grid steps.  Here one thread
-// block owns one (batch*head, 64-query tile) and loops over 64-key tiles
-// itself, keeping the running state in shared memory, so nothing carries
-// between blocks.  Each of the 4 warps owns 16 query rows end to end
-// (scores, softmax, P.V), so after a kv tile is staged only warp-level
-// synchronisation is needed.  Q.K^T and P.V run on the tensor cores through
-// WMMA 16x16x16 bf16 tiles with f32 accumulation; the softmax runs in f32
-// on the scores, and P is rounded to bf16 for the P.V product (the one
-// place the numbers differ from an all-f32 reference).  GQA is by index:
-// kv heads are never replicated.  The kernel reads and writes the model
-// layout (B, S, H, hd) directly, so there are no transpose copies.
+// Bound.  At the ERA path's shape (B=8, S=256, H=12, KV=2, hd=128,
+// non-causal) the work is 4*B*H*S*S*hd = 3.2 GFLOP against 14.7 MB of
+// inputs and output, 0.00438 ms at 3.35 TB/s against 0.00326 ms at the
+// bf16 tensor peak: bytes bound it, by a little.  In the AR prefill (B=8,
+// S=512, causal) the causal half is 6.5 GFLOP against 29.4 MB: 0.00876 ms
+// (bytes) against 0.0066 ms (operations).  Both sit close to the ridge, so
+// the kernel must keep the tensor cores fed and move each byte once.
 //
-// Bound.  At the sampling path's shapes (S = 256, hd = 128) the work is
-// 4*B*H*S*S*hd flops against (2*B*S*H*hd + 2*B*S*KV*hd) * 2 bytes, about
-// 220 flops a byte: below the H100's ~295 bf16 ridge, so memory bytes bound
-// it.  This first version is the simple, correct one (WMMA through shared
-// memory, no TMA or wgmma, no pipelining of the kv loads); its measured
-// time stands beside the bound in PERF.md.
+// Design (FlashAttention-2 on warp-level mma.sync).  One block of 4 warps
+// owns one (batch*head, 64-query tile) and walks the kv axis in 32-key
+// tiles, which takes the place of the TPU's sequential kv grid axis; each
+// warp owns 16 query rows end to end.  What the first version (WMMA through
+// shared memory) lost time on, and what this one does instead:
+//  1. Products and softmax in registers.  Q.K^T and P.V are
+//     mma.sync.m16n8k16 bf16 products with f32 accumulators, their operands
+//     brought from shared memory by ldmatrix (.trans for V).  Q is loaded
+//     into A fragments once and stays in registers.  The 16x32 score tile
+//     stays in the accumulator registers; the online softmax runs there,
+//     each thread holding two rows' columns, so a row's max takes two quad
+//     shuffles, and the row sum is kept per thread and reduced once at the
+//     end.  P is rounded to bf16 in registers: an m16n8 accumulator pair is
+//     the A fragment of the next k16 step.
+//  2. Output in registers.  The output accumulator (16 x hd f32 a warp, 64
+//     registers a thread at hd=128) and the running max and sum stay in
+//     registers for the whole kv loop; the output is written once, as bf16,
+//     through shared memory in 16-byte stores.
+//  3. Overlap.  K/V tiles are copied by cp.async.cg (16 bytes a thread)
+//     into a 2-stage ring: tile t+1 is in flight while tile t is computed.
+//     Rows are padded to hd+8 bf16, so the 8 row addresses of an ldmatrix
+//     phase fall in 8 distinct 16-byte bank groups.  Keys past Sk are
+//     zero-filled.  The tile's kv_pos and kv_mask entries come in with it,
+//     by 4-byte cp.async, so no load waits in the loop.
+//  4. Occupancy.  No score, probability or output tile lives in shared
+//     memory: a block holds the 2-stage K/V ring (Q is staged in the second
+//     stage before the loop, the output in the first after it) and the
+//     positions, 35 KB at hd=128 against 113 KB before.  Registers set the
+//     occupancy: at most 168 a thread (167 used at hd=128, no spill) let
+//     three blocks, 12 warps, share an SM, so the ERA shape's 384 blocks
+//     (S=256, 64-query tiles) run in one wave on 132 SMs, and its 192 at
+//     S=128 in less.  32-key tiles keep the score tile small enough for
+//     that budget; 64-key tiles at two blocks an SM measured slower at
+//     S=256 (PERF.md).  Late query tiles, which a causal mask leaves the
+//     most work, are dispatched first.
+//  5. A tile skip from positions, not indices.  Before the loop the block
+//     takes the min and max q_pos of its rows and, one warp per tile and a
+//     warp vote, marks each kv tile live (some key can be valid for some
+//     row: kv_pos >= 0, kv_mask set, kp <= max q_pos under causal, and
+//     kp > min q_pos - window or kp < protected under a window) and full
+//     (every key is valid for every row).  Dead tiles are never loaded or
+//     computed, which leaves (O, m, l) as an all-masked tile would; full
+//     tiles skip the per-element mask.  Arbitrary positions (ring slots,
+//     holes of -1, queries offset from keys) are handled, since nothing is
+//     inferred from tile numbers.  A row with no valid key ends with l = 0
+//     and writes exact zeros.
+//  6. Host.  The shared-memory attribute is set once per instance and card,
+//     not on every launch.
+//
+// Numbers.  Scores are accumulated in f32; the softmax uses exp2f with the
+// scale folded in by log2(e) (CUDA's exp2f: at most 2 ulp, far inside the
+// 2^-7 relative tolerance the output is held to); the softcap uses the
+// full-precision tanhf.  P is rounded to bf16 before P.V, as before; the
+// row sum l adds the unrounded p.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per kv tile
+constexpr int BK = 32;          // keys per kv tile
 constexpr int NWARPS = BQ / 16; // one warp per 16 query rows
 constexpr int NTHREADS = NWARPS * 32;
+constexpr int MIN_BLOCKS = 3;   // blocks an SM must hold: <= 168 registers
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int Q_PAD_POS = -1000000000;  // position of a query row past Sq
+static_assert(BQ <= 2 * BK, "Q is staged in the second stage's K and V buffers");
+static_assert(2 * BK <= NTHREADS, "one thread a kv_pos and a kv_mask entry");
 
 struct Params {
   const bf16* q;       // (B, Sq, H, hd)
@@ -57,52 +104,116 @@ struct Params {
   int window, causal, protected_;
 };
 
-// Shared-memory layout; every region starts on a 32-byte boundary and
-// every WMMA tile pointer is 32-byte aligned (row pitches below keep
-// 16-row offsets multiples of 32 bytes).
+// Shared memory: K0 V0 K1 V1 tiles (bf16, pitch LDB), the two tiles' kv_pos
+// and kv_mask entries, the block's q positions and their min/max, then two
+// bitmasks over the kv tiles (live, full), sized at launch.
 template <int HD>
 struct Smem {
-  static constexpr int LDB = HD + 8;  // bf16 pitch of Q, K, V tiles
-  static constexpr int LDS = BK + 4;  // f32 pitch of the score tile
-  static constexpr int LDP = BK + 8;  // bf16 pitch of the probability tile
-  static constexpr int LDO = HD + 4;  // f32 pitch of the output accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + size_t(BQ) * LDB * 2;
-  static constexpr size_t v_off = k_off + size_t(BK) * LDB * 2;
-  static constexpr size_t s_off = v_off + size_t(BK) * LDB * 2;
-  static constexpr size_t p_off = s_off + size_t(BQ) * LDS * 4;
-  static constexpr size_t o_off = p_off + size_t(BQ) * LDP * 2;
-  static constexpr size_t m_off = o_off + size_t(BQ) * LDO * 4;
-  static constexpr size_t l_off = m_off + size_t(BQ) * 4;
-  static constexpr size_t kp_off = l_off + size_t(BQ) * 4;
-  static constexpr size_t bytes = kp_off + size_t(BK) * 4;
+  static constexpr int LDB = HD + 8;
+  static constexpr size_t tile = size_t(BK) * LDB * 2;
+  static constexpr size_t kp_off = 4 * tile;
+  static constexpr size_t km_off = kp_off + 2 * BK * 4;
+  static constexpr size_t qp_off = km_off + 2 * BK * 4;
+  static constexpr size_t red_off = qp_off + BQ * 4;
+  static constexpr size_t bits_off = red_off + 2 * NWARPS * 4;
+  static size_t bytes(int nk) { return bits_off + 2 * size_t((nk + 31) / 32) * 4; }
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// d += a * b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ bool key_valid(int kp, int qp, const Params& p) {
+  bool ok = kp >= 0;
+  if (p.causal) ok = ok && kp <= qp;
+  if (p.window > 0) ok = ok && (kp > qp - p.window || kp < p.protected_);
+  return ok;
+}
+
+// first tile >= t whose bit is set, or nk
+__device__ __forceinline__ int next_tile(const uint32_t* bits, int t, int nk) {
+  while (t < nk) {
+    const uint32_t w = bits[t >> 5] >> (t & 31);
+    if (w) return t + __ffs(w) - 1;
+    t = (t | 31) + 1;
+  }
+  return nk;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const Params p) {
   using L = Smem<HD>;
+  constexpr int LDB = L::LDB;
+  constexpr int VPR = HD / 8;  // 16-byte vectors per row
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-  float* Os = reinterpret_cast<float*>(smem + L::o_off);
-  float* Ms = reinterpret_cast<float*>(smem + L::m_off);
-  float* Ls = reinterpret_cast<float*>(smem + L::l_off);
-  int* Kp = reinterpret_cast<int*>(smem + L::kp_off);
+  // stage s: K at 2s tiles, V at 2s + 1 tiles (offsets, not a pointer
+  // array, so a run-time stage index stays in registers)
+  auto k_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * s * L::tile); };
+  auto v_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + (2 * s + 1) * L::tile); };
+  int* Kp = reinterpret_cast<int*>(smem + L::kp_off);  // [2][BK] kv_pos
+  int* Km = reinterpret_cast<int*>(smem + L::km_off);  // [2][BK] kv_mask
+  int* Qp = reinterpret_cast<int*>(smem + L::qp_off);  // [BQ] q_pos
+  int* red = reinterpret_cast<int*>(smem + L::red_off);
+  const int nk = (p.Sk + BK - 1) / BK;
+  const int nwords = (nk + 31) / 32;
+  uint32_t* live = reinterpret_cast<uint32_t*>(smem + L::bits_off);  // then full
 
-  const int q0 = blockIdx.x * BQ;
+  // late query tiles first: under a causal mask they have the most work
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
@@ -111,165 +222,306 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  const long q_stride = long(p.H) * HD;    // elements between query rows
-  const long kv_stride = long(p.KV) * HD;  // elements between key rows
-  const bf16* qg = p.q + (long(b) * p.Sq * p.H + h) * HD;
-  const bf16* kg = p.k + (long(b) * p.Sk * p.KV + kvh) * HD;
-  const bf16* vg = p.v + (long(b) * p.Sk * p.KV + kvh) * HD;
-  bf16* og = p.o + (long(b) * p.Sq * p.H + h) * HD;
+  // element strides between rows and offsets of this (b, h) / (b, kvh);
+  // few values are kept live through the kv loop, to leave registers to
+  // the products
+  const int q_stride = p.H * HD;
+  const int kv_stride = p.KV * HD;
+  const long q_off = (long(b) * p.Sq * p.H + h) * HD;
+  const long kv_off = (long(b) * p.Sk * p.KV + kvh) * HD;
+  const long mask_off = long(b) * p.Sk;
+  const bool masked = p.kv_mask != nullptr;
 
-  constexpr int VEC = 8;          // bf16 per 16-byte load
-  constexpr int VPR = HD / VEC;   // 16-byte vectors per row
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
+  // Q into the second stage's buffers (K, then V when BQ > BK); rows past
+  // Sq are zeros
+  bf16* Qs = k_tile(1);
   for (int idx = tid; idx < BQ * VPR; idx += NTHREADS) {
-    const int r = idx / VPR, c = (idx % VPR) * VEC;
-    uint4 val = zero;
-    if (q0 + r < p.Sq) val = *reinterpret_cast<const uint4*>(qg + (q0 + r) * q_stride + c);
-    *reinterpret_cast<uint4*>(Qs + r * L::LDB + c) = val;
+    const int r = idx / VPR, c = (idx % VPR) * 8;
+    const bool in = q0 + r < p.Sq;
+    cp_async16(Qs + r * LDB + c, p.q + (in ? q_off + long(q0 + r) * q_stride + c : 0), in);
   }
-  for (int idx = tid; idx < BQ * HD; idx += NTHREADS) Os[(idx / HD) * L::LDO + idx % HD] = 0.f;
-  if (tid < BQ) {
-    Ms[tid] = NEG_INF;
-    Ls[tid] = 0.f;
-  }
+  cp_async_commit();
 
-  const int row0 = warp * 16;  // this warp's first query row in the tile
-  const int nk = (p.Sk + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed; first pass: Q/O ready
-    for (int idx = tid; idx < BK * VPR; idx += NTHREADS) {
-      const int r = idx / VPR, c = (idx % VPR) * VEC;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < p.Sk) {
-        kv = *reinterpret_cast<const uint4*>(kg + (k0 + r) * kv_stride + c);
-        vv = *reinterpret_cast<const uint4*>(vg + (k0 + r) * kv_stride + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * L::LDB + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * L::LDB + c) = vv;
+  // the block's q-position range, then the live / full bitmask of kv tiles
+  {
+    const int qi = q0 + tid;
+    const bool in = tid < BQ && qi < p.Sq;
+    const int qp = in ? p.q_pos[qi] : Q_PAD_POS;
+    if (tid < BQ) Qp[tid] = qp;
+    int lo = in ? qp : INT32_MAX, hi = in ? qp : INT32_MIN;
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
     }
-    if (tid < BK) {
-      const int j = k0 + tid;
-      int pos = -1;  // out of range or masked: invalid
+    if (lane == 0) {
+      red[warp] = lo;
+      red[NWARPS + warp] = hi;
+    }
+    for (int w = tid; w < 2 * nwords; w += NTHREADS) live[w] = 0u;
+  }
+  __syncthreads();
+  int min_qp = red[0], max_qp = red[NWARPS];
+  for (int w = 1; w < NWARPS; ++w) {
+    min_qp = min(min_qp, red[w]);
+    max_qp = max(max_qp, red[NWARPS + w]);
+  }
+  for (int t = warp; t < nk; t += NWARPS) {
+    bool any = false, all = true;
+#pragma unroll
+    for (int c = 0; c < BK / 32; ++c) {
+      const int j = t * BK + c * 32 + lane;
+      int kp = -1;
       if (j < p.Sk) {
-        pos = p.kv_pos[j];
-        if (p.kv_mask != nullptr && p.kv_mask[long(b) * p.Sk + j] == 0) pos = -1;
+        kp = p.kv_pos[j];
+        if (masked && p.kv_mask[mask_off + j] == 0) kp = -1;
       }
-      Kp[tid] = pos;
+      // some row may see the key / every row sees it
+      bool some = kp >= 0, every = kp >= 0;
+      if (p.causal) {
+        some = some && kp <= max_qp;
+        every = every && kp <= min_qp;
+      }
+      if (p.window > 0) {
+        const bool sink = kp < p.protected_;
+        some = some && (kp > min_qp - p.window || sink);
+        every = every && (kp > max_qp - p.window || sink);
+      }
+      any = any || some;
+      all = all && every;
     }
-    __syncthreads();
-
-    // scores S = Q K^T for this warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BK / 16];
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(sacc[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + row0 * L::LDB + kk, L::LDB);
-#pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          // K^T as a column-major (hd x keys) operand is K row-major
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, Ks + j * 16 * L::LDB + kk, L::LDB);
-          wmma::mma_sync(sacc[j], a, bk, sacc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-        wmma::store_matrix_sync(Ss + row0 * L::LDS + j * 16, sacc[j], L::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time; lane owns keys lane and lane + 32
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r;
-      const int qi = q0 + row;
-      const int qp = qi < p.Sq ? p.q_pos[qi] : Q_PAD_POS;
-      float s[2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c;
-        float x = Ss[row * L::LDS + col] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        const int kp = Kp[col];
-        bool valid = kp >= 0;
-        if (p.causal) valid = valid && kp <= qp;
-        if (p.window > 0) {
-          bool in_w = kp > qp - p.window;
-          if (p.protected_ > 0) in_w = in_w || kp < p.protected_;
-          valid = valid && in_w;
-        }
-        s[c] = valid ? x : NEG_INF;
-      }
-      const float m_prev = Ms[row];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s[0], s[1])));
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float pr = s[c] > NEG_INF / 2 ? expf(s[c] - m_new) : 0.f;
-        psum += pr;
-        Ps[row * L::LDP + lane + 32 * c] = __float2bfloat16(pr);
-      }
-      psum = warp_sum(psum);
-      const float alpha = m_prev > NEG_INF / 2 ? expf(m_prev - m_new) : 0.f;
-      for (int c = lane; c < HD; c += 32) Os[row * L::LDO + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        Ms[row] = m_new;
-        Ls[row] = Ls[row] * alpha + psum;
-      }
-    }
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(pa[kk], Ps + row0 * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-        wmma::load_matrix_sync(oacc, Os + row0 * L::LDO + n * 16, L::LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-          wmma::load_matrix_sync(vb, Vs + kk * 16 * L::LDB + n * 16, L::LDB);
-          wmma::mma_sync(oacc, pa[kk], vb, oacc);
-        }
-        wmma::store_matrix_sync(Os + row0 * L::LDO + n * 16, oacc, L::LDO, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-  }
-
-  // finalize this warp's rows: acc / l, zeros where no key was valid
-  for (int r = 0; r < 16; ++r) {
-    const int row = row0 + r;
-    const int qi = q0 + row;
-    if (qi >= p.Sq) break;
-    const float l = Ls[row];
-    const float den = l > 0.f ? l : 1.f;
-    for (int c = lane * 2; c < HD; c += 64) {
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(Os[row * L::LDO + c] / den,
-                                                        Os[row * L::LDO + c + 1] / den);
-      *reinterpret_cast<__nv_bfloat162*>(og + qi * q_stride + c) = pair;
+    any = __any_sync(0xffffffffu, any);
+    all = __all_sync(0xffffffffu, all);
+    if (lane == 0) {
+      if (any) atomicOr(&live[t >> 5], 1u << (t & 31));
+      if (all) atomicOr(&live[nwords + (t >> 5)], 1u << (t & 31));
     }
   }
+  __syncthreads();
+
+  // issue the cp.async copies of kv tile t into stage s: K, V, and the
+  // tile's kv_pos and kv_mask entries (keys past Sk are zero-filled).  The
+  // copy loop is not unrolled: its addresses would hold registers that the
+  // products need.
+  auto load_tile = [&](int t, int s) {
+    const int k0 = t * BK;
+#pragma unroll 1
+    for (int idx = tid; idx < BK * VPR; idx += NTHREADS) {
+      const int r = idx / VPR, c = (idx % VPR) * 8;
+      const bool in = k0 + r < p.Sk;
+      const long off = in ? kv_off + long(k0 + r) * kv_stride + c : 0;
+      cp_async16(k_tile(s) + r * LDB + c, p.k + off, in);
+      cp_async16(v_tile(s) + r * LDB + c, p.v + off, in);
+    }
+    const int j = k0 + (tid % BK);
+    const bool in = j < p.Sk;
+    if (tid < BK) cp_async4(Kp + s * BK + tid, p.kv_pos + (in ? j : 0), in);
+    else if (tid < 2 * BK && masked)
+      cp_async4(Km + s * BK + tid - BK, p.kv_mask + (in ? mask_off + j : 0), in);
+  };
+
+  int cur = next_tile(live, 0, nk);
+  if (cur < nk) {
+    load_tile(cur, 0);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q has landed
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // this warp's Q rows as A fragments, kept for the whole loop
+  const int row0 = warp * 16;
+  uint32_t qf[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(qf[kk], Qs + (row0 + (lane & 15)) * LDB + kk * 16 + (lane >> 4) * 8);
+  __syncthreads();  // Q's buffer is the first prefetch's target
+
+  // this thread's rows: g and g + 8 of the warp's 16; columns 2*t4, +1 of
+  // each 8-wide block
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool capped = p.softcap > 0.f;
+  // p = exp2(x * mul - m * mul), x the (capped) score; raw scores are
+  // unscaled, so without a cap the scale folds into mul
+  const float mul = capped ? LOG2E : p.scale * LOG2E;
+  const float cap_in = capped ? p.scale / p.softcap : 0.f;
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};
+
+  int stage = 0;
+  while (cur < nk) {
+    const int nxt = next_tile(live, cur + 1, nk);
+    if (nxt < nk) {
+      load_tile(nxt, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile `cur` is in stage `stage` for every thread
+
+    const bf16* Kt = k_tile(stage);
+    const bf16* Vt = v_tile(stage);
+
+    // S = Q K^T, 16 x BK a warp, in registers
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < BK / 16; ++jp) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Kt + (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDB + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // softcap, mask, online softmax; element e of s[j]: row g + 8*(e/2),
+    // key 8j + 2*t4 + e%2
+    if (capped) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = p.softcap * tanhf(s[j][e] * cap_in);
+    }
+    const bool is_full = (live[nwords + (cur >> 5)] >> (cur & 31)) & 1u;
+    if (!is_full) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        int2 kp = *reinterpret_cast<const int2*>(Kp + stage * BK + col);
+        if (masked) {
+          const int2 km = *reinterpret_cast<const int2*>(Km + stage * BK + col);
+          if (km.x == 0) kp.x = -1;
+          if (km.y == 0) kp.y = -1;
+        }
+        if (cur * BK + col >= p.Sk) kp.x = -1;
+        if (cur * BK + col + 1 >= p.Sk) kp.y = -1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = (e & 1) ? kp.y : kp.x;
+          if (!key_valid(key, Qp[row0 + g + 8 * (e >> 1)], p)) s[j][e] = NEG_INF;
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_run[r];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = quad_max(mx);
+      // no valid key yet: subtract 0, so masked scores give exp2(-huge) = 0
+      const float base = mx > NEG_INF / 2 ? mx * mul : 0.f;
+      alpha[r] = exp2f(m_run[r] * mul - base);
+      m_run[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        s[j][2 * r] = exp2f(fmaf(s[j][2 * r], mul, -base));
+        s[j][2 * r + 1] = exp2f(fmaf(s[j][2 * r + 1], mul, -base));
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l_run[r] = l_run[r] * alpha[r] + sum;  // this thread's columns only
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V, P rounded to bf16 in registers as the A operand
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, Vt + (kk * 16 + (lane & 15)) * LDB + np * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * np], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+
+    __syncthreads();  // the next iteration's prefetch overwrites stage `stage`
+    cur = nxt;
+    stage ^= 1;
+  }
+
+  // O / l as bf16, staged in the first stage's buffers (free after the
+  // loop's last barrier), then written in 16-byte rows
+  bf16* Os = k_tile(0) + row0 * LDB;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8 * r) * LDB + 8 * n + 2 * t4) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * VPR; idx += 32) {
+    const int r = idx / VPR, c = (idx % VPR) * 8;
+    const int qi = q0 + row0 + r;
+    if (qi < p.Sq)
+      *reinterpret_cast<uint4*>(p.o + q_off + long(qi) * q_stride + c) =
+          *reinterpret_cast<const uint4*>(Os + r * LDB + c);
+  }
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Raise the instance's dynamic shared-memory cap to the card's opt-in
+// maximum, once per card (a launch still asks only for what its Sk needs).
+template <int HD>
+cudaError_t allow_smem() {
+  static int done[MAX_DEVICES] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) done[dev] = 1;
+  return err;
 }
 
 template <int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t bytes = Smem<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  cudaError_t err = allow_smem<HD>();
   if (err != cudaSuccess) return err;
+  const int nk = (p.Sk + BK - 1) / BK;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  flash_fwd_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(p);
+  flash_fwd_kernel<HD><<<grid, NTHREADS, Smem<HD>::bytes(nk), stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int HD>
+int blocks_per_sm(int Sk) {
+  int blocks = -1;
+  if (allow_smem<HD>() != cudaSuccess) return -1;
+  const size_t bytes = Smem<HD>::bytes((Sk + BK - 1) / BK);
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_kernel<HD>, NTHREADS,
+                                                    bytes) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
@@ -306,5 +558,28 @@ extern "C" int repro_flash_attention_fwd(
     case 64: return int(launch<64>(p, s));
     case 128: return int(launch<128>(p, s));
     default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory of one block for head dim `hd` and `Sk` keys, or
+// -1 for an unsupported head dim.
+extern "C" long long repro_flash_attention_smem_bytes(int hd, int Sk) {
+  const int nk = (Sk + BK - 1) / BK;
+  switch (hd) {
+    case 32: return (long long)Smem<32>::bytes(nk);
+    case 64: return (long long)Smem<64>::bytes(nk);
+    case 128: return (long long)Smem<128>::bytes(nk);
+    default: return -1;
+  }
+}
+
+// Blocks of head dim `hd` and `Sk` keys that one SM holds at once (the
+// CUDA occupancy API, on the current card), or -1 on an error.
+extern "C" int repro_flash_attention_blocks_per_sm(int hd, int Sk) {
+  switch (hd) {
+    case 32: return blocks_per_sm<32>(Sk);
+    case 64: return blocks_per_sm<64>(Sk);
+    case 128: return blocks_per_sm<128>(Sk);
+    default: return -1;
   }
 }

@@ -3,15 +3,18 @@
 Replaces the TPU kernel ``repro.kernels.flash_attention._flash_kernel``
 (wrapper ``repro.kernels.ops.flash_attention``).  The kernel source is
 ``src/repro_torch/csrc/flash_attention.cu``; its header comment gives the
-design and what bounds it on the H100.  In short: one thread block per
-(batch*head, 64-query tile) loops over 64-key tiles with the online-softmax
-state in shared memory (the TPU's sequential kv grid axis and VMEM
-scratch), Q.K^T and P.V run on the tensor cores in bf16 with f32
-accumulation, GQA reads kv head ``h // G`` by index, and the kernel reads
-and writes the model layout ``(B, S, H, hd)`` with no transposes.  It is
-built with ``nvcc`` for ``sm_90a`` at first use and bound with ctypes; the
-C entry point returns ``cudaGetLastError()`` after the launch and the
-wrapper raises if it is not 0.
+design and what bounds it on the H100.  In short: one block of 4 warps per
+(batch*head, 64-query tile) walks 32-key tiles (the TPU's sequential kv
+grid axis), Q.K^T and P.V run as ``mma.sync`` bf16 products with the
+scores, the online-softmax state and the output accumulator in registers,
+the next K/V tile is copied by ``cp.async`` while the current one is
+computed, and kv tiles that no (query, key) pair of the block can use are
+skipped, decided from the positions and ``kv_mask``.  GQA reads kv head
+``h // G`` by index, and the kernel reads and writes the model layout
+``(B, S, H, hd)`` with no transposes.  It is built with ``nvcc`` for
+``sm_90a`` at first use and bound with ctypes; the C entry point returns
+``cudaGetLastError()`` after the launch and the wrapper raises if it is
+not 0.
 
 Semantics (shared with :func:`flash_attention_plain`): keys with
 ``kv_pos < 0`` or a zero ``kv_mask`` entry are invalid; causal, window and
@@ -23,6 +26,7 @@ valid key gives zeros.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -118,8 +122,14 @@ def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
         raise ValueError(f"flash_attention: B*H = {b * h} exceeds {MAX_GRID_Y}")
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+    return bind(build.load(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entry point's argument types on a loaded library (once, at
+    load; ctypes would otherwise cut the pointers to 32-bit ints)."""
     fn = lib.repro_flash_attention_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 7

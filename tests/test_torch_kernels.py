@@ -95,14 +95,26 @@ def test_era_update_cuda_checks_reject_cpu_tensors():
                   (0, 0, 0), torch.zeros(2, 4), torch.zeros(2), torch.zeros(2))
 
 
-def _attn_case(b, s, h, kvh, hd, seed=0):
+def _attn_case(b, s, h, kvh, hd, seed=0, sk=None):
     rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
     q = rng.standard_normal((b, s, h, hd), np.float32)
-    k = rng.standard_normal((b, s, kvh, hd), np.float32)
-    v = rng.standard_normal((b, s, kvh, hd), np.float32)
+    k = rng.standard_normal((b, sk, kvh, hd), np.float32)
+    v = rng.standard_normal((b, sk, kvh, hd), np.float32)
     return q, k, v
 
 
+def _ring(n, shift, holes):
+    """Ring slots: slot j holds position (j - shift) mod n; slots in
+    ``holes`` are empty (-1)."""
+    pos = np.roll(np.arange(n, dtype=np.int32), shift)
+    pos[holes[0]:holes[1]] = -1
+    return pos
+
+
+# the query positions (Sq,) and key positions (Sk,) default to arange; the
+# last two cases give positions that are not tile indices, which the CUDA
+# kernel's tile skip must read from the positions themselves
 FLASH_CASES = {
     "gqa non-causal": dict(b=2, s=40, h=4, kvh=2, hd=32, kw=dict(causal=False)),
     "mha causal": dict(b=1, s=33, h=2, kvh=2, hd=64, kw=dict(causal=True)),
@@ -117,21 +129,32 @@ FLASH_CASES = {
                     kw=dict(causal=False, softcap=2.0)),
     "long kv, 128 head dim": dict(b=1, s=160, h=2, kvh=1, hd=128,
                                   kw=dict(causal=False)),
+    "queries offset from keys, Sq < Sk, causal": dict(
+        b=2, s=10, sk=40, h=4, kvh=2, hd=32, kw=dict(causal=True),
+        q_pos=np.arange(30, 40, dtype=np.int32),
+    ),
+    "wrapped ring with empty slots, causal window protected": dict(
+        b=2, s=48, h=4, kvh=2, hd=32,
+        kw=dict(causal=True, window=12, protected=3),
+        kv_pos=_ring(48, 17, (8, 16)),
+    ),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_plain_matches_reference(case):
     c = FLASH_CASES[case]
-    q, k, v = _attn_case(c["b"], c["s"], c["h"], c["kvh"], c["hd"])
-    pos = np.arange(c["s"], dtype=np.int32)
+    sk = c.get("sk", c["s"])
+    q, k, v = _attn_case(c["b"], c["s"], c["h"], c["kvh"], c["hd"], sk=sk)
+    q_pos = c.get("q_pos", np.arange(c["s"], dtype=np.int32))
+    kv_pos = c.get("kv_pos", np.arange(sk, dtype=np.int32))
     kw = dict(c["kw"])
     mask = None
     if "lengths" in c:
-        mask = (pos[None, :] < np.asarray(c["lengths"])[:, None]).astype(np.int32)
+        mask = (np.arange(sk)[None, :] < np.asarray(c["lengths"])[:, None]).astype(np.int32)
     got = kf.flash_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(pos), torch.from_numpy(pos),
+        torch.from_numpy(q_pos), torch.from_numpy(kv_pos),
         kv_mask=None if mask is None else torch.from_numpy(mask), **kw,
     ).numpy()
     assert kf.flash_attention.launches == 0
@@ -139,15 +162,15 @@ def test_flash_plain_matches_reference(case):
     # the oracle, in the kernel layout (B, H, S, hd)
     want = ref.flash_attention_ref(
         jnp.asarray(q.transpose(0, 2, 1, 3)), jnp.asarray(k.transpose(0, 2, 1, 3)),
-        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(pos), jnp.asarray(pos),
-        kv_mask=jm, **kw,
+        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(q_pos),
+        jnp.asarray(kv_pos), kv_mask=jm, **kw,
     )
     np.testing.assert_allclose(got, np.asarray(want).transpose(0, 2, 1, 3),
                                atol=ATTN_TOL)
     # the Pallas kernel through its wrapper (interpret mode), model layout
     pallas = ops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
-        jnp.asarray(pos), kv_mask=jm, **kw,
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(q_pos),
+        jnp.asarray(kv_pos), kv_mask=jm, **kw,
     )
     np.testing.assert_allclose(got, np.asarray(pallas), atol=ATTN_TOL)
     if "lengths" in c:
