@@ -3,7 +3,8 @@
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 1. prints the card's name and power limit, builds the CUDA kernels from the
-   sources in the checkout (one ``nvcc`` each, in parallel);
+   sources in the checkout (one ``nvcc`` each, in parallel, beside one
+   ``nvcc -Xptxas -v`` of each for its registers and spills);
 2. holds the Triton ``era_update`` kernel against its plain PyTorch version
    (max abs error <= 1e-5, the reference's fused-step tolerance);
 3. holds the CUDA ``flash_attention`` kernel against its plain version
@@ -20,15 +21,22 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    seeded weights) with ERA at nfe=10, checks the outputs, and checks from
    the kernels' launch counters that the sampling path ran its kernels;
 5. holds the CUDA ``decode_attention`` kernel against its plain version at
-   the AR path's shape (half-empty and full cache), a wrapped ring with
-   window and protected slots, G=5, head dims 64 and 32, and a batch large
-   enough for one split (no combine pass), and times it on both caches;
+   the AR path's shape (half-empty and full cache, the position as a host
+   int and as a tensor on the card), wrapped rings with window and
+   protected slots (whole blocks of a cluster outside the window; every
+   slot outside it), a cache length that is not a multiple of the tile or
+   the cluster's span, G=5, G=20, head dims 64 and 32, a batch large enough
+   for a cluster of one block, and a query with no valid slot (exact
+   zeros); prints each instance's registers, spills and shared memory and
+   the cluster size; times it on both caches, L2-warm and L2-cold (L2
+   flushed before each call), beside SDPA;
 6. the AR path: ``Engine.generate`` on the full-width qwen2-1.5b token model
    (vocab padded to 153,600, random seeded weights), batch 8, prompt 512,
    64 new tokens, 1024 cache slots; checks the launch counters and, as a
    smoke check, that the decode logits equal a fresh prefill's, and that
-   this check sees a planted fault; profiles the decode loop and counts
-   the rope's share of its device ops;
+   this check sees a planted fault; profiles the decode loop (the decode
+   kernel's time a launch inside it and its share of the loop's device
+   time) and counts the rope's share of its device ops;
 7. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times beside its bound, then the result line.
 
@@ -39,6 +47,11 @@ order parent, this, this, parent, one process each.
 ``python3 chip_smoke.py --flash-ab PARENT/src`` instead compares flash
 kernels in one process: the one under ``PARENT/src``, this checkout's and
 tile variants of it, each checked and then timed beside SDPA, in turns.
+``python3 chip_smoke.py --decode-ab PARENT/src`` compares decode kernels in
+one process the same way: the one under ``PARENT/src`` (through its own
+wrapper), this checkout's and its cluster and warp variants, each checked
+in every phase-5 case, then timed L2-warm and L2-cold at the half-full and
+full cache, in turns.
 
 It imports nothing of the JAX package.  Any failed check raises, so the
 script exits non-zero and prints no result line; it also fails when no
@@ -47,6 +60,7 @@ CUDA device is present or the port's sources are missing.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -362,16 +376,16 @@ def ptxas_start(build, source: str):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def parse_ptxas(text: str) -> dict:
-    """{hd: {registers, spill_stores, spill_loads}} of each flash instance
-    in ``nvcc -Xptxas -v`` output."""
+def parse_ptxas(text: str, kernel: str = "flash_fwd_kernel") -> dict:
+    """{hd: {registers, spill_stores, spill_loads}} of each instance of
+    ``kernel`` in ``nvcc -Xptxas -v`` output."""
     import re
 
     report, hd = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            hd = re.search(r"flash_fwd_kernelILi(\d+)E", m.group(1))
+            hd = re.search(rf"{kernel}ILi(\d+)E", m.group(1))
             hd = int(hd.group(1)) if hd else None
             continue
         if hd is None:
@@ -417,6 +431,33 @@ def ptxas_report(started, kf) -> dict:
     check(report[128]["spill_stores"] == 0 and report[128]["spill_loads"] == 0,
           "flash_attention hd=128 spills registers")
     return {str(k): v for k, v in sorted(report.items())}
+
+
+def decode_ptxas_report(text: str, kd, lib=None) -> dict:
+    """Each decode instance's registers and spills (from ``-Xptxas -v``
+    output ``text``), its shared memory and resident blocks an SM at the AR
+    path's plan (B=8, KV=2, G=6, 1024 slots), and that plan's cluster."""
+    lib = kd._library() if lib is None else lib
+    cluster, stages = kd.split_plan(AR_BATCH, 2, AR_MAX_LEN, 6)
+    report = parse_ptxas(text, "decode_attention_kernel")
+    tiles = -(-AR_MAX_LEN // kd.TILE)
+    for d in kd.HEAD_DIMS:
+        check(d in report and "registers" in report[d],
+              f"no ptxas report for decode hd={d}:\n{text}")
+        r = report[d]
+        r["smem_bytes_ar"] = int(lib.repro_decode_attention_smem_bytes(
+            d, stages, -(-tiles // cluster), cluster))
+        r["blocks_per_sm_ar"] = int(lib.repro_decode_attention_blocks_per_sm(
+            d, r["smem_bytes_ar"]))
+        log(f"decode_attention hd={d}: {r['registers']} registers, spill "
+            f"stores {r['spill_stores']} B, loads {r['spill_loads']} B, "
+            f"{r['smem_bytes_ar']} B shared memory and {r['blocks_per_sm_ar']} "
+            f"blocks an SM at the AR plan")
+    log(f"decode_attention AR plan: cluster {cluster} blocks, {stages} ring "
+        f"stages a warp, {AR_BATCH * 2 * cluster} blocks")
+    out = {str(k): v for k, v in sorted(report.items())}
+    out["cluster_ar"], out["stages_ar"] = cluster, stages
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -540,25 +581,35 @@ def phase_slice(ku, kf, kd):
 # ---------------------------------------------------------------------------
 
 
-def phase_decode(kd):
-    import torch.nn.functional as F
-
+def decode_cases(kd, fn=None) -> float:
+    """Hold ``fn`` (default ``kd.decode_attention``; another build's wrapper
+    in ``--decode-ab``) against the plain version in every case; return the
+    largest error.  Positions are passed as a (1,) int32 tensor on the card
+    where ``fn`` is this checkout's wrapper, else as a host int."""
+    this = fn is None
+    fn = kd.decode_attention if fn is None else fn
     gen = torch.Generator(device="cuda").manual_seed(4)
     dev = "cuda"
 
-    def run(name, b, h, kvh, s, hd, *, empty=0, shift=0, window=0, prot=0):
+    def run(name, b, h, kvh, s, hd, *, empty=0, shift=0, window=0, prot=0,
+            pos=None, q_pos=None, zeros=False, as_int=False):
         """A cache of ``s`` slots holding positions 0.. in order, its last
         ``empty`` slots empty (-1), rotated by ``shift`` slots as a wrapped
-        ring is; the query sits at the largest position."""
+        ring is (or the given ``pos``); the query sits at the largest
+        position (or ``q_pos``)."""
         q = torch.randn(b, h, hd, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, s, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(b, s, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
-        pos = torch.arange(s, dtype=torch.int32, device=dev)
-        pos[s - empty:] = -1
-        pos = torch.roll(pos, shift)
-        q_pos = s - empty - 1
+        if pos is None:
+            pos = torch.arange(s, dtype=torch.int32, device=dev)
+            pos[s - empty:] = -1
+            pos = torch.roll(pos, shift)
+        if q_pos is None:
+            q_pos = s - empty - 1
         kw = dict(window=window, protected=prot)
-        got = kd.decode_attention(q, k, v, q_pos, pos, **kw)
+        qp = q_pos if (as_int or not this) else torch.tensor(
+            [q_pos], dtype=torch.int32, device=dev)
+        got = fn(q, k, v, qp, pos, **kw)
         want = kd.decode_attention_plain(q, k, v, q_pos, pos, **kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got.float()).all()), f"decode {name}: non-finite")
@@ -568,77 +619,135 @@ def phase_decode(kd):
         log(f"decode_attention {name}: max_abs_err {err:.3e}")
         check(excess <= DECODE_ATOL,
               f"decode {name} error {err} beyond {DECODE_ATOL} + {DECODE_RTOL}*|o|")
-        return err, (q, k, v, q_pos, pos)
+        if zeros:
+            check(bool((got == 0).all()), f"decode {name}: not exact zeros")
+        if this and not as_int:
+            # the int form writes the position to the card first; the
+            # kernel then reads the same value
+            again = fn(q, k, v, q_pos, pos, **kw)
+            check(torch.equal(got, again), f"decode {name}: int and tensor q_pos differ")
+        return err
 
     b, h, kvh, s, hd = 8, 12, 2, 1024, 128
-    errs = []
-    err, (q, k, v, q_pos, pos) = run(
-        "qwen2 B=8 H=12 KV=2 S=1024 hd=128, 512 empty slots",
-        b, h, kvh, s, hd, empty=512)
-    errs.append(err)
-    err, full = run("qwen2 full cache", b, h, kvh, s, hd)
-    errs.append(err)
-    errs.append(run("wrapped ring, 7 empty, window=200+protected=4",
-                    b, h, kvh, s, hd, empty=7, shift=300, window=200,
-                    prot=4)[0])
-    errs.append(run("G=5 (hymba heads H=25 KV=5) hd=64", 2, 25, 5, 300, 64,
-                    empty=20, window=64, prot=8)[0])
-    errs.append(run("hd=64 (llama3.2-1b heads H=32 KV=8)", 8, 32, 8, 1024, 64,
-                    empty=100)[0])
-    errs.append(run("hd=32 (smoke heads)", 2, 4, 2, 96, 32)[0])
-    check(kd.split_plan(64, 8, 512)[0] == 1, "batch-64 case has splits")
-    errs.append(run("one split (B*KV=512: llama heads at batch 64)",
-                    64, 32, 8, 512, 64, empty=30)[0])
-    # a query with no valid slot gives exact zeros
-    none = torch.full((s,), -1, dtype=torch.int32, device=dev)
-    check(bool((kd.decode_attention(q, k, v, q_pos, none) == 0).all()),
-          "decode with no valid slot is not zero")
+    # a full 1024-slot ring whose positions run 5000.. from slot 300; with
+    # the query at 6023 and window 48 the valid slots are 252-299, 4 of the
+    # 64 tiles, so blocks 3-6 of each cluster hold no valid slot
+    ring = torch.roll(torch.arange(5000, 5000 + s, dtype=torch.int32, device=dev), 300)
+    errs = [
+        run("qwen2 B=8 H=12 KV=2 S=1024 hd=128, 512 empty slots, host-int q_pos",
+            b, h, kvh, s, hd, empty=512, as_int=True),
+        run("q_pos as a (1,) int32 tensor on the card, 512 empty slots",
+            b, h, kvh, s, hd, empty=512),
+        run("qwen2 full cache", b, h, kvh, s, hd),
+        run("wrapped ring, 7 empty, window=200+protected=4",
+            b, h, kvh, s, hd, empty=7, shift=300, window=200, prot=4),
+        run("wrapped ring, window=48: 4 of 8 blocks of every cluster "
+            "outside the window", b, h, kvh, s, hd, pos=ring, q_pos=6023,
+            window=48),
+        run("wrapped ring, every slot outside the window (exact zeros)",
+            b, h, kvh, s, hd, pos=ring, q_pos=9000, window=48, zeros=True),
+        run("S=1000 (not a multiple of the 16-slot tile or the cluster's "
+            "128-slot span), 37 empty", b, h, kvh, 1000, hd, empty=37, shift=11),
+        run("G=5 (hymba heads H=25 KV=5) hd=64", 2, 25, 5, 300, 64,
+            empty=20, window=64, prot=8),
+        run("G=20 (three 8-head chunks, H=40 KV=2) hd=64", 2, 40, 2, 520, 64,
+            empty=9),
+        run("hd=64 (llama3.2-1b heads H=32 KV=8)", 8, 32, 8, 1024, 64,
+            empty=100),
+        run("hd=32 (smoke heads)", 2, 4, 2, 96, 32),
+        run("cluster of one (B*KV=512: llama heads at batch 64)",
+            64, 32, 8, 512, 64, empty=30),
+        run("no valid slot (exact zeros)", b, h, kvh, s, hd,
+            pos=torch.full((s,), -1, dtype=torch.int32, device=dev), q_pos=0,
+            zeros=True),
+    ]
+    return max(errs)
 
-    # timing at the first case (the AR path's cache half full) and on the
-    # full cache: device time of the kernel's launches, of its plain version
-    # and of one SDPA call on the same tensors (the G query heads of a kv
-    # head as the query axis against K/V viewed as (B, KV, S, hd), the slot
-    # mask built outside the timed call)
-    g = h // kvh
 
-    def timed(q, k, v, q_pos, pos, what):
-        ms = device_ms(lambda: kd.decode_attention(q, k, v, q_pos, pos))
-        plain_ms = device_ms(
-            lambda: kd.decode_attention_plain(q, k, v, q_pos, pos), iters=5
-        )
-        qg = q.view(b, kvh, g, hd)
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        valid = (pos >= 0) & (pos <= q_pos)
-        mask = valid[None, None, None, :]
-        library_ms = device_ms(
-            lambda: F.scaled_dot_product_attention(qg, kt, vt, attn_mask=mask)
-        )
-        # the function needs K/V of the valid slots only, once; q, out and
-        # kv_pos once.  Each valid slot costs 4 flops a head and dim.
-        n_valid = int(valid.sum())
-        nbytes = 2.0 * (2 * b * n_valid * kvh * hd + 2 * b * h * hd) + 4.0 * s
-        flops = 4.0 * b * h * n_valid * hd
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-        t = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            shape=f"B={b} H={h} KV={kvh} S={s} hd={hd} bf16, {what}",
-        )
-        log(f"decode_attention timing ({what}): kernel {ms:.5f} ms device, "
-            f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
-            f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {n_valid} valid "
-            f"slots), nsplit/chunk {kd.split_plan(b, kvh, s)}")
+def is_decode_kernel(name: str) -> bool:
+    """A profiler row of a decode kernel (this one's or a parent's split
+    and combine kernels)."""
+    return "decode_" in name and "kernel" in name
+
+
+def decode_timings(kd, fn, q, k, v, q_pos, pos, what, *, full=True) -> dict:
+    """Device time of ``fn`` at one cache, L2-warm (20 calls in a row) and
+    L2-cold (L2 flushed before each call, only the decode kernels' rows
+    counted); with ``full``, also the plain version, one SDPA call (the G
+    query heads of a kv head as the query axis against K/V viewed as (B,
+    KV, S, hd), the slot mask built outside the timed call) warm and cold,
+    and the bound."""
+    import torch.nn.functional as F
+
+    b, s, kvh, hd = k.shape
+    h = q.shape[1]
+    t = dict(ms=device_ms(lambda: fn(q, k, v, q_pos, pos)),
+             ms_l2_cold=device_ms(lambda: fn(q, k, v, q_pos, pos), cold=True,
+                                  pick=is_decode_kernel))
+    if not full:
         return t
+    qp = int(q_pos) if not isinstance(q_pos, torch.Tensor) else int(q_pos.item())
+    qg = q.view(b, kvh, h // kvh, hd)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    valid = (pos >= 0) & (pos <= qp)
+    mask = valid[None, None, None, :]
 
-    timing = timed(q, k, v, q_pos, pos, f"{s - 512} of {s} slots valid")
-    timing["wrapper_ms"] = time_ms(
-        lambda: kd.decode_attention(q, k, v, q_pos, pos))
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kt, vt, attn_mask=mask)
+
+    # the function needs K/V of the valid slots only, once; q, out and
+    # kv_pos once.  Each valid slot costs 4 flops a head and dim.
+    n_valid = int(valid.sum())
+    nbytes = 2.0 * (2 * b * n_valid * kvh * hd + 2 * b * h * hd) + 4.0 * s
+    flops = 4.0 * b * h * n_valid * hd
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    t.update(
+        plain_ms=device_ms(lambda: kd.decode_attention_plain(q, k, v, qp, pos), iters=5),
+        library_ms=device_ms(sdpa),
+        library_ms_l2_cold=device_ms(sdpa, cold=True),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        shape=f"B={b} H={h} KV={kvh} S={s} hd={hd} bf16, {what}",
+        plan=kd.split_plan(b, kvh, s, h // kvh),
+    )
+    t["kernel_over_library"] = t["ms"] / t["library_ms"]
+    t["kernel_over_library_l2_cold"] = t["ms_l2_cold"] / t["library_ms_l2_cold"]
+    log(f"decode_attention timing ({what}): kernel {t['ms']:.5f} ms L2-warm, "
+        f"{t['ms_l2_cold']:.5f} ms L2-cold; plain {t['plain_ms']:.5f} ms; SDPA "
+        f"{t['library_ms']:.5f} / {t['library_ms_l2_cold']:.5f} ms; bound "
+        f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {n_valid} valid slots); "
+        f"(cluster, stages) {t['plan']}")
+    return t
+
+
+def decode_inputs(empty: int):
+    """The AR path's decode shapes (B=8, H=12, KV=2, 1024 slots, hd=128):
+    q, the cache, the query position as a (1,) int32 tensor on the card and
+    the slot positions (the last ``empty`` slots empty)."""
+    b, h, kvh, s, hd = AR_BATCH, 12, 2, AR_MAX_LEN, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(b, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(b, s, kvh, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(b, s, kvh, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    pos[s - empty:] = -1
+    q_pos = torch.tensor([s - empty - 1], dtype=torch.int32, device="cuda")
+    return q, k, v, q_pos, pos
+
+
+def phase_decode(kd):
+    check(kd.split_plan(64, 8, 512, 4)[0] == 1, "batch-64 case has a cluster")
+    err = decode_cases(kd)
+    # timing at the AR path's cache half full and full, the position on
+    # the card as the attention layer passes it
+    half = decode_inputs(empty=512)
+    timing = decode_timings(kd, kd.decode_attention, *half, "512 of 1024 slots valid")
+    timing["wrapper_ms"] = time_ms(lambda: kd.decode_attention(*half))
     log(f"decode_attention: a wrapper call {timing['wrapper_ms']:.5f} ms, "
         f"host included")
-    fq, fk, fv, fq_pos, fpos = full
-    timing["full"] = timed(fq, fk, fv, fq_pos, fpos, "full cache")
-    return max(errs), timing
+    full = decode_inputs(empty=0)
+    timing["full"] = decode_timings(kd, kd.decode_attention, *full, "full cache")
+    return err, timing
 
 
 # ---------------------------------------------------------------------------
@@ -767,10 +876,22 @@ def phase_ar(ku, kf, kd):
             lg, c = eng.decode_step(c, t[:, None], AR_PROMPT + i)
             t = eng.sample_token(lg)
 
-    idle, n_ops = profile_device(
+    idle, n_ops, rows, busy_ms = profile_device(
         decode_loop, f"decode loop, {AR_GEN - 1} steps of {AR_BATCH} tokens",
         decode_wall_ms, AR_GEN - 1, "step",
     )
+    # the decode kernel inside the loop: one kernel name, one launch a layer
+    # and step, its time per launch and share of the loop's device time
+    dec = [r for r in rows if is_decode_kernel(r[2])]
+    check(len(dec) == 1, f"decode loop: decode kernels {[r[2] for r in dec]}")
+    dec_ms, dec_n, dec_name = dec[0]
+    check(dec_n == cfg.num_layers * (AR_GEN - 1),
+          f"decode loop: {dec_n} launches of {dec_name}")
+    in_loop = dict(kernel=dec_name, ms=dec_ms, launches=dec_n,
+                   ms_per_launch=dec_ms / dec_n, busy_share=dec_ms / busy_ms)
+    log(f"decode_attention in the loop: {dec_ms:.3f} ms for {dec_n} launches, "
+        f"{in_loop['ms_per_launch'] * 1e3:.3f} us a launch, "
+        f"{in_loop['busy_share']:.4f} of {busy_ms:.1f} ms device busy")
     # the rope's share of those ops: the device ops of the loop's rope
     # calls (q and k in every layer of every step) at the decode shapes,
     # profiled as long as the loop (the count of a one-step trace varied by
@@ -795,30 +916,60 @@ def phase_ar(ku, kf, kd):
         f"of the decode loop's {n_ops} ({rope_ops / n_ops:.3f})")
     return launches, dict(prefill_ms=prefill_ms, decode_ms_per_step=per_token_ms,
                           tok_s=AR_BATCH * AR_GEN / gen_s, idle_share=idle,
-                          rope_op_share=rope_ops / n_ops)
+                          rope_op_share=rope_ops / n_ops, decode_in_loop=in_loop)
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
+              pick=None) -> float:
     """Mean device time of one call: the profiler's device time of every
     kernel ``iters`` calls launch, over ``iters``.  Unlike :func:`time_ms`
     it leaves out the host time of a wrapper whose kernels are shorter than
-    its own Python."""
+    its own Python.  ``cold`` writes ``FLUSH_BYTES`` before every call, so
+    the call finds L2 holding none of its inputs, and leaves the flush's own
+    kernels out of the sum; ``pick`` keeps only the rows whose kernel name
+    it accepts."""
+    flush = l2_flush() if cold else None
+    skip = set()
+    if flush is not None:
+        skip = {r[2] for r in traced(lambda: [flush() for _ in range(iters)])}
     for _ in range(warmup):
+        if flush is not None:
+            flush()
         fn()
 
     def run():
         for _ in range(iters):
+            if flush is not None:
+                flush()
             fn()
 
+    rows = [r for r in traced(run)
+            if r[2] not in skip and (pick is None or pick(r[2]))]
+    check(bool(rows), "no device time for the timed call")
+    return sum(r[0] for r in rows) / iters
+
+
+def traced(fn) -> list:
+    """:func:`device_events` rows of ``fn``, traced again (up to three
+    times) when the profiler drops a whole short trace."""
     for attempt in range(3):
         try:
-            rows, _, _ = device_events(run)
-            break
+            return device_events(fn)[0]
         except RuntimeError:
-            # the profiler can drop a whole short trace; time it again
             if attempt == 2:
                 raise
-    return sum(r[0] for r in rows) / iters
+    return []
+
+
+# bytes written between two L2-cold calls: over five times the H100's 50 MB
+# L2, so no line of the timed call's inputs survives
+FLUSH_BYTES = 256 << 20
+
+
+@functools.cache
+def l2_flush():
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    return lambda: buf.fill_(1.0)
 
 
 def device_events(fn):
@@ -852,10 +1003,11 @@ def device_events(fn):
 
 
 def profile_device(fn, what: str, plain_wall_ms: float, per: int,
-                   unit: str) -> tuple[float, int]:
+                   unit: str) -> tuple[float, int, list, float]:
     """Run ``fn`` once under torch.profiler; print the device-time breakdown
     by kernel and the device's idle share, 1 - busy / wall, and return that
-    share and the number of device ops.  The profiler adds host time of its own, so the wall is that of
+    share, the number of device ops, the profiler's (ms, count, name) rows
+    and the device busy ms.  The profiler adds host time of its own, so the wall is that of
     the same work run unprofiled (``plain_wall_ms``); the share over the
     trace's own device span (first device op to last) is printed beside
     it."""
@@ -870,7 +1022,7 @@ def profile_device(fn, what: str, plain_wall_ms: float, per: int,
         f"{1 - busy_ms / span_ms:.3f}; profiled wall {wall_ms:.1f} ms")
     for ms, count, name in rows[:12]:
         log(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
-    return idle, launches
+    return idle, launches, rows, busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1004,6 +1156,104 @@ def flash_ab(parent_src: str) -> None:
             log(json.dumps(row))
 
 
+# variants of the shipped decode kernel that --decode-ab times beside it:
+# name -> (blocks a cluster, or None for the plan's own; warps a block)
+DECODE_VARIANTS = {
+    "cluster 4": (4, 4),
+    "cluster 16 (non-portable)": (16, 4),
+    "8 warps a block": (None, 8),
+}
+
+
+def decode_ab(parent_src: str) -> None:
+    """Build the decode kernel of ``parent_src``, this checkout's and the
+    variants of this one (``DECODE_VARIANTS``), each with ``-Xptxas -v``;
+    bind the parent's through its own wrapper (its own C signature: a
+    host-int position and partial buffers); hold each against the plain
+    version in every phase-5 case; then time each at the AR path's cache
+    half full and full, L2-warm and L2-cold, in the order parent, this,
+    variants, and back.  Prints one JSON line per variant and round."""
+    import ctypes
+    import importlib.util
+    import re
+    import types
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as kd
+
+    this = (build.CSRC_DIR / kd.SOURCE).read_text()
+    m = re.findall(r"constexpr int NWARPS = (\d+);", this)
+    check(len(m) == 1, "decode source: no single NWARPS constant")
+    nw0 = int(m[0])
+    sources = {f"w{nw0}": this}
+    for _, nw in DECODE_VARIANTS.values():
+        sources.setdefault(f"w{nw}", this.replace(f"constexpr int NWARPS = {nw0};",
+                                                  f"constexpr int NWARPS = {nw};"))
+    parent_dir = Path(parent_src) / "repro_torch"
+    sources["parent"] = (parent_dir / "csrc" / kd.SOURCE).read_text()
+    vdir = build.BUILD_DIR / f"decode_ab.{os.getpid()}"
+    vdir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        cu, so = vdir / f"{name}.cu", vdir / f"{name}.so"
+        cu.write_text(text)
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(cu)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    libs, ptx = {}, {}
+    for name, (so, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on decode build {name}:\n{text}")
+        ptx[name] = text
+        libs[name] = ctypes.CDLL(str(so))
+    # the parent's own wrapper module, its library the parent's build
+    spec = importlib.util.spec_from_file_location(
+        "parent_decode_attention", parent_dir / "kernels" / "decode_attention.py")
+    parent = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent)
+    parent.build = types.SimpleNamespace(load=lambda source: libs["parent"])
+    log(f"decode parent: ptxas {parse_ptxas(ptx['parent'], 'decode_split_kernel').get(128)}")
+
+    plan = kd.split_plan
+    variants = {f"this: plan's cluster, {nw0} warps": (None, nw0), **DECODE_VARIANTS}
+    for name in libs:
+        if name != "parent":
+            kd.bind(libs[name])
+
+    def use(name):
+        """Point ``kd`` at the variant's build and cluster size."""
+        cluster, nw = variants[name]
+        kd._library = lambda lib=libs[f"w{nw}"]: lib
+        kd.smem_bytes.cache_clear()
+        kd.NWARPS = nw
+        kd.split_plan = lambda b, kvh, s, g, cluster=cluster: plan(b, kvh, s, g, cluster)
+
+    for name in variants:
+        use(name)
+        report = decode_ptxas_report(ptx[f"w{variants[name][1]}"], kd)
+        log(f"decode variant {name}: ptxas hd=128 {report['128']}, "
+            f"max_abs_err {decode_cases(kd):.3e}")
+    log(f"decode parent: max_abs_err {decode_cases(kd, parent.decode_attention):.3e}")
+
+    half, full = decode_inputs(empty=512), decode_inputs(empty=0)
+    names = ["parent", *variants]
+    for rnd, order in enumerate((names, names[::-1])):
+        for name in order:
+            row = dict(variant=name, round=rnd)
+            for key, (q, k, v, q_pos, pos) in (("half", half), ("full", full)):
+                if name == "parent":
+                    t = decode_timings(kd, parent.decode_attention, q, k, v,
+                                       int(q_pos.item()), pos, key, full=False)
+                else:
+                    use(name)
+                    t = decode_timings(kd, kd.decode_attention, q, k, v, q_pos,
+                                       pos, key, full=name == names[1])
+                row[key] = {k: t[k] for k in
+                            ("ms", "ms_l2_cold", "library_ms", "library_ms_l2_cold",
+                             "bound_ms", "plan") if k in t}
+            log(json.dumps(row))
+
+
 def main() -> None:
     import argparse
 
@@ -1014,6 +1264,9 @@ def main() -> None:
     ap.add_argument("--flash-ab", metavar="PARENT_SRC",
                     help="only compare flash kernels: the one under "
                          "PARENT_SRC, this one and its tile variants")
+    ap.add_argument("--decode-ab", metavar="PARENT_SRC",
+                    help="only compare decode kernels: the one under "
+                         "PARENT_SRC, this one and its variants")
     ap.add_argument("--era-host", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1028,6 +1281,8 @@ def main() -> None:
         return era_ab(args.era_ab)
     if args.flash_ab:
         return flash_ab(args.flash_ab)
+    if args.decode_ab:
+        return decode_ab(args.decode_ab)
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1039,9 +1294,14 @@ def main() -> None:
 
     t0 = time.perf_counter()
     ptxas = ptxas_start(build, kf.SOURCE)
+    dptxas_out, dptxas = ptxas_start(build, kd.SOURCE)
     libs = build.build_all([kf.SOURCE, kd.SOURCE])
     log(f"built {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f}s")
     flash_ptxas = ptxas_report(ptxas, kf)
+    text, _ = dptxas.communicate()
+    dptxas_out.unlink(missing_ok=True)
+    check(dptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+    decode_ptxas = decode_ptxas_report(text, kd)
 
     era_err, era_t = phase_era(ku)
     flash_err, flash_t = flash_cases(kf), flash_timings(kf)
@@ -1076,11 +1336,17 @@ def main() -> None:
              replaces="src/repro/kernels/decode_attention.py:23",
              **counts("decode_attention"), max_abs_err=decode_err,
              ms=decode_t["ms"], kernel_ms=decode_t["ms"],
+             ms_l2_cold=decode_t["ms_l2_cold"],
              wrapper_ms=decode_t["wrapper_ms"],
              plain_ms=decode_t["plain_ms"], bound_ms=decode_t["bound_ms"],
              bound_by=decode_t["bound_by"],
-             library_ms=decode_t["library_ms"], shape=decode_t["shape"],
-             full_cache=decode_t["full"]),
+             library_ms=decode_t["library_ms"],
+             library_ms_l2_cold=decode_t["library_ms_l2_cold"],
+             kernel_over_library=decode_t["kernel_over_library"],
+             kernel_over_library_l2_cold=decode_t["kernel_over_library_l2_cold"],
+             shape=decode_t["shape"], plan=decode_t["plan"],
+             full_cache=decode_t["full"], in_loop=ar["decode_in_loop"],
+             ptxas=decode_ptxas),
     ]
     log(f"ERA path: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
     log(f"AR path: prefill {ar['prefill_ms']:.2f} ms, decode "

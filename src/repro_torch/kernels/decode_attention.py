@@ -5,17 +5,19 @@ Replaces the TPU kernel ``repro.kernels.decode_attention._decode_kernel``
 (wrapper ``repro.kernels.ops.decode_attention``, which transposes the cache
 and pads G to 8 and hd to 128 for the TPU).  The kernel source is
 ``src/repro_torch/csrc/decode_attention.cu``; its header comment gives the
-design and what bounds it on the H100.  In short: the G query heads that
-share a kv head are processed together so each cache slot is read once per
-group, the slots are split across blocks and a second small kernel combines
-the splits' partial softmax states (flash-decoding), and the cache is read
-in its own layout ``(B, S, KV, hd)``.  It is built with ``nvcc`` for
-``sm_90a`` at first use and bound with ctypes; the C entry point returns
-``cudaGetLastError()`` after the launches and the wrapper raises if it is
-not 0.
+design and what bounds it on the H100.  In short: one launch, in which the
+G query heads that share a kv head are processed together so each cache
+slot is read once per group; the slots of a group are dealt in 16-slot
+tiles to the blocks of a thread-block cluster, which merge their softmax
+states through distributed shared memory; only valid rows are copied, all
+of a warp's tiles at once; and the cache is read in its own layout
+``(B, S, KV, hd)``.  It is built with ``nvcc`` for ``sm_90a`` at first use
+and bound with ctypes; the C entry point returns the launch's
+``cudaError_t`` and the wrapper raises if it is not 0.
 
 Semantics (shared with :func:`decode_attention_plain`): one query token at
-absolute position ``q_pos`` (a host ``int``); a slot is valid where
+absolute position ``q_pos`` (a host ``int``, or an int32 tensor of one
+element, which the kernel reads on the device); a slot is valid where
 ``kv_pos >= 0`` and ``kv_pos <= q_pos`` and, with ``window > 0``,
 ``kv_pos > q_pos - window`` or ``kv_pos < protected``; ``scale = hd **
 -0.5``; a query with no valid slot gives zeros.  No softcap, no kv_mask.
@@ -34,8 +36,12 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 SOURCE = "decode_attention.cu"
 HEAD_DIMS = (32, 64, 128)
-TILE = 64             # cache slots per staged tile (csrc TILE)
-TARGET_BLOCKS = 264   # two blocks per SM of the H100's 132
+TILE = 16             # cache slots a warp tile (csrc TILE)
+NWARPS = 4            # warps a block (csrc NWARPS)
+HEADS = 8             # query heads a block (csrc HEADS)
+MAX_STAGES = 4        # ring stages a warp (csrc MAX_STAGES)
+MAX_CLUSTER = 8       # blocks a cluster: the portable limit
+SMS = 132             # the H100's SMs: a wave of blocks
 MAX_SMEM = 232448     # bytes of shared memory a block may use on Hopper
 MAX_GRID_Y = 65535
 
@@ -44,7 +50,7 @@ def decode_attention_plain(
     q: Tensor,          # (B, H, hd) or (B, 1, H, hd)
     k: Tensor,          # (B, S, KV, hd) cache layout
     v: Tensor,          # (B, S, KV, hd)
-    q_pos: int,
+    q_pos: int | Tensor,  # host int, or a one-element int tensor
     kv_pos: Tensor,     # (S,) int, < 0 = empty slot
     *,
     window: int = 0,
@@ -57,6 +63,8 @@ def decode_attention_plain(
     qf = q.to(torch.float32).reshape(b, kvh, h // kvh, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qf, k.to(torch.float32)) * hd**-0.5
     kp = kv_pos.to(torch.int64)
+    if isinstance(q_pos, Tensor):
+        q_pos = q_pos.to(device=kp.device, dtype=torch.int64).reshape(())
     valid = (kp >= 0) & (kp <= q_pos)
     if window > 0:
         in_w = kp > q_pos - window
@@ -70,8 +78,9 @@ def decode_attention_plain(
     return out.reshape(shape).to(q.dtype)
 
 
-def _check(q, k, v, kv_pos) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v), ("kv_pos", kv_pos)):
+def _check(q, k, v, q_pos, kv_pos) -> None:
+    named = (("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("kv_pos", kv_pos))
+    for name, t in named:
         if t.device.type != "cuda":
             raise ValueError(f"decode_attention: {name} is on {t.device}, not cuda")
         if t.device != q.device:
@@ -83,8 +92,12 @@ def _check(q, k, v, kv_pos) -> None:
             raise TypeError(f"decode_attention: {name} must be bfloat16, got {t.dtype}")
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte aligned")
-    if kv_pos.dtype != torch.int32:
-        raise TypeError(f"decode_attention: kv_pos must be int32, got {kv_pos.dtype}")
+    for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"decode_attention: {name} must be int32, got {t.dtype}")
+    if q_pos.numel() != 1:
+        raise ValueError(f"decode_attention: q_pos must hold one position, got "
+                         f"{tuple(q_pos.shape)}")
     b, h, hd = q.shape
     _, s, kvh, _ = k.shape
     if hd not in HEAD_DIMS:
@@ -100,45 +113,70 @@ def _check(q, k, v, kv_pos) -> None:
         raise ValueError("decode_attention: empty cache")
     if kv_pos.shape != (s,):
         raise ValueError(f"decode_attention: kv_pos must be ({s},)")
-    if b * kvh > MAX_GRID_Y:
-        raise ValueError(f"decode_attention: B*KV = {b * kvh} exceeds {MAX_GRID_Y}")
+    groups = b * kvh * head_chunks(h // kvh)
+    if groups > MAX_GRID_Y:
+        raise ValueError(f"decode_attention: {groups} head groups exceed {MAX_GRID_Y}")
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+    return bind(build.load(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entry points' argument types on a loaded library (once, at
+    load; ctypes would otherwise cut the pointers to 32-bit ints)."""
     fn = lib.repro_decode_attention_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    lib.repro_decode_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.repro_decode_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.repro_decode_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.repro_decode_attention_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.repro_decode_attention_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def _smem_bytes(hd: int, g: int) -> int:
-    return _library().repro_decode_attention_smem_bytes(hd, g)
-
-
-def split_plan(batch: int, kv_heads: int, slots: int) -> tuple[int, int]:
-    """(number of splits, slots per split): enough blocks to cover the card
-    twice, each split a whole number of tiles."""
+def smem_bytes(hd: int, stages: int, slots: int, cluster: int) -> int:
+    """Shared memory a block takes for this plan (from the kernel's own
+    layout)."""
     tiles = -(-slots // TILE)
-    want = max(1, -(-TARGET_BLOCKS // (batch * kv_heads)))
-    per = -(-tiles // min(tiles, want))
-    chunk = per * TILE
-    return -(-slots // chunk), chunk
+    nloc = -(-tiles // cluster)  # most tiles a block of the cluster holds
+    return _library().repro_decode_attention_smem_bytes(hd, stages, nloc, cluster)
+
+
+def head_chunks(g: int) -> int:
+    """8-head chunks of a group of ``g`` query heads: clusters a (b, kv
+    head)."""
+    return -(-g // HEADS)
+
+
+def split_plan(
+    batch: int, kv_heads: int, slots: int, g: int, cluster: int | None = None,
+) -> tuple[int, int]:
+    """(blocks a cluster, ring stages a warp).  A group's slots are split
+    over a cluster of blocks until the groups' blocks make one wave of the
+    card (at most ``MAX_CLUSTER``, at most one 16-slot tile a block; 1 where
+    the groups alone fill the card); a warp's ring holds all its tiles, up
+    to ``MAX_STAGES``.  ``cluster`` forces the cluster size."""
+    groups = batch * kv_heads * head_chunks(g)
+    tiles = -(-slots // TILE)
+    if cluster is None:
+        cluster = max(1, min(MAX_CLUSTER, SMS // groups, tiles))
+    per_block = -(-tiles // cluster)
+    per_warp = -(-per_block // NWARPS)
+    return cluster, max(1, min(MAX_STAGES, per_warp))
 
 
 def decode_attention(
     q: Tensor,          # (B, H, hd) or (B, 1, H, hd), one token per row
     k: Tensor,          # (B, S, KV, hd) cache layout
     v: Tensor,
-    q_pos: int,
+    q_pos: int | Tensor,  # host int, or a one-element int32 tensor
     kv_pos: Tensor,     # (S,) int32
     *,
     window: int = 0,
@@ -146,41 +184,32 @@ def decode_attention(
 ) -> Tensor:
     """GQA decode attention over the cache.  CPU tensors take
     :func:`decode_attention_plain`; CUDA tensors launch the kernel (bf16,
-    head_dim 32/64/128) or raise."""
+    head_dim 32/64/128) or raise.  A host-int ``q_pos`` is written to the
+    card first; a tensor is read there by the kernel."""
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, k, v, q_pos, kv_pos, window=window, protected=protected
         )
+    if not isinstance(q_pos, Tensor):
+        q_pos = torch.full((1,), int(q_pos), dtype=torch.int32, device=q.device)
     shape = q.shape
     q3 = q.reshape(shape[0], shape[-2], shape[-1])
-    _check(q3, k, v, kv_pos)
+    _check(q3, k, v, q_pos, kv_pos)
     b, h, hd = q3.shape
     s, kvh = k.shape[1], k.shape[2]
-    smem = _smem_bytes(hd, h // kvh)
+    cluster, stages = split_plan(b, kvh, s, h // kvh)
+    smem = smem_bytes(hd, stages, s, cluster)
     if smem > MAX_SMEM:
         raise ValueError(
-            f"decode_attention: G = {h // kvh} needs {smem} bytes of shared "
-            f"memory, more than {MAX_SMEM}"
+            f"decode_attention: {s} slots need {smem} bytes of shared memory "
+            f"a block, more than {MAX_SMEM}"
         )
-    nsplit, chunk = split_plan(b, kvh, s)
     out = torch.empty_like(q3)
-    g = h // kvh
-    if nsplit > 1:
-        part_acc = torch.empty(
-            (nsplit, b * kvh, g, hd), dtype=torch.float32, device=q.device
-        )
-        part_ml = torch.empty(
-            (nsplit, b * kvh, g, 2), dtype=torch.float32, device=q.device
-        )
-        parts = (part_acc.data_ptr(), part_ml.data_ptr())
-    else:
-        parts = (None, None)
     err = _library().repro_decode_attention_fwd(
         q3.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kv_pos.data_ptr(), *parts,
-        b, h, kvh, s, hd, nsplit, chunk,
-        int(q_pos), int(window), int(protected), hd**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q_pos.data_ptr(), kv_pos.data_ptr(),
+        b, h, kvh, s, hd, cluster, stages, int(window), int(protected),
+        hd**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")

@@ -304,7 +304,8 @@ class Attention(nn.Module):
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
         if mode == "decode":
-            out = self._decode(q, k, v, cache, layer, pos, window, protected)
+            out = self._decode(q, k, v, cache, layer, pos, positions, window,
+                               protected)
         else:
             if mode == "prefill" and cache is not None:
                 keep = min(s, cache["pos"].shape[0])
@@ -318,13 +319,17 @@ class Attention(nn.Module):
             )
         return self.wo(out.reshape(b, s, h * hd))
 
-    def _decode(self, q, k, v, cache, layer, pos, window, protected) -> Tensor:
+    def _decode(self, q, k, v, cache, layer, pos, positions, window,
+                protected) -> Tensor:
+        """``pos`` (host int) picks the cache slot; the kernel reads the
+        query's position from ``positions``, the (1,) int32 tensor on the
+        device that the rope already used."""
         cfg = self.cfg
         slots = cache["pos"].shape[0]
         check_decode(cfg.attention_impl, q.device, cfg.attn_logit_softcap)
         cache_write(cache, layer, k, v, cache_slot(pos, slots, protected))
         k_all, v_all = cache_kv(cache, layer)
         return decode_attention(
-            q, k_all, v_all, pos, cache["pos"], window=window,
+            q, k_all, v_all, positions, cache["pos"], window=window,
             protected=protected,
         )

@@ -209,15 +209,19 @@ def _decode_case(b, h, kv, s, hd, dtype, seed=0):
     return (tq, tk, tv), (jq, jk, jv), kv_pos, s - 11
 
 
+@pytest.mark.parametrize("q_pos_form", ["int", "tensor"])
 @pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(map(str, c)))
-def test_decode_plain_matches_reference(case):
+def test_decode_plain_matches_reference(case, q_pos_form):
     """The plain version equals ``ref.decode_attention_ref`` (on the same,
     float32-widened inputs) and the Pallas kernel through
-    ``ops.decode_attention`` (interpret mode), in the case's dtype."""
+    ``ops.decode_attention`` (interpret mode), in the case's dtype, with the
+    query position given as a host int or as a (1,) int32 tensor (the
+    form the attention layer passes, which the kernel reads on the card)."""
     b, h, kv, s, hd, window, prot, dtype = case
     (tq, tk, tv), (jq, jk, jv), kv_pos, qpos = _decode_case(b, h, kv, s, hd, dtype)
+    tpos = qpos if q_pos_form == "int" else torch.tensor([qpos], dtype=torch.int32)
     got = kd.decode_attention(
-        tq, tk, tv, qpos, torch.from_numpy(kv_pos), window=window,
+        tq, tk, tv, tpos, torch.from_numpy(kv_pos), window=window,
         protected=prot,
     )
     assert kd.decode_attention.launches == 0
@@ -272,14 +276,136 @@ def test_decode_wrapped_ring_and_empty_cache():
 
 
 def test_decode_split_plan_covers_the_cache():
-    """Splits are whole tiles, cover every slot once and give at least the
-    target block count where the cache has that many tiles."""
-    for b, kvh, s in [(8, 2, 1024), (1, 2, 130), (64, 8, 4096), (2, 1, 64)]:
-        n, chunk = kd.split_plan(b, kvh, s)
-        assert chunk % kd.TILE == 0
-        assert (n - 1) * chunk < s <= n * chunk
-        assert n * b * kvh >= min(kd.TARGET_BLOCKS, -(-s // kd.TILE) * b * kvh)
-    assert kd.split_plan(8, 2, 1024) == (16, 64)
+    """A group's cluster is at most ``MAX_CLUSTER`` blocks and one tile a
+    block, the groups' blocks make at most one wave where the groups do not
+    fill the card alone (then the cluster is one block), the round-robin
+    deal gives every tile to exactly one (block, warp), and a warp's ring
+    holds all its tiles up to ``MAX_STAGES``."""
+    for b, kvh, s, g in [(8, 2, 1024, 6), (1, 2, 130, 6), (64, 8, 4096, 4),
+                         (2, 1, 64, 8), (64, 8, 512, 4), (3, 5, 300, 5),
+                         (1, 1, 16, 20)]:
+        cluster, stages = kd.split_plan(b, kvh, s, g)
+        groups = b * kvh * kd.head_chunks(g)
+        tiles = -(-s // kd.TILE)
+        assert 1 <= cluster <= min(kd.MAX_CLUSTER, tiles)
+        if groups >= kd.SMS:
+            assert cluster == 1
+        else:
+            assert groups * cluster <= kd.SMS
+        owners = [(t % cluster, (t // cluster) % kd.NWARPS) for t in range(tiles)]
+        per_warp = max(owners.count(o) for o in set(owners))
+        assert 1 <= stages <= kd.MAX_STAGES
+        assert stages == min(kd.MAX_STAGES, per_warp)
+    # the AR path: 16 groups x 8 blocks on 132 SMs, 2 tiles a warp when full
+    assert kd.split_plan(8, 2, 1024, 6) == (8, 2)
+    assert kd.split_plan(64, 8, 512, 4) == (1, 4)
+    assert kd.split_plan(8, 2, 1024, 6, cluster=16) == (16, 1)
+    assert kd.head_chunks(6) == 1 and kd.head_chunks(8) == 1 and kd.head_chunks(20) == 3
+
+
+def _split_combine(q, k, v, q_pos, kv_pos, *, cluster, window=0, protected=0):
+    """The kernel's split-and-combine arithmetic in plain float32 PyTorch:
+    16-slot tiles dealt round robin to the cluster's blocks and their warps
+    (tile t to block t % C, warp (t // C) % NWARPS), an online softmax in
+    log2 units over each warp's tiles (tiles with no valid slot skipped),
+    then every (block, warp) state merged at once, as the block that
+    combines an output element merges the states the cluster's warps
+    stored into its shared memory.  Returns the output and the (block,
+    warp) states' (m, l)."""
+    b, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf = q.reshape(b, kvh, g, hd).to(torch.float32)
+    kf32, vf32 = k.to(torch.float32), v.to(torch.float32)
+    kp = kv_pos.to(torch.int64)
+    valid = (kp >= 0) & (kp <= q_pos)
+    if window > 0:
+        valid = valid & ((kp > q_pos - window) | (kp < protected))
+    mul = hd**-0.5 * np.log2(np.e)
+    neg = torch.tensor(kd.NEG_INF)
+    m = torch.full((cluster, kd.NWARPS, b, kvh, g), kd.NEG_INF)
+    l = torch.zeros(cluster, kd.NWARPS, b, kvh, g)
+    acc = torch.zeros(cluster, kd.NWARPS, b, kvh, g, hd)
+    for t in range(-(-s // kd.TILE)):
+        r, w = t % cluster, (t // cluster) % kd.NWARPS
+        sl = slice(t * kd.TILE, min(s, (t + 1) * kd.TILE))
+        vt = valid[sl]
+        if not bool(vt.any()):
+            continue  # a dead tile is never loaded
+        sc = torch.einsum("bkgd,bskd->bkgs", qf, kf32[:, sl]) * mul
+        sc = torch.where(vt, sc, neg)
+        mx = torch.maximum(m[r, w], sc.amax(-1))
+        alpha = torch.exp2(m[r, w] - mx)
+        p = torch.exp2(sc - mx[..., None])
+        l[r, w] = l[r, w] * alpha + p.sum(-1)
+        acc[r, w] = acc[r, w] * alpha[..., None] + torch.einsum(
+            "bkgs,bskd->bkgd", p, vf32[:, sl])
+        m[r, w] = mx
+
+    ms, ls, accs = m.flatten(0, 1), l.flatten(0, 1), acc.flatten(0, 1)
+    top = ms.amax(0)
+    wt = torch.where(ms > kd.NEG_INF / 2, torch.exp2(ms - top), torch.zeros(()))
+    lc, oc = (wt * ls).sum(0), (wt[..., None] * accs).sum(0)
+    out = torch.where(lc[..., None] > 0, oc / lc.clamp_min(1e-30)[..., None],
+                      torch.zeros(()))
+    return out.reshape(b, h, hd), m, l
+
+
+def _ring_case(b, h, kvh, s, hd, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               for shape in ((b, h, hd), (b, s, kvh, hd), (b, s, kvh, hd)))
+    return q, k, v
+
+
+# (name, slots, kv_pos of the slot count, q_pos, window, protected): B=2, H=12, KV=2,
+# hd=128 (qwen2 heads), the AR path's 1024-slot plan (cluster 8)
+SPLIT_CASES = [
+    ("half full", 1024, lambda s: np.where(np.arange(s) < 512, np.arange(s), -1), 511, 0, 0),
+    ("full", 1024, lambda s: np.arange(s), 1023, 0, 0),
+    # 40 valid slots: tiles 0-2, so blocks 3-7 have no valid slot
+    ("blocks with no valid slot", 1024,
+     lambda s: np.where(np.arange(s) < 40, np.arange(s), -1), 39, 0, 0),
+    # window 48 at position 1023: tiles 61-63 (blocks 5-7) and the sinks'
+    # tile 0 (block 0); blocks 1-4 are masked whole by the window
+    ("blocks masked whole by the window", 1024, lambda s: np.arange(s), 1023, 48, 4),
+    # a wrapped ring with holes, 300 slots (not a multiple of 8 x 16)
+    ("wrapped ring, 300 slots", 300,
+     lambda s: np.where(np.isin(np.arange(s), [5, 77, 160]), -1,
+                        np.roll(np.arange(700, 700 + s), 123)), 999, 200, 4),
+    ("no valid slot", 1024, lambda s: np.full(s, -1), 1023, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: c[0])
+def test_decode_split_combine_matches_plain(case):
+    """The kernel's split-and-combine arithmetic, mirrored in plain PyTorch
+    under the plan the kernel gets, equals the unsplit plain version (float32
+    summation-order rounding, atol 2e-6); a block with no valid slot holds
+    m = -inf, l = 0, and a query with no valid slot gives exact zeros."""
+    name, s, build_pos, q_pos, window, prot = case
+    b, h, kvh, hd = 2, 12, 2, 128
+    q, k, v = _ring_case(b, h, kvh, s, hd, seed=len(name))
+    kv_pos = torch.from_numpy(build_pos(s).astype(np.int32))
+    cluster, _ = kd.split_plan(b, kvh, s, h // kvh)
+    assert cluster == 8
+    got, m, l = _split_combine(q, k, v, q_pos, kv_pos, cluster=cluster,
+                               window=window, protected=prot)
+    want = kd.decode_attention_plain(q, k, v, q_pos, kv_pos, window=window,
+                                     protected=prot)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATTN_TOL)
+    # a warp with no valid slot leaves m = -inf, l = 0; a block is empty
+    # when all its warps are
+    assert bool((m[l == 0] == kd.NEG_INF).all()) and bool((l[m == kd.NEG_INF] == 0).all())
+    empty = l.flatten(1).amax(1) == 0
+    if name == "no valid slot":
+        assert bool(empty.all()) and torch.equal(got, torch.zeros_like(got))
+    elif name.startswith("blocks"):
+        dead = {"blocks with no valid slot": [3, 4, 5, 6, 7],
+                "blocks masked whole by the window": [1, 2, 3, 4]}[name]
+        assert empty.nonzero().flatten().tolist() == dead
+    else:
+        assert not bool(empty.any())
 
 
 def test_decode_cuda_checks_reject_bad_input():
@@ -287,4 +413,4 @@ def test_decode_cuda_checks_reject_bad_input():
     k = torch.zeros(1, 8, 2, 32)
     pos = torch.arange(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="not cuda"):
-        kd._check(q, k, k, pos)
+        kd._check(q, k, k, pos[:1], pos)
