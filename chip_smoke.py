@@ -6,20 +6,28 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    sources in the checkout (one ``nvcc`` each, in parallel, beside one
    ``nvcc -Xptxas -v`` of each for its registers and spills);
 2. holds the Triton ``era_update`` kernel against its plain PyTorch version
-   (max abs error <= 1e-5, the reference's fused-step tolerance);
+   (max abs error <= 1e-5, the reference's fused-step tolerance), also with
+   half the rows spent under a step mask (their ``x_next`` bitwise ``x``);
+   times it by profiler device time, L2-warm and L2-cold, beside the CUDA
+   event time of a wrapper call;
 3. holds the CUDA ``flash_attention`` kernel against its plain version
    (all-float32 math) at qwen2-1.5b shapes in bf16 (the ERA path's 8x256
-   and 8x128, the AR prefill's causal 8x512) and in the masking, softcap,
+   and 8x128, the AR prefill's causal 8x512, phase 7's seq buckets with
+   their per-row length masks) and in the masking, softcap,
    ragged-tile and head-dim variants, and in cases whose positions are not
    tile indices (queries offset from keys, a wrapped ring with empty slots,
    whole kv tiles masked in some rows), so that a tile skip decided from
    indices would fail; prints each instance's registers, spills (none
    allowed at hd=128) and shared memory; times it at the three path shapes
    beside SDPA;
-4. the ERA path: serves requests through the port's ``BatchedSampler`` on a
-   full-width qwen2-1.5b denoiser (28 layers, d_model 1536, bf16, random
-   seeded weights) with ERA at nfe=10, checks the outputs, and checks from
-   the kernels' launch counters that the sampling path ran its kernels;
+4. the ERA path: ``warmup()`` captures the bucket graphs, then requests are
+   served through the port's ``BatchedSampler`` on a full-width qwen2-1.5b
+   denoiser (28 layers, d_model 1536, bf16, random seeded weights) with ERA
+   at nfe=10 as graph replays; checks the outputs, that a replay leaves an
+   earlier result unchanged, that the launch counters (taken from the
+   replays) show the path's kernels, and that the same batch run eagerly
+   through the program's loop agrees; profiles the replay and the eager
+   run for the device's busy time and idle share;
 5. holds the CUDA ``decode_attention`` kernel against its plain version at
    the AR path's shape (half-empty and full cache, the position as a host
    int and as a tensor on the card), wrapped rings with window and
@@ -37,7 +45,14 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    this check sees a planted fault; profiles the decode loop (the decode
    kernel's time a launch inside it and its share of the loop's device
    time) and counts the rope's share of its device ops;
-7. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+7. the bucketed ERA drain: an engine with seq buckets (128, 256) and nfe
+   bucket 10 captures its 2 graphs in ``warmup()`` (and once more with a
+   memory pool per graph, to measure what the shared pool saves), then
+   serves four requests of mixed seq_len and nfe in exactly two fused
+   batches; checks each result's shape and step count, each against its
+   solo drain, that nothing is captured during the drains, and profiles the
+   drain;
+8. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times beside its bound, then the result line.
 
 ``python3 chip_smoke.py --era-ab PARENT/src`` instead times only the ERA
@@ -176,6 +191,11 @@ def era_bytes(x, tau, hist) -> float:
     return 4.0 * n * words
 
 
+def is_era_kernel(name: str) -> bool:
+    """A profiler row of the Triton ``era_update`` kernel."""
+    return "era_kernel" in name
+
+
 def phase_era(ku):
     from repro_torch.core.era import AM4
 
@@ -197,20 +217,51 @@ def phase_era(ku):
         log(f"era_update {name}: max_abs_err {err:.3e}")
         check(err <= ERA_TOL, f"era_update {name} error {err} > {ERA_TOL}")
         if timing is None:
-            ms = time_ms(lambda: ku.era_update(x, buf, tau, hist, lag_w, AM4, cx, ce))
-            plain_ms = time_ms(
-                lambda: ku.era_update_plain(x, buf, tau, hist, lag_w, AM4, cx, ce)
-            )
+            args = (x, buf, tau, hist, lag_w, AM4, cx, ce)
             nbytes = era_bytes(x, tau, hist)
             # predictor 2k, corrector 7, DDIM update 3 flops an element
             flops = float(rows * n * (2 * K + 10))
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
             bound_ms = max(t_bytes, t_ops) * 1e3
-            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                          library_ms=None, shape=f"B={rows} N={n} k={K}")
+            # profiler device time, L2-warm and L2-cold (only the kernel's
+            # rows); CUDA events around back-to-back calls give the
+            # wrapper's cost, host included
+            timing = dict(
+                ms=device_ms(lambda: ku.era_update(*args)),
+                ms_l2_cold=device_ms(lambda: ku.era_update(*args), cold=True,
+                                     pick=is_era_kernel),
+                wrapper_ms=time_ms(lambda: ku.era_update(*args)),
+                plain_ms=device_ms(lambda: ku.era_update_plain(*args), iters=5),
+                bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, shape=f"B={rows} N={n} k={K}")
             log(f"era_update bound: {nbytes / (rows * n * 4):.2f} float32 "
                 f"words an element, {bound_ms:.5f} ms")
+            log(f"era_update timing {timing['shape']}: kernel {timing['ms']:.5f} "
+                f"ms L2-warm, {timing['ms_l2_cold']:.5f} ms L2-cold (profiler "
+                f"device time); a wrapper call {timing['wrapper_ms']:.5f} ms "
+                f"(CUDA events, host included); plain {timing['plain_ms']:.5f} "
+                f"ms; kernel / bound {timing['ms'] / bound_ms:.3f} warm, "
+                f"{timing['ms_l2_cold'] / bound_ms:.3f} cold")
+    # the step-masked step: half the rows spent; theirs must come back as x,
+    # bitwise, with eps_bar zero, and the live rows as without the mask
+    rows, n = 8, 256 * 1536
+    x, buf, tau, hist, lag_w, cx, ce = era_inputs(rows, n, K, NFE + 1, gen)
+    active = torch.tensor([1, 0] * (rows // 2), dtype=torch.int32, device="cuda")
+    got = ku.era_update(x, buf, tau, hist, lag_w, AM4, cx, ce, active=active)
+    want = ku.era_update_plain(x, buf, tau, hist, lag_w, AM4, cx, ce, active)
+    torch.cuda.synchronize()
+    live, spent = active.bool(), ~active.bool()
+    check(torch.equal(got[0][spent], x[spent]), "era_update active: spent x moved")
+    check(bool((got[1][spent] == 0).all()), "era_update active: spent eps_bar not 0")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    errs["active B=8, 4 rows spent"] = err
+    log(f"era_update active B=8, 4 rows spent: max_abs_err {err:.3e}, spent "
+        f"rows bitwise x, eps_bar 0")
+    check(err <= ERA_TOL, f"era_update active error {err} > {ERA_TOL}")
+    same = torch.equal(got[0][live], ku.era_update(
+        x, buf, tau, hist, lag_w, AM4, cx, ce)[0][live])
+    log(f"era_update active: live rows bitwise equal to the unmasked kernel's: {same}")
     return max(errs.values()), timing
 
 
@@ -268,8 +319,20 @@ def flash_cases(kf) -> float:
     # are empty; an index-driven causal or window skip would drop live tiles
     ring = torch.roll(torch.arange(512, dtype=torch.int32, device=dev), 200)
     ring[64:128] = -1
+    # the bucketed drain's two batches (phase 7): kv_mask from per-row
+    # lengths, as the attention layer builds it
+    seq_masks = {
+        sq: (torch.arange(sq, device=dev)[None, :]
+             < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+        for sq, lens in ((256, [256, 200, 200, 200, 256, 256, 256, 256]),
+                         (128, [100] * 4 + [128] * 4))
+    }
     ps = AR_PROMPT
     errs = [
+        run("seq bucket 8x256, row lengths 256, 200 x3, 256 x4 (phase 7)",
+            b, 256, h, kvh, hd, causal=False, kv_mask=seq_masks[256]),
+        run("seq bucket 8x128, row lengths 100 x4, 128 x4 (phase 7)",
+            b, 128, h, kvh, hd, causal=False, kv_mask=seq_masks[128]),
         run(f"qwen2 B={b} S={s} H={h} KV={kvh} hd={hd} non-causal",
             b, s, h, kvh, hd, causal=False),
         run(f"qwen2 B={b} S=128 non-causal (ERA seq-128 batch)",
@@ -465,11 +528,32 @@ def decode_ptxas_report(text: str, kd, lib=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_slice(ku, kf, kd):
+def reset_counts(*wrappers) -> None:
+    for counted in wrappers:
+        counted.launches = 0
+
+
+def read_counts(ku, kf, kd) -> dict:
+    return {"era_update": ku.era_update.launches,
+            "flash_attention": kf.flash_attention.launches,
+            "decode_attention": kd.decode_attention.launches}
+
+
+def reserved_mb() -> float:
+    """Device memory the caching allocator holds, after handing back what
+    no live tensor or graph pool uses."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**20
+
+
+def build_dlm():
+    """The full-width qwen2-1.5b denoiser, random weights from seed 0."""
     from repro_torch.configs import get_config
-    from repro_torch.core import linear_schedule
     from repro_torch.models import DiffusionLM
-    from repro_torch.serving import BatchedSampler, SampleRequest, result_keys
 
     cfg = get_config("qwen2-1.5b")
     check(
@@ -487,7 +571,42 @@ def phase_slice(ku, kf, kd):
     n_params = sum(p.numel() for p in dlm.parameters())
     log(f"model: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} "
         f"{n_params / 1e9:.3f}B params, built in {time.perf_counter() - t0:.1f}s")
+    return dlm
 
+
+def profile_replays(submit, drain, what: str, wall_ms: float, nfe: int,
+                    flash: int, era: int) -> tuple[float, float]:
+    """Profile a drain of graph replays (``submit`` queues its requests)
+    and hold the trace's kernel rows against the launches the captures
+    recorded.  The profiler can drop records of a long replay (or a whole
+    trace), so a trace short of them is taken again, up to five times;
+    every trace short fails.  Returns the idle share and device busy ms."""
+    for attempt in range(5):
+        submit()
+        try:
+            idle, _, rows, busy = profile_device(drain, what, wall_ms, nfe, "NFE")
+        except RuntimeError as e:  # a whole trace dropped: trace again
+            log(f"{what}: trace {attempt}: {e}; traced again")
+            continue
+        fl = sum(r[1] for r in rows if "flash_fwd_kernel" in r[2])
+        er = sum(r[1] for r in rows if is_era_kernel(r[2]))
+        if (fl, er) == (flash, era):
+            log(f"{what}: the trace holds the {fl} flash and {er} era_update "
+                f"kernels the captures recorded")
+            return idle, busy
+        log(f"{what}: trace {attempt} holds flash {fl}, era_update {er} of "
+            f"the {flash}, {era} kernels recorded; traced again")
+    raise RuntimeError(f"chip_smoke: FAILED: {what}: no trace holds the "
+                       f"recorded kernels")
+
+
+def phase_slice(ku, kf, kd, dlm):
+    import dataclasses
+
+    from repro_torch.core import get_program, linear_schedule
+    from repro_torch.serving import BatchedSampler, SampleRequest, result_keys
+
+    cfg = dlm.config
     sched = linear_schedule()
     eng = BatchedSampler(dlm, sched)
     reqs = [
@@ -495,26 +614,29 @@ def phase_slice(ku, kf, kd):
         SampleRequest(batch=3, seq_len=256, nfe=NFE, solver="era", seed=12),
         SampleRequest(batch=4, seq_len=128, nfe=NFE, solver="era", seed=13),
     ]
-    # warm drain: first launches build the Triton kernel and cuBLAS plans
-    eng.submit_with_future(reqs[0])
-    eng.drain()
+    # capture the grid: batch buckets (1, 8, 64) x seq 256, 128 x nfe 10
+    mem0 = reserved_mb()
+    t0 = time.perf_counter()
+    report = eng.warmup(seq_lens=(256, 128))
+    warmup_s = time.perf_counter() - t0
+    graph_mb = reserved_mb() - mem0
+    check(report["fresh"] == report["programs"] == 6,
+          f"warmup captured {report['fresh']} of {report['programs']} graphs")
+    log(f"warmup: {report['programs']} graphs captured in {warmup_s:.2f}s; "
+        f"the graph cache holds {graph_mb:.0f} MiB")
 
     futs = [eng.submit_with_future(r)[1] for r in reqs]
-    for counted in (ku.era_update, kf.flash_attention, kd.decode_attention):
-        counted.launches = 0
+    reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
     t0 = time.perf_counter()
     eng.drain()
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
-    launches = {
-        "era_update": ku.era_update.launches,
-        "flash_attention": kf.flash_attention.launches,
-        "decode_attention": kd.decode_attention.launches,
-    }
+    launches = read_counts(ku, kf, kd)
     results = [f.result() for f in futs]
+    check(eng.compile_stats()["fresh"] == 6, "the drain captured a graph")
     fused = len({(r.seq_len, r.nfe) for r in reqs})
-    log(f"drain: {len(reqs)} requests in {fused} fused batches, "
-        f"{drain_s:.3f}s, launches {launches}")
+    log(f"drain: {len(reqs)} requests in {fused} fused batches (graph "
+        f"replays), {drain_s:.3f}s, launches {launches}")
     check(launches["era_update"] == fused * (NFE - K + 1),
           f"era_update launches {launches['era_update']} != "
           f"{fused * (NFE - K + 1)}")
@@ -538,6 +660,16 @@ def phase_slice(ku, kf, kd):
             f"{res.padded_batch}, delta_eps[-1] "
             f"{[round(float(d), 3) for d in res.aux['delta_eps_history_per_sample'][-1]]}")
 
+    # copy-out: another request through the same 8x256 graph must leave the
+    # first drain's results as they were
+    kept = [r.x0.clone() for r in results]
+    eng.submit_with_future(SampleRequest(batch=4, seq_len=256, nfe=NFE, seed=21))
+    eng.drain()
+    for res, k in zip(results, kept):
+        check(torch.equal(res.x0, k), "a replay changed an earlier result")
+    log("copy-out: the first drain's results unchanged after another replay "
+        "of their graphs")
+
     # the same requests again: a request's x0 depends only on its seed and
     # shape, so the repeat is bitwise equal; its wall time is the steady state
     futs2 = [eng.submit_with_future(r)[1] for r in reqs]
@@ -556,7 +688,7 @@ def phase_slice(ku, kf, kd):
     t0 = time.perf_counter()
     eng.drain()
     torch.cuda.synchronize()
-    solo_wall_ms = (time.perf_counter() - t0) * 1e3
+    graph_wall_ms = (time.perf_counter() - t0) * 1e3
     solo = solo_fut.result()
     fused_res = results[1]
     diff = float((solo.x0 - fused_res.x0).abs().max())
@@ -568,11 +700,50 @@ def phase_slice(ku, kf, kd):
     check(same_sel, "ERS selections differ between fused and solo runs")
     check(diff <= 1e-2, f"fused vs solo x0 differ by {diff}")
 
-    # the same solo drain once more, under the profiler, for the breakdown
-    eng.submit_with_future(reqs[1])
-    profile_device(eng.drain, f"one fused batch of 8x256, nfe={NFE}",
-                   solo_wall_ms, NFE, "NFE")
+    # the same 8x256 chunk run eagerly, through the program's own loop in
+    # this process: the first two requests' noise and four zero pad rows
+    ex = eng.executor
+    program = get_program("era")
+    ecfg = dataclasses.replace(ex.config_for("era"), nfe=NFE)
+    x_init = torch.cat([ex.noise(reqs[0]), ex.noise(reqs[1]),
+                        torch.zeros(4, 256, cfg.d_model, device="cuda")])
+    ts = program.step_times(sched, NFE, ecfg, device="cuda")
+
+    def eager():
+        return program.sample_scan(
+            dlm.eps_fn(), x_init, program.alloc_buffers(x_init, ecfg), sched,
+            ecfg, ts=ts)
+
+    eager()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eager()
+    torch.cuda.synchronize()
+    eager_wall_ms = (time.perf_counter() - t0) * 1e3
+    graph_x0 = torch.cat([results[0].x0, results[1].x0])
+    graph_sel = torch.cat([results[0].aux["ers_selection_history"],
+                           results[1].aux["ers_selection_history"]], dim=1)
+    ediff = float((out.x0[:4] - graph_x0).abs().max())
+    esel = bool(torch.equal(out.aux["ers_selection_history"][:, :4], graph_sel))
+    log(f"graph replay vs eager, 8x256: max_abs_diff {ediff:.3e}, bitwise "
+        f"{bool(torch.equal(out.x0[:4], graph_x0))}, ERS selections equal {esel}")
+    check(esel, "ERS selections differ between the graph and the eager run")
+    check(ediff <= 1e-2, f"graph vs eager x0 differ by {ediff}")
+
+    # both under the profiler, for the breakdown and the idle shares
+    g_idle, g_busy = profile_replays(
+        lambda: eng.submit_with_future(reqs[1]), eng.drain,
+        f"graph replay of one 8x256 batch, nfe={NFE}", graph_wall_ms, NFE,
+        cfg.num_layers * NFE, NFE - K + 1)
+    e_idle, _, _, e_busy = profile_device(
+        eager, f"eager run of the same 8x256 batch, nfe={NFE}", eager_wall_ms,
+        NFE, "NFE")
+    log(f"8x256 batch: graph replay wall {graph_wall_ms:.1f} ms, device busy "
+        f"{g_busy:.1f} ms, idle share {g_idle:.3f}; eager wall "
+        f"{eager_wall_ms:.1f} ms, device busy {e_busy:.1f} ms, idle share "
+        f"{e_idle:.3f}; warmup() {warmup_s:.2f}s")
     per_nfe_ms = drain_s / (fused * NFE) * 1e3
+    del eng
     return launches, drain_s, per_nfe_ms
 
 
@@ -784,17 +955,12 @@ def phase_ar(ku, kf, kd):
 
     eng.generate(prompts, AR_GEN)  # warm: cuBLAS plans, allocator
     torch.cuda.synchronize()
-    for counted in (ku.era_update, kf.flash_attention, kd.decode_attention):
-        counted.launches = 0
+    reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
     t0 = time.perf_counter()
     toks = eng.generate(prompts, AR_GEN)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = {
-        "era_update": ku.era_update.launches,
-        "flash_attention": kf.flash_attention.launches,
-        "decode_attention": kd.decode_attention.launches,
-    }
+    launches = read_counts(ku, kf, kd)
     log(f"generate: {tuple(toks.shape)} in {gen_s:.3f}s "
         f"({AR_BATCH * AR_GEN / gen_s:.1f} tok/s), launches {launches}")
     check(tuple(toks.shape) == (AR_BATCH, AR_GEN), "generated shape")
@@ -917,6 +1083,111 @@ def phase_ar(ku, kf, kd):
     return launches, dict(prefill_ms=prefill_ms, decode_ms_per_step=per_token_ms,
                           tok_s=AR_BATCH * AR_GEN / gen_s, idle_share=idle,
                           rope_op_share=rope_ops / n_ops, decode_in_loop=in_loop)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the bucketed ERA drain
+# ---------------------------------------------------------------------------
+
+SEQ_BUCKETS, NFE_BUCKETS = (128, 256), (NFE,)
+# (batch, seq_len, nfe, seed): two seq buckets of 4 and 6 rows, each padded
+# to one 8-row batch that runs 10 step-masked steps
+BUCKETED_REQS = ((1, 256, 10, 31), (3, 200, 8, 32), (4, 100, 6, 33),
+                 (2, 128, 10, 34))
+
+
+def phase_bucketed(ku, kf, kd, dlm):
+    from unittest import mock
+
+    from repro_torch.core import linear_schedule
+    from repro_torch.serving import BatchedSampler, SampleRequest, result_keys
+
+    cfg = dlm.config
+
+    def engine():
+        # one batch bucket: a solo drain below runs the same GEMM shapes as
+        # its fused batch, so their ERS selections can be held equal
+        return BatchedSampler(dlm, linear_schedule(), batch_buckets=(8,),
+                              seq_buckets=SEQ_BUCKETS, nfe_buckets=NFE_BUCKETS)
+
+    # the graphs share one memory pool; a second engine whose captures each
+    # take a private pool measures what sharing saves
+    mem0 = reserved_mb()
+    private = engine()
+    with mock.patch.object(torch.cuda, "graph_pool_handle", lambda: None):
+        private.warmup()
+    private_mb = reserved_mb() - mem0
+    del private
+    mem0 = reserved_mb()
+    eng = engine()
+    t0 = time.perf_counter()
+    report = eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    shared_mb = reserved_mb() - mem0
+    check(report["programs"] == report["fresh"] == 2
+          and len(eng.compile_cache()) == 2,
+          f"bucketed warmup: {report}")
+    log(f"bucketed warmup: 2 graphs (seq buckets {SEQ_BUCKETS}, nfe bucket "
+        f"{NFE_BUCKETS[0]}, batch 8) captured in {warmup_s:.2f}s; the graph "
+        f"cache holds {shared_mb:.0f} MiB with one shared pool, "
+        f"{private_mb:.0f} MiB with a pool per graph")
+
+    reqs = [SampleRequest(batch=b, seq_len=s, nfe=n, seed=sd)
+            for b, s, n, sd in BUCKETED_REQS]
+    futs = [eng.submit_with_future(r)[1] for r in reqs]
+    batches0 = eng.metrics.get("sampler_batches_total").value()
+    reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+    t0 = time.perf_counter()
+    eng.drain()
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(ku, kf, kd)
+    results = [f.result() for f in futs]
+    batches = eng.metrics.get("sampler_batches_total").value() - batches0
+    log(f"bucketed drain: {len(reqs)} requests in {batches:.0f} fused batches, "
+        f"{drain_ms:.1f} ms, launches {launches}")
+    check(batches == 2, f"bucketed drain ran {batches} batches, not 2")
+    check(launches == {"era_update": 2 * (NFE - K + 1),
+                       "flash_attention": 2 * cfg.num_layers * NFE,
+                       "decode_attention": 0},
+          f"bucketed drain launches {launches}")
+    check(eng.compile_stats()["fresh"] == 2, "the bucketed drain captured a graph")
+    for req, res in zip(reqs, results):
+        check(tuple(res.x0.shape) == (req.batch, req.seq_len, cfg.d_model),
+              f"bucketed x0 shape {tuple(res.x0.shape)} for {req}")
+        check(bool(torch.isfinite(res.x0).all()), "bucketed x0 not finite")
+        check((res.padded_batch, res.padded_seq_len, res.padded_nfe)
+              == (8, 256 if req.seq_len > 128 else 128, NFE),
+              f"bucketed padding {res.padded_batch, res.padded_seq_len, res.padded_nfe}")
+        check(tuple(res.aux[result_keys.ERS_SELECTION_HISTORY].shape)
+              == (req.nfe, req.batch, K), "bucketed selection history shape")
+        check(tuple(res.aux[result_keys.DELTA_EPS_HISTORY_PER_SAMPLE].shape)
+              == (req.nfe, req.batch), "bucketed delta_eps history shape")
+
+    # each request against its solo drain through the same engine (the same
+    # graph, its rows at other offsets and among other pad rows)
+    for req, res in zip(reqs, results):
+        _, fut = eng.submit_with_future(req)
+        eng.drain()
+        solo = fut.result()
+        diff = float((solo.x0 - res.x0).abs().max())
+        same_sel = bool(torch.equal(solo.aux["ers_selection_history"],
+                                    res.aux["ers_selection_history"]))
+        log(f"bucketed {req.batch}x{req.seq_len} nfe={req.nfe} fused vs solo: "
+            f"max_abs_diff {diff:.3e}, bitwise {bool(torch.equal(solo.x0, res.x0))}, "
+            f"ERS selections equal {same_sel}")
+        check(same_sel, f"bucketed ERS selections differ from solo for {req}")
+        check(diff <= 1e-2, f"bucketed fused vs solo x0 differ by {diff}")
+    check(eng.compile_stats()["fresh"] == 2, "a solo drain captured a graph")
+
+    idle, busy = profile_replays(
+        lambda: [eng.submit_with_future(r) for r in reqs], eng.drain,
+        "bucketed drain, 2 batches of 8 rows, 10 step-masked steps",
+        drain_ms, 2 * NFE, 2 * cfg.num_layers * NFE, 2 * (NFE - K + 1))
+    del eng
+    return launches, dict(drain_ms=drain_ms, busy_ms=busy, idle_share=idle,
+                          warmup_s=warmup_s, graph_mib_shared=shared_mb,
+                          graph_mib_private=private_mb)
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
@@ -1305,12 +1576,15 @@ def main() -> None:
 
     era_err, era_t = phase_era(ku)
     flash_err, flash_t = flash_cases(kf), flash_timings(kf)
-    era_launches, drain_s, per_nfe_ms = phase_slice(ku, kf, kd)
+    dlm = build_dlm()
+    era_launches, drain_s, per_nfe_ms = phase_slice(ku, kf, kd, dlm)
     decode_err, decode_t = phase_decode(kd)
     ar_launches, ar = phase_ar(ku, kf, kd)
+    bucketed_launches, bucketed = phase_bucketed(ku, kf, kd, dlm)
 
     def counts(name):
-        by_path = {"era": era_launches[name], "ar": ar_launches[name]}
+        by_path = {"era": era_launches[name], "ar": ar_launches[name],
+                   "bucketed": bucketed_launches[name]}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -1318,7 +1592,9 @@ def main() -> None:
              source="src/repro_torch/kernels/era_update.py",
              replaces="src/repro/kernels/era_update.py:31",
              **counts("era_update"), max_abs_err=era_err,
-             ms=era_t["ms"], kernel_ms=era_t["ms"], plain_ms=era_t["plain_ms"],
+             ms=era_t["ms"], kernel_ms=era_t["ms"],
+             ms_l2_cold=era_t["ms_l2_cold"], wrapper_ms=era_t["wrapper_ms"],
+             plain_ms=era_t["plain_ms"],
              bound_ms=era_t["bound_ms"], bound_by=era_t["bound_by"],
              library_ms=None, shape=era_t["shape"]),
         dict(name="flash_attention", route="cuda",
@@ -1349,6 +1625,9 @@ def main() -> None:
              ptxas=decode_ptxas),
     ]
     log(f"ERA path: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
+    log(f"bucketed ERA drain: {bucketed['drain_ms']:.1f} ms, device busy "
+        f"{bucketed['busy_ms']:.1f} ms, idle share {bucketed['idle_share']:.3f}; "
+        f"warmup {bucketed['warmup_s']:.2f}s")
     log(f"AR path: prefill {ar['prefill_ms']:.2f} ms, decode "
         f"{ar['decode_ms_per_step']:.3f} ms per step, {ar['tok_s']:.1f} tok/s, "
         f"decode-loop idle share {ar['idle_share']:.3f}, rope "

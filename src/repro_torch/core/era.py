@@ -24,6 +24,14 @@ through :func:`repro_torch.kernels.era_update.era_update` — the Triton
 kernel on the card, its plain version for CPU tensors — in one launch per
 step for the whole batch.  There is no parity gate that degrades to
 another path: a CUDA tensor launches the kernel or raises.
+
+The loop makes no host-to-device copy and no host sync once its time grid
+is on the device (``ts``, or ``steps.ts`` under step masking), so the
+serving executor captures a whole run as one CUDA graph and replays it.
+Under a :class:`~repro_torch.core.program.StepMask` every row reads its
+own times and DDIM coefficients, a spent row's latents freeze bitwise (the
+fused step copies them), and each row skips the observation after its own
+last step.
 """
 
 from __future__ import annotations
@@ -34,7 +42,12 @@ from typing import Any
 import torch
 
 from repro_torch.core import lagrange
-from repro_torch.core.program import SolverProgram
+from repro_torch.core.program import (
+    SolverProgram,
+    StepMask,
+    step_active,
+    step_row_times,
+)
 from repro_torch.core.schedules import NoiseSchedule, timesteps
 from repro_torch.core.solver_base import (
     EpsFn,
@@ -43,7 +56,6 @@ from repro_torch.core.solver_base import (
     buffer_append,
     buffer_init,
     ddim_step,
-    step_grid,
 )
 from repro_torch.kernels.era_update import era_update
 
@@ -140,10 +152,20 @@ def sample_scan(
     config: ERAConfig,
     lengths: Tensor | None = None,  # (B,) valid seq lengths of a right-
                                     # padded batch; masks the ERS norms
+    steps: StepMask | None = None,  # mixed-NFE channel: per-row step
+                                    # counts and time grids; a spent row
+                                    # freezes bitwise
+    ts: Tensor | None = None,       # (nfe+1,) grid on x's device when no
+                                    # steps are given; None builds it
 ) -> SolverOutput:
     n, k = config.nfe, config.k
     if n < k:
         raise ValueError(f"ERA-Solver needs nfe >= k ({n} < {k})")
+    if steps is not None and not config.per_sample:
+        raise ValueError(
+            "mixed-NFE step masking needs per-sample ERS (per_sample=True):"
+            " a shared delta_eps would couple rows with different horizons"
+        )
     if lengths is not None and x_init.dim() < 3:
         raise ValueError(
             "lengths masking needs batch-of-sequences latents (B, S, ...); "
@@ -157,14 +179,29 @@ def sample_scan(
     if tuple(t_buf.shape) != (n + 1,):
         raise ValueError(f"t buffer shape {tuple(t_buf.shape)} != {(n + 1,)}")
     dev = x_init.device
-    ts = timesteps(schedule, n, config.scheme, t_end=config.t_end, device=dev)
+    batch = x_init.shape[0]
+    if steps is not None:
+        if tuple(steps.ts.shape) != (batch, n + 1):
+            raise ValueError(
+                f"step grid shape {tuple(steps.ts.shape)} != {(batch, n + 1)}"
+            )
+        # each row steps through its own grid; the shared t_buf holds 0.0
+        # (Lagrange node times gather from steps.ts, the very floats an
+        # exact run appends to its t_buf)
+        t_cur0 = steps.ts[:, 0].reshape((-1,) + (1,) * (x_init.dim() - 1))
+    else:
+        if ts is None:
+            ts = timesteps(schedule, n, config.scheme, t_end=config.t_end,
+                           device=dev)
+        if tuple(ts.shape) != (n + 1,):
+            raise ValueError(f"time grid shape {tuple(ts.shape)} != {(n + 1,)}")
+        t_cur0 = ts[0]
     dt = config.solver_dtype
     valid = (
         None
         if lengths is None
         else torch.arange(x_init.shape[1], device=dev) < lengths[:, None]
     )  # (B, S) position-validity mask for the error norms
-    batch = x_init.shape[0]
     # the fused step's rows: one per sample under per-sample ERS, else one
     # row spanning the whole batch (the reference's shared scalar delta_eps)
     rows = batch if config.per_sample else 1
@@ -173,29 +210,47 @@ def sample_scan(
     x = x_init.to(dt)
     # Alg. 1 line 2/3: delta_eps starts at lambda (power 1, uniform
     # selection); the initial observation is entry 0
-    buffer_append(eps_buf, t_buf, 0, eps_fn(x, ts[0]), ts[0])
+    buffer_append(eps_buf, t_buf, 0, eps_fn(x, t_cur0),
+                  0.0 if steps is not None else t_cur0)
     delta_eps = torch.full(
         (batch,) if config.per_sample else (), config.lam,
         dtype=torch.float32, device=dev,
     )
     tau_shape = (batch, k) if config.per_sample else (k,)
     de_hist, tau_hist, traj = [], [], [x]
-    for i, t_cur, t_next in zip(*step_grid(ts)):
+    for i in range(n):
+        if steps is None:
+            t_cur, t_next = ts[i], ts[i + 1]
+            active = None
+        else:
+            t_cur, t_next = step_row_times(steps, i, x.dim())
+            active = step_active(steps, i, x.dim())              # (B, 1, 1)
         if i < k - 1:
             # DDIM warmup; prediction placeholder is the held noise
             eps_bar = eps_buf[i]
             x_next = ddim_step(schedule, x, eps_bar, t_cur, t_next)
+            if active is not None:
+                x_next = torch.where(active, x_next, x)
             tau = torch.zeros(tau_shape, dtype=torch.int32, device=dev)
         else:
             tau = lagrange.select_bases(
                 i, k, delta_eps, config.lam, config.selection,
                 config.const_power,
             )
-            lag_w = lagrange.lagrange_weights(t_buf[tau.long()], t_next)
-            cx, ce = schedule.ddim_coeffs(t_cur, t_next)
+            if steps is None:
+                t_sel = t_buf[tau.long()]
+            else:
+                t_sel = torch.gather(steps.ts, 1, tau.long())   # (B, k)
+            lag_w = lagrange.lagrange_weights(
+                t_sel, t_next if steps is None else t_next.reshape(-1)
+            )
+            cx, ce = schedule.ddim_coeffs(t_cur, t_next)  # () or (B, 1, 1)
+            if steps is not None:
+                cx, ce = cx.reshape(rows), ce.reshape(rows)
             # history entries i, i-1, i-2; a negative entry wraps to the
             # still-empty last slot, as the reference's dynamic index does
             hist = (i, (i - 1) % cap, (i - 2) % cap)
+            # a spent row's kernel row copies x and writes eps_bar = 0
             x_next, eps_bar = era_update(
                 x.reshape(rows, -1),
                 eps_buf.reshape(cap, rows, -1),
@@ -203,22 +258,34 @@ def sample_scan(
                 hist,
                 lag_w.reshape(rows, k).contiguous(),
                 AM4, cx, ce,
+                active=None if active is None
+                else active.reshape(rows).to(torch.int32),
             )
             x_next = x_next.reshape(x.shape)
             eps_bar = eps_bar.reshape(x.shape)
         # observe eps at the new point, except on the final step, whose
         # x_next is the output (exactly nfe evaluations); nothing reads the
-        # buffer entry the reference fills with zeros there
+        # buffer entry the reference fills with zeros there.  Under step
+        # masking each row also skips the observation after its own last
+        # step: it appends zeros and keeps its delta_eps
         if i + 1 < n:
             e_new = eps_fn(x_next, t_next).to(dt)
+            obs = None if steps is None else step_active(steps, i + 1, x.dim())
             # Alg. 1 line 16: delta_eps updates once predictions are real
             if i >= k - 1:
-                delta_eps = (
+                de_new = (
                     _delta_eps_batch(e_new, eps_bar, valid)
                     if config.per_sample
                     else _delta_eps(e_new, eps_bar, config.error_norm, valid)
                 )
-            buffer_append(eps_buf, t_buf, i + 1, e_new, t_next)
+                delta_eps = (
+                    de_new if obs is None
+                    else torch.where(obs.reshape(rows), de_new, delta_eps)
+                )
+            if obs is not None:
+                e_new = torch.where(obs, e_new, e_new.new_zeros(()))
+            buffer_append(eps_buf, t_buf, i + 1, e_new,
+                          0.0 if steps is not None else t_next)
         de_hist.append(delta_eps)
         tau_hist.append(tau)
         if config.return_trajectory:
@@ -242,7 +309,8 @@ class ERAProgram(SolverProgram):
     """ERA-Solver as a serving program.  The paper default shares one
     delta_eps across the batch, which couples rows, so it is not fusable;
     the engine default turns on per-sample ERS, which makes a batch-of-N
-    run equal to N independent runs."""
+    run equal to N independent runs, and lets rows of different lengths
+    and different step counts share a batch."""
 
     name = "era"
     config_cls = ERAConfig
@@ -251,11 +319,28 @@ class ERAProgram(SolverProgram):
         "delta_eps_history_per_sample": 1,
         "ers_selection_history": 1,
     }
+    aux_step_axes = {
+        "trajectory": 0,
+        "delta_eps_history": 0,
+        "delta_eps_history_per_sample": 0,
+        "ers_selection_history": 0,
+    }
 
     def engine_config(self) -> ERAConfig:
         return ERAConfig(per_sample=True)
 
     def fusable(self, cfg: ERAConfig) -> bool:
+        return cfg.per_sample
+
+    def supports_lengths(self, cfg: ERAConfig) -> bool:
+        """The ERS norms are masked and accumulate positions in order, so a
+        padded row selects the bases its unpadded run selects; only
+        per-sample ERS keeps one row's padding out of another's norm."""
+        return cfg.per_sample
+
+    def supports_steps(self, cfg: ERAConfig) -> bool:
+        """Each row carries its own delta_eps and selections under
+        per-sample ERS, so freezing a spent row cannot move a live one."""
         return cfg.per_sample
 
     def validate(self, req, cfg: ERAConfig) -> None:
@@ -270,15 +355,23 @@ class ERAProgram(SolverProgram):
         return alloc_buffers(x_like, cfg)
 
     def sample_scan(
-        self, eps_fn, x_init, buffers, schedule, cfg, lengths=None
+        self, eps_fn, x_init, buffers, schedule, cfg, lengths=None,
+        steps=None, ts=None,
     ):
         eps_buf, t_buf = buffers
         return sample_scan(
-            eps_fn, x_init, eps_buf, t_buf, schedule, cfg, lengths=lengths
+            eps_fn, x_init, eps_buf, t_buf, schedule, cfg, lengths=lengths,
+            steps=steps, ts=ts,
         )
 
-    def scope_aux(self, aux: dict, off: int, batch: int) -> dict:
-        scoped = super().scope_aux(aux, off, batch)
+    def scope_aux(
+        self, aux: dict, off: int, batch: int, seq_len: int | None = None,
+        n_steps: int | None = None, padded_steps: int | None = None,
+    ) -> dict:
+        scoped = super().scope_aux(
+            aux, off, batch, seq_len=seq_len, n_steps=n_steps,
+            padded_steps=padded_steps,
+        )
         if scoped is not aux and "delta_eps_history_per_sample" in scoped:
             # the batch-mean diagnostic covers only this request's rows
             scoped["delta_eps_history"] = torch.mean(

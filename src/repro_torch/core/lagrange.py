@@ -62,8 +62,9 @@ def ers_select(i: int, k: int, power: Tensor) -> Tensor:
     power = torch.as_tensor(power, dtype=torch.float32)
     taus = []
     for m in range(1, k + 1):
-        frac = torch.tensor(m / k, dtype=torch.float32, device=power.device)
-        taus.append(torch.floor(frac**power * float(i)).to(torch.int32))
+        # the base stays a host scalar, cast to float32 inside the kernel:
+        # no host-to-device copy, so a CUDA graph can capture the step
+        taus.append(torch.floor((m / k) ** power * float(i)).to(torch.int32))
     return _dedup_increasing(taus, i, k)
 
 

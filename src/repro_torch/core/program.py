@@ -3,23 +3,56 @@
 
 A :class:`SolverProgram` is what the executor knows about a solver:
 request policy (``fusable``, ``validate``), its history buffers
-(``alloc_buffers``), the sampling loop (``sample_scan``) and how a fused
-batch's diagnostics are scoped to each request (``scope_aux``).  The mesh
-placement and ahead-of-time compile hooks of the reference have no
-counterpart yet, and the mixed-NFE ``StepMask`` waits for NFE bucketing.
+(``alloc_buffers``), the sampling loop (``sample_scan``), the two mask
+channels of a fused batch (``supports_lengths`` for seq bucketing,
+``supports_steps`` with :class:`StepMask` for NFE bucketing) and how a
+fused batch's diagnostics are scoped to each request (``scope_aux``).  The
+mesh placement and ahead-of-time compile hooks of the reference have no
+counterpart: the port runs on one card, and the executor captures each
+bucket's loop as a CUDA graph instead of compiling it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, NamedTuple
 
 import torch
 
-from repro_torch.core.schedules import NoiseSchedule
+from repro_torch.core.schedules import NoiseSchedule, timesteps
 from repro_torch.device import resolve_device
 from repro_torch.core.solver_base import EpsFn, SolverConfig, SolverOutput
 
 Tensor = torch.Tensor
+
+
+class StepMask(NamedTuple):
+    """The mixed-NFE mask channel: per-row step activity for a batch whose
+    rows run different step counts inside one loop of the bucket's
+    ``n_steps`` iterations.  Step ``i`` is **active** for row ``r`` iff
+    ``i < active_steps[r]``; an inactive step leaves that row's latents,
+    history entries and ERS state bitwise unchanged.  Row ``r``'s own grid
+    (``step_times`` for its exact NFE) occupies ``ts[r, : active_steps[r]
+    + 1]``, with the terminal time repeated through the padded tail."""
+
+    #: (B,) int32 — per-row count of real solver steps
+    active_steps: Tensor
+    #: (B, n_steps + 1) float32 — per-row time grids, terminal-padded
+    ts: Tensor
+
+
+def step_active(steps: StepMask, i: int, x_ndim: int = 3) -> Tensor:
+    """Per-row activity predicate of step ``i``, shaped ``(B,) + (1,) *
+    (x_ndim - 1)`` to broadcast against ``(B, ...)`` carries."""
+    act = i < steps.active_steps
+    return act.reshape(act.shape + (1,) * (x_ndim - 1))
+
+
+def step_row_times(steps: StepMask, i: int, x_ndim: int = 3):
+    """Row times ``(t_cur, t_next)`` of step ``i``, shaped ``(B,) + (1,) *
+    (x_ndim - 1)`` so schedule coefficients broadcast per row."""
+    trail = (1,) * (x_ndim - 1)
+    t_cur, t_next = steps.ts[:, i], steps.ts[:, i + 1]
+    return t_cur.reshape(t_cur.shape + trail), t_next.reshape(t_next.shape + trail)
 
 
 class SolverProgram:
@@ -32,6 +65,11 @@ class SolverProgram:
     config_cls: type[SolverConfig] = SolverConfig
     #: aux keys whose value carries the padded batch on the given axis
     aux_row_axes: Mapping[str, int] = {"trajectory": 1}
+    #: aux keys whose value carries the padded sequence on the given axis
+    aux_seq_axes: Mapping[str, int] = {"trajectory": 2}
+    #: aux keys stacked over loop steps on the given axis (scoped to a
+    #: request's own step count under NFE bucketing)
+    aux_step_axes: Mapping[str, int] = {"trajectory": 0}
 
     # ---- configs ---------------------------------------------------------
     def default_config(self, **kw) -> SolverConfig:
@@ -47,9 +85,35 @@ class SolverProgram:
         """Can strangers (and pad rows) share a fused batch under ``cfg``?"""
         return True
 
+    def supports_lengths(self, cfg: SolverConfig) -> bool:
+        """Can a right-padded batch with per-row ``lengths`` compute every
+        valid position exactly as an unpadded run would?  True for math
+        elementwise over positions; a program that reduces over the
+        sequence must mask the reduction."""
+        return True
+
+    def supports_steps(self, cfg: SolverConfig) -> bool:
+        """Can a mixed-NFE batch run under a :class:`StepMask`: active
+        steps compute what an exact-NFE run would, inactive ones freeze
+        the row bitwise?"""
+        return False
+
     def steps_for_nfe(self, nfe: int, cfg: SolverConfig) -> int:
-        """Solver steps a request with NFE budget ``nfe`` runs."""
+        """Solver steps a request with NFE budget ``nfe`` runs (the unit
+        ``StepMask.active_steps`` counts in)."""
         return nfe
+
+    def step_times(
+        self, schedule: NoiseSchedule, nfe: int, cfg: SolverConfig,
+        device: str | torch.device = "cpu",
+    ) -> Tensor:
+        """The exact ``(steps_for_nfe(nfe) + 1,)`` grid a request with
+        budget ``nfe`` steps through; the executor builds each row of
+        ``StepMask.ts`` (and each unmasked bucket's grid) from it."""
+        return timesteps(
+            schedule, self.steps_for_nfe(nfe, cfg), cfg.scheme,
+            t_end=cfg.t_end, device=device,
+        )
 
     def validate(self, req: Any, cfg: SolverConfig) -> None:
         """Reject an illegal request at submit time (``req`` needs
@@ -74,9 +138,15 @@ class SolverProgram:
         schedule: NoiseSchedule,
         cfg: SolverConfig,
         lengths: Tensor | None = None,
+        steps: StepMask | None = None,
+        ts: Tensor | None = None,
     ) -> SolverOutput:
-        """The solver loop over the step grid with ``buffers`` threaded in;
-        ``lengths`` (B,) marks per-row valid sequence lengths."""
+        """The solver loop over the step grid with ``buffers`` threaded in.
+        ``lengths`` (B,) marks per-row valid sequence lengths; ``steps``
+        is the mixed-NFE channel (only for programs whose
+        :meth:`supports_steps` is true); ``ts`` is the ``(nfe + 1,)`` grid
+        on the device when no ``steps`` are given (None: built from the
+        schedule)."""
         raise NotImplementedError
 
     def sample(
@@ -92,17 +162,40 @@ class SolverProgram:
         )
 
     # ---- aux scoping -----------------------------------------------------
-    def scope_aux(self, aux: dict, off: int, batch: int) -> dict:
-        """Scope diagnostics to one request's rows ``[off, off + batch)``
-        of a fused padded batch, per :attr:`aux_row_axes` (no batch-mate
-        or pad-row leakage)."""
-        hit = {
-            k: ax for k, ax in self.aux_row_axes.items()
-            if aux.get(k) is not None
-        }
-        if not hit:
-            return aux
-        scoped = dict(aux)
-        for key, axis in hit.items():
-            scoped[key] = scoped[key].narrow(axis, off, batch)
-        return scoped
+    def scope_aux(
+        self,
+        aux: dict,
+        off: int,
+        batch: int,
+        seq_len: int | None = None,
+        n_steps: int | None = None,
+        padded_steps: int | None = None,
+    ) -> dict:
+        """Scope diagnostics to one request: its rows ``[off, off +
+        batch)`` per :attr:`aux_row_axes`, its valid positions ``[0,
+        seq_len)`` per :attr:`aux_seq_axes` (None: it ran at its exact
+        length), and, when the loop ran ``padded_steps`` steps but the
+        request only ``n_steps``, the first ``n_steps``-worth of each
+        :attr:`aux_step_axes` entry (keeping any extra leading frame, as
+        the trajectory's initial state).  No batch-mate, pad-row,
+        pad-position or pad-step leakage."""
+        pad_steps = (
+            0 if n_steps is None or padded_steps is None
+            else padded_steps - n_steps
+        )
+        scoped, hit = dict(aux), False
+
+        def cut(axes: Mapping[str, int], start: int, keep) -> None:
+            nonlocal hit
+            for key, axis in axes.items():
+                if scoped.get(key) is not None:
+                    value = scoped[key]
+                    scoped[key] = value.narrow(axis, start, keep(value.shape[axis]))
+                    hit = True
+
+        cut(self.aux_row_axes, off, lambda n: batch)
+        if seq_len is not None:
+            cut(self.aux_seq_axes, 0, lambda n: seq_len)
+        if pad_steps > 0:
+            cut(self.aux_step_axes, 0, lambda n: n - pad_steps)
+        return scoped if hit else aux

@@ -1,5 +1,7 @@
-"""Solver registry of the port.  Only ERA is ported so far; the baselines
-(DDIM, Adams, DPM-Solver, adaptive DPM) wait for a later slice."""
+"""Solver registry of the port.  Only ERA is ported so far, with the
+seq-length and step-mask channels the executor's buckets use; the
+baselines (DDIM, explicit and implicit Adams, DPM-Solver 2 / fast / ++2M,
+adaptive DPM) and their step-masked loops wait for ROADMAP queue 1."""
 
 from __future__ import annotations
 

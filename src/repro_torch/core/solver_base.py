@@ -64,9 +64,14 @@ def buffer_init(
 def buffer_append(
     eps_buf: Tensor, t_buf: Tensor, idx: int, eps: Tensor, t
 ) -> None:
-    """Write entry ``idx`` in place."""
+    """Write entry ``idx`` in place.  A host float ``t`` is filled in by
+    the kernel (an item assignment would copy it from the host, which a
+    CUDA graph cannot capture); a tensor is copied on its device."""
     eps_buf[idx] = eps.to(eps_buf.dtype)
-    t_buf[idx] = t
+    if isinstance(t, Tensor):
+        t_buf[idx] = t
+    else:
+        t_buf[idx].fill_(t)
 
 
 def step_grid(ts: Tensor) -> tuple[range, Tensor, Tensor]:

@@ -3,9 +3,13 @@
 * :class:`BatchedSampler` — the sync engine: ``submit_with_future()``
   enqueues a request (from any thread) and returns its Future
   (``submit()`` returns only its ticket); ``drain()``
-  groups pending requests by ``(solver, seq_len, nfe)``, packs each group
+  groups pending requests by ``(solver, seq, nfe)``, packs each group
   into chunks padded to a batch bucket, and runs every chunk through the
   shared :class:`~repro_torch.serving.executor.FusedExecutor`.
+  ``seq_buckets`` and ``nfe_buckets`` let requests of different
+  ``seq_len`` and ``nfe`` share a chunk (``seq`` and ``nfe`` in the key
+  are then buckets); on the card every bucket runs as one captured CUDA
+  graph, which ``warmup()`` captures ahead of traffic.
 * Per-request isolation inside a fused batch comes from per-sample ERS
   (``ERAConfig(per_sample=True)``, the engine default): each row measures
   its own delta_eps and selects its own Lagrange bases, so a batch of N
@@ -15,8 +19,8 @@
 
 The engine runs on its denoiser's device: the card unless the model was
 built with ``device="cpu"``.  The model owns its weights, so ``drain()``
-takes no parameter tree.  The continuous-batching scheduler, the HTTP
-front door and ``warmup`` wait for later slices.
+and ``warmup()`` take no parameter tree.  The continuous-batching
+scheduler and the HTTP front door wait for later slices.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 
@@ -57,6 +61,8 @@ class BatchedSampler:
         solver: str = "era",
         solver_config: SolverConfig | None = None,
         batch_buckets: tuple[int, ...] | None = (1, 8, 64),
+        seq_buckets: tuple[int, ...] | None = None,
+        nfe_buckets: tuple[int, ...] | None = None,
         metrics: MetricsRegistry | None = None,
         max_batch: int | None = DEFAULT_MAX_BATCH,
         max_nfe: int | None = DEFAULT_MAX_NFE,
@@ -65,6 +71,7 @@ class BatchedSampler:
     ):
         self.executor = FusedExecutor(
             dlm, schedule, solver, solver_config, batch_buckets,
+            seq_buckets=seq_buckets, nfe_buckets=nfe_buckets,
             metrics=metrics, max_batch=max_batch, max_nfe=max_nfe,
             max_seq_len=max_seq_len, noise_fn=noise_fn,
         )
@@ -76,6 +83,30 @@ class BatchedSampler:
     @property
     def dlm(self) -> DiffusionLM:
         return self.executor.dlm
+
+    @property
+    def schedule(self) -> NoiseSchedule:
+        return self.executor.schedule
+
+    @property
+    def solver_name(self) -> str:
+        return self.executor.solver_name
+
+    @property
+    def solver_config(self) -> SolverConfig:
+        return self.executor.config_for(None)
+
+    @property
+    def batch_buckets(self) -> tuple[int, ...] | None:
+        return self.executor.batch_buckets
+
+    @property
+    def seq_buckets(self) -> tuple[int, ...] | None:
+        return self.executor.seq_buckets
+
+    @property
+    def nfe_buckets(self) -> tuple[int, ...] | None:
+        return self.executor.nfe_buckets
 
     @property
     def metrics(self) -> MetricsRegistry:
@@ -103,7 +134,7 @@ class BatchedSampler:
             return len(self._pending)
 
     def drain(self) -> dict[int, SampleResult]:
-        """Run all pending requests, fused per (solver, seq_len, nfe) group,
+        """Run all pending requests, fused per (solver, seq, nfe) group,
         and resolve each drained ticket's Future.  A chunk that fails fails
         only its own tickets; the first failure re-raises at the end."""
         with self._queue_lock:
@@ -133,11 +164,42 @@ class BatchedSampler:
             raise failure
         return results
 
+    # ---- cold start ------------------------------------------------------
+    def warmup(
+        self,
+        *,
+        solvers: tuple[str, ...] | None = None,
+        seq_lens: tuple[int, ...] | None = None,
+        nfes: tuple[int, ...] | None = None,
+        progress=None,
+    ) -> dict[str, Any]:
+        """Capture the (solver x batch bucket x seq bucket x nfe) graph grid
+        ahead of traffic (on the CPU: validate it); see
+        :meth:`FusedExecutor.warmup`.  Returns the warmup report."""
+        return self.executor.warmup(
+            solvers=solvers, seq_lens=seq_lens, nfes=nfes, progress=progress,
+        )
+
+    def warmup_status(self) -> dict[str, Any]:
+        """Warmup progress snapshot."""
+        return self.executor.warmup_status()
+
+    # ---- introspection (tests / chip_smoke) ------------------------------
+    def compile_cache(self):
+        """Bucket key -> captured graph."""
+        return self.executor.compile_cache()
+
+    def compile_stats(self) -> dict[str, int]:
+        """Graph acquisitions by source: fresh captures, memory replays."""
+        return self.executor.compile_stats()
+
 
 class SamplerService:
     """One-call facade over :class:`BatchedSampler` with exact-size buckets.
     ``sample()`` submits, drains and returns the request's result.  With no
-    ``solver_config`` it runs the paper config (shared delta_eps)."""
+    ``solver_config`` it runs the paper config (shared delta_eps).
+    ``engine=`` injects a pre-built engine instead, whose batch, seq and
+    NFE ladders and graph cache the facade then shares."""
 
     def __init__(
         self,
@@ -158,6 +220,10 @@ class SamplerService:
                 dlm, schedule, solver, solver_config, batch_buckets=None
             )
         self._engine = engine
+        self.dlm = engine.dlm
+        self.schedule = engine.schedule
+        self.solver_name = engine.solver_name
+        self.solver_config = engine.solver_config
 
     def sample(self, req: SampleRequest) -> SampleResult:
         """Generate ``req.batch`` sequences of latents; blocking."""

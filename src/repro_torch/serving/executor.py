@@ -2,21 +2,55 @@
 ``repro.serving.executor``).
 
 :class:`FusedExecutor` owns everything below the request queue: request
-validation, batch-bucket selection, host-side batch assembly, chunk
-execution and per-request aux scoping.  Requests fuse by the group key
-``(solver, seq_len, nfe)``; each fused chunk is padded to a batch bucket and
-runs one sampling loop on the device.
+validation, bucket selection, host-side batch assembly, the bucket graph
+cache, chunk execution and per-request aux scoping.  Requests fuse by the
+group key ``(solver, seq, nfe)``; each fused chunk is padded to a batch
+bucket and runs one sampling loop on the device.
+
+**Seq bucketing** (``seq_buckets=(128, 256, ...)``): requests of different
+``seq_len`` fuse into one batch.  Each request's noise is drawn at its
+exact shape and right-padded with zeros to the smallest bucket that fits;
+a per-row ``lengths`` vector masks pad keys out of every attention softmax
+(``DiffusionLM.eps(lengths=...)``) and pad positions out of ERA's error
+norms, and results are sliced back to each request's ``seq_len``.
+
+**NFE bucketing** (``nfe_buckets=(10, 20, ...)``): requests of different
+``nfe`` fuse into one batch that runs the bucket's step count under a
+per-row :class:`~repro_torch.core.program.StepMask`: each row steps
+through its own exact-NFE grid and freezes bitwise once its own steps are
+spent; step-stacked diagnostics are cut back to each request's own count.
+Batch pad rows run fully active on the bucket's grid.
+
+Either ladder falls back, per solver, to exact grouping when the solver
+cannot guarantee the masking contract (a non-fusable config, a program
+without ``supports_lengths`` / ``supports_steps``, an unmaskable
+denoiser); each verdict is counted once on
+``sampler_masked_fallback_total``.
+
+**One CUDA graph per bucket.**  On the card a chunk does not dispatch its
+loop op by op from Python: every bucket ``(solver, config, padded batch,
+seq, masked, stepped)`` is captured once as a ``torch.cuda.CUDAGraph`` of
+a whole sampling run (the reference compiles one XLA program per bucket
+instead), by its first chunk or ahead of time by :meth:`warmup`.  A chunk
+copies its inputs into the graph's static inputs, replays it and copies
+the results out: a :class:`SampleResult` never views graph memory, which
+the bucket's next replay overwrites.  Every capture follows one eager run
+of the same program on the capture stream, which builds the Triton kernel,
+sets the flash kernel's shared-memory attribute and creates the cuBLAS
+handles outside the capture.  The graphs share one memory pool: replays
+run one at a time under the executor's lock and results are copied out
+before the next replay.  A capture or a replay that fails raises; nothing
+falls back to eager execution on the card.  On the CPU (an engine whose
+denoiser was built with ``device="cpu"``) a chunk runs its program
+eagerly and :meth:`warmup` only validates its grid.
 
 Each request's initial noise depends only on its seed and shape: it is
 drawn from its own ``torch.Generator`` seeded with ``req.seed`` at the
 request's exact ``(batch, seq_len, d_model)`` shape, so the batch it lands
 in never changes it.  ``noise_fn`` replaces that draw (the parity tests feed
-the reference's ``jax.random`` noise through it).
-
-The port runs eagerly, so the reference's per-bucket compile cache, AOT
-``warmup`` and persistent compile cache have no counterpart yet; seq-len
-bucketing, NFE bucketing and mesh placement wait for later slices.
-Chunk execution serializes under one re-entrant lock.
+the reference's ``jax.random`` noise through it).  Graphs do not persist
+across processes, so the reference's persistent compile cache has no
+counterpart; mesh placement waits for a later slice.
 """
 
 from __future__ import annotations
@@ -29,9 +63,15 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import NoiseSchedule, SolverConfig, get_program
-from repro_torch.core.program import SolverProgram
+from repro_torch.core.program import SolverProgram, StepMask
+from repro_torch.core.solver_base import SolverOutput
+from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.era_update import era_update
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.diffusion import DiffusionLM
 from repro_torch.serving import result_keys as K
 from repro_torch.serving.metrics import MetricsRegistry
@@ -48,6 +88,10 @@ DEFAULT_MAX_BATCH = 4096
 DEFAULT_MAX_NFE = 1000
 DEFAULT_MAX_SEQ_LEN = 8192
 
+#: the kernel wrappers whose ``launches`` count launches on the device; a
+#: graph's capture records its launches and each replay adds them
+COUNTED_KERNELS = (era_update, flash_attention, decode_attention)
+
 
 @dataclasses.dataclass(frozen=True)
 class SampleRequest:
@@ -62,11 +106,13 @@ class SampleRequest:
 
 @dataclasses.dataclass
 class SampleResult:
-    """Per-request output of a drained batch, scoped to this request's rows.
-    ``batch_wall_s`` / ``padded_*`` describe the fused batch it rode in."""
+    """Per-request output of a drained batch, scoped to this request's rows,
+    positions and steps.  ``batch_wall_s`` / ``padded_*`` describe the
+    fused batch it rode in: its batch bucket, seq bucket and NFE bucket."""
 
-    x0: Tensor               # (batch, seq_len, d_model), on the engine's device
-    aux: dict[str, Any]      # solver diagnostics, this request's rows only
+    x0: Tensor               # (batch, seq_len, d_model), on the engine's
+                             # device; never a view of graph memory
+    aux: dict[str, Any]      # solver diagnostics of this request alone
     latency_s: float         # submit -> result wall time
     batch_wall_s: float      # wall time of the fused batch
     padded_batch: int        # batch bucket the batch ran at
@@ -89,6 +135,27 @@ class SampleResult:
 # A queued request: (ticket, request, submit-time).
 QueueItem = tuple[int, SampleRequest, float]
 
+# A bucket: (solver, config with the bucket's nfe, padded batch, seq,
+# masked, stepped).
+BucketKey = tuple[str, SolverConfig, int, int, bool, bool]
+
+
+@dataclasses.dataclass
+class BucketGraph:
+    """One captured bucket: the CUDA graph of a whole sampling run, the
+    static tensors it reads (``x_init``, ``lengths``, ``steps``; the time
+    grid and the solver buffers live inside it) and writes (``x0``,
+    ``aux``), and the kernel launches one replay makes, in the order of
+    :data:`COUNTED_KERNELS`."""
+
+    graph: torch.cuda.CUDAGraph
+    x_init: Tensor
+    lengths: Tensor | None
+    steps: StepMask | None
+    x0: Tensor
+    aux: dict[str, Tensor]
+    launches: tuple[int, ...]
+
 
 def resolve_future(fut: Future, result=None, exception=None) -> None:
     """Resolve a delivery future, tolerating client-side cancellation."""
@@ -103,8 +170,9 @@ def resolve_future(fut: Future, result=None, exception=None) -> None:
 
 class FusedExecutor:
     """Fused-chunk runner.  Every public method may be called from any
-    thread; chunk execution serializes under one re-entrant lock and
-    ``run_chunk`` returns once the fused result is finished on the device."""
+    thread; chunk execution, captures and replays serialize under one
+    re-entrant lock, and ``run_chunk`` returns once the fused result is
+    finished on the device."""
 
     def __init__(
         self,
@@ -113,6 +181,8 @@ class FusedExecutor:
         solver: str = "era",
         solver_config: SolverConfig | None = None,
         batch_buckets: tuple[int, ...] | None = (1, 8, 64),
+        seq_buckets: tuple[int, ...] | None = None,
+        nfe_buckets: tuple[int, ...] | None = None,
         metrics: MetricsRegistry | None = None,
         max_batch: int | None = DEFAULT_MAX_BATCH,
         max_nfe: int | None = DEFAULT_MAX_NFE,
@@ -136,8 +206,62 @@ class FusedExecutor:
         self.batch_buckets = (
             tuple(sorted(set(batch_buckets))) if batch_buckets else None
         )
+        self.seq_buckets = tuple(sorted(seq_buckets)) if seq_buckets else None
+        self.nfe_buckets = tuple(sorted(nfe_buckets)) if nfe_buckets else None
+        # per-solver verdicts: may this solver's traffic seq- / nfe-bucket?
+        self._seq_masked: dict[str, bool] = {}
+        self._nfe_masked: dict[str, bool] = {}
+        # (solver, nfe) -> the exact step grid, on the host and the device
+        self._row_times: dict[tuple[str, int], Tensor] = {}
+        self._grids: dict[tuple[str, int], Tensor] = {}
+        self._graphs: dict[BucketKey, BucketGraph] = {}
+        # one capture stream and one memory pool for every bucket graph:
+        # the allocator reuses a block only on the stream it came from
+        self._capture_stream: torch.cuda.Stream | None = None
+        self._graph_pool = None
         self._lock = threading.RLock()
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._m_compile_hits = self.metrics.counter(
+            "sampler_compile_cache_hits_total",
+            "fused chunks served by replaying an already-captured bucket graph",
+        )
+        self._m_compile_misses = self.metrics.counter(
+            "sampler_compile_cache_misses_total",
+            "bucket graphs captured, labelled by source (fresh: a capture)",
+        )
+        self._m_compile_programs = self.metrics.counter(
+            "sampler_compile_programs_total",
+            "bucket graph acquisitions by source: memory (a replay of a "
+            "captured graph), fresh (a capture)",
+        )
+        self._m_compile_wall = self.metrics.histogram(
+            "sampler_compile_seconds",
+            "wall time of each capture, its eager run included",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0),
+        )
+        self._m_warmup_total = self.metrics.gauge(
+            "sampler_warmup_grid_programs",
+            "programs in the configured warmup grid (0 until warmup() runs)",
+        )
+        self._m_warmup_done = self.metrics.gauge(
+            "sampler_warmup_compiled_programs",
+            "warmup grid programs captured (or validated, on the CPU) so far",
+        )
+        self._m_warmup_inflight = self.metrics.gauge(
+            "sampler_warmup_in_progress", "1 while warmup() walks the grid",
+        )
+        self._m_warmup_wall = self.metrics.gauge(
+            "sampler_warmup_duration_seconds",
+            "wall time of the last completed warmup()",
+        )
+        self._m_warmup_programs = self.metrics.counter(
+            "sampler_warmup_programs_total",
+            "bucket graphs captured by warmup(), by solver",
+        )
+        self._compile_counts = {"fresh": 0, "memory": 0}
+        self._warmup_state: dict[str, Any] = {
+            "state": "none", "done": 0, "total": 0,
+        }
         self._m_batches = self.metrics.counter(
             "sampler_batches_total", "fused batches executed"
         )
@@ -152,6 +276,16 @@ class FusedExecutor:
         )
         self._m_wall = self.metrics.histogram(
             "sampler_batch_wall_seconds", "device wall time per fused batch"
+        )
+        self._m_masked_fallback = self.metrics.counter(
+            "sampler_masked_fallback_total",
+            "engine seq-bucketing / nfe-bucketing verdicts that force "
+            "exact-shape or exact-NFE grouping, by impl and reason",
+        )
+        self._m_nfe_pad_rows = self.metrics.counter(
+            "sampler_nfe_padding_rows_total",
+            "request rows padded to a larger NFE bucket than requested "
+            "(per-row step masks freeze their surplus steps)",
         )
 
     # ---- solver routing --------------------------------------------------
@@ -175,10 +309,85 @@ class FusedExecutor:
     def max_bucket(self) -> int | None:
         return self.batch_buckets[-1] if self.batch_buckets else None
 
+    # ---- seq and NFE bucketing -------------------------------------------
+    def seq_masked(self, solver: str | None) -> bool:
+        """Does this solver's traffic fuse across seq_lens (padded and
+        length-masked), or group by exact seq_len?  Needs a seq ladder, a
+        fusable config, a program that supports lengths and a denoiser
+        whose blocks can all be masked."""
+        if not self.seq_buckets:
+            return False
+        name = solver or self.solver_name
+        verdict = self._seq_masked.get(name)
+        if verdict is None:
+            program = self.program_for(name)
+            cfg = self.config_for(name)
+            fusable = program.fusable(cfg)
+            lengths_ok = program.supports_lengths(cfg)
+            maskable = bool(getattr(self.dlm, "supports_length_masking", False))
+            verdict = self._seq_masked[name] = fusable and lengths_ok and maskable
+            if not verdict:
+                reason = (
+                    "non-fusable-config" if not fusable
+                    else "program-no-lengths" if not lengths_ok
+                    else "denoiser-unmaskable"
+                )
+                self._m_masked_fallback.inc(impl="seq-bucketing", reason=reason)
+        return verdict
+
+    def bucket_seq(self, n: int) -> int:
+        """Smallest seq bucket >= n (longer requests are rejected at
+        submit)."""
+        for s in self.seq_buckets:
+            if n <= s:
+                return s
+        raise ValueError(
+            f"seq_len {n} exceeds the largest seq bucket {self.seq_buckets[-1]}"
+        )
+
+    def nfe_masked(self, solver: str | None) -> bool:
+        """Does this solver's traffic fuse across NFEs (the bucket's step
+        count under a per-row step mask), or group by exact nfe?  Needs an
+        nfe ladder, a fusable config and a program that supports steps."""
+        if not self.nfe_buckets:
+            return False
+        name = solver or self.solver_name
+        verdict = self._nfe_masked.get(name)
+        if verdict is None:
+            program = self.program_for(name)
+            cfg = self.config_for(name)
+            fusable = program.fusable(cfg)
+            steps_ok = program.supports_steps(cfg)
+            verdict = self._nfe_masked[name] = fusable and steps_ok
+            if not verdict:
+                reason = (
+                    "non-fusable-config" if not fusable else "program-no-steps"
+                )
+                self._m_masked_fallback.inc(impl="nfe-bucketing", reason=reason)
+        return verdict
+
+    def bucket_nfe(self, n: int) -> int:
+        """Smallest nfe bucket >= n (larger budgets are rejected at
+        submit)."""
+        for b in self.nfe_buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"nfe {n} exceeds the largest nfe bucket {self.nfe_buckets[-1]}"
+        )
+
     # ---- request policy --------------------------------------------------
     def group_key(self, req: SampleRequest) -> tuple[str, int, int]:
-        """The fuse-group key ``(solver, seq_len, nfe)``."""
-        return (self.resolve_solver(req), req.seq_len, req.nfe)
+        """The fuse-group key ``(solver, seq, nfe)``: ``seq`` is the seq
+        bucket under seq bucketing, else the exact ``seq_len``; ``nfe`` the
+        NFE bucket under NFE bucketing, else the exact ``nfe``."""
+        solver = self.resolve_solver(req)
+        seq = (
+            self.bucket_seq(req.seq_len) if self.seq_masked(solver)
+            else req.seq_len
+        )
+        nfe = self.bucket_nfe(req.nfe) if self.nfe_masked(solver) else req.nfe
+        return (solver, seq, nfe)
 
     def validate(self, req: SampleRequest) -> None:
         """Reject an invalid request at submit time, so it can never fail
@@ -192,14 +401,33 @@ class FusedExecutor:
             )
         if req.seq_len < 1:
             raise ValueError(f"seq_len must be >= 1, got {req.seq_len}")
-        if self.max_seq_len is not None and req.seq_len > self.max_seq_len:
-            raise ValueError(
-                f"seq_len {req.seq_len} exceeds the engine's max_seq_len "
-                f"{self.max_seq_len}"
-            )
         if self.max_nfe is not None and req.nfe > self.max_nfe:
             raise ValueError(
                 f"nfe {req.nfe} exceeds the engine's max_nfe {self.max_nfe}"
+            )
+        if self.nfe_buckets and req.nfe > self.nfe_buckets[-1]:
+            # the ladder is the serving contract: an over-budget request
+            # would need a bucket graph of its own
+            raise ValueError(
+                f"nfe {req.nfe} exceeds the largest nfe bucket "
+                f"{self.nfe_buckets[-1]}; extend nfe_buckets or submit "
+                f"requests within the ladder"
+            )
+        if self.seq_buckets and req.seq_len > self.seq_buckets[-1]:
+            raise ValueError(
+                f"seq_len {req.seq_len} exceeds the largest seq bucket "
+                f"{self.seq_buckets[-1]}; extend seq_buckets or submit "
+                f"requests within the ladder"
+            )
+        if (
+            not self.seq_buckets
+            and self.max_seq_len is not None
+            and req.seq_len > self.max_seq_len
+        ):
+            # no ladder bounds the graph cache here, so cap the axis
+            raise ValueError(
+                f"seq_len {req.seq_len} exceeds the engine's max_seq_len "
+                f"{self.max_seq_len}"
             )
         if not isinstance(req.seed, int) or isinstance(req.seed, bool):
             raise ValueError(f"seed must be an int, got {req.seed!r}")
@@ -263,32 +491,108 @@ class FusedExecutor:
         pad: bool = True,
     ) -> None:
         """Run one same-group chunk as a single fused batch; fill
-        ``results`` by ticket.  Blocks until the batch is finished."""
+        ``results`` by ticket.  ``seq_len`` / ``nfe`` are the group's (a
+        bucket under bucketing).  Blocks until the batch is finished."""
         with self._lock:
             self._run_chunk_locked(seq_len, nfe, chunk, results, pad)
 
+    def _on_card(self) -> bool:
+        """True when chunks replay bucket graphs; an engine placed on the
+        card raises here when no card is present."""
+        return resolve_device(self.device).type == "cuda"
+
+    def _step_times_host(self, solver: str, nfe: int) -> Tensor:
+        """The exact grid a run of budget ``nfe`` steps through, computed
+        once per (solver, nfe) on the host."""
+        key = (solver, nfe)
+        ts = self._row_times.get(key)
+        if ts is None:
+            ts = self._row_times[key] = self.program_for(solver).step_times(
+                self.schedule, nfe, self.config_for(solver)
+            )
+        return ts
+
+    def _grid(self, solver: str, nfe: int) -> Tensor:
+        """The same grid on the device, copied there once: the loop (and a
+        captured graph) reads it without a host-to-device copy."""
+        key = (solver, nfe)
+        ts = self._grids.get(key)
+        if ts is None:
+            ts = self._grids[key] = self._step_times_host(solver, nfe).to(
+                self.device
+            )
+        return ts
+
+    def _step_mask(
+        self, solver: str, cfg: SolverConfig, chunk: list[QueueItem],
+        pad_rows: int,
+    ) -> StepMask:
+        """Per-row step counts and exact grids for a chunk whose group runs
+        ``cfg.nfe``'s steps: each request row its own grid, terminal-padded;
+        batch pad rows the bucket's grid, fully active."""
+        program = self.program_for(solver)
+        cap = program.steps_for_nfe(cfg.nfe, cfg)
+        acts: list[int] = []
+        rows_ts: list[Tensor] = []
+        padded_rows = 0
+        for _, req, _ in chunk:
+            n_r = program.steps_for_nfe(req.nfe, cfg)
+            ts_r = self._step_times_host(solver, req.nfe)
+            if n_r < cap:
+                ts_r = torch.cat([ts_r, ts_r[-1:].expand(cap - n_r)])
+                padded_rows += req.batch
+            acts += [n_r] * req.batch
+            rows_ts += [ts_r] * req.batch
+        acts += [cap] * pad_rows
+        rows_ts += [self._step_times_host(solver, cfg.nfe)] * pad_rows
+        if padded_rows:
+            self._m_nfe_pad_rows.inc(padded_rows, solver=solver)
+        return StepMask(
+            active_steps=torch.tensor(acts, dtype=torch.int32).to(self.device),
+            ts=torch.stack(rows_ts).to(self.device),
+        )
+
     def _run_chunk_locked(self, seq_len, nfe, chunk, results, pad):
+        on_card = self._on_card()
         d = self.dlm.config.d_model
         solver = self.resolve_solver(chunk[0][1])
         program = self.program_for(solver)
+        masked = self.seq_masked(solver)
+        stepped = self.nfe_masked(solver)
         total = sum(req.batch for _, req, _ in chunk)
         padded = self.bucket_batch(total) if pad else total
-        parts = [self.noise(req) for _, req, _ in chunk]
+        # each request's noise at its exact shape, right-padded with zeros
+        # to the chunk's seq; pad rows are zeros of full length
+        parts, row_lengths = [], []
+        for _, req, _ in chunk:
+            parts.append(F.pad(self.noise(req), (0, 0, 0, seq_len - req.seq_len)))
+            row_lengths += [req.seq_len] * req.batch
         if padded > total:
             parts.append(torch.zeros(
                 (padded - total, seq_len, d), dtype=torch.float32,
                 device=self.device,
             ))
+            row_lengths += [seq_len] * (padded - total)
         x_init = torch.cat(parts, dim=0)
+        lengths = (
+            torch.tensor(row_lengths, dtype=torch.int32).to(self.device)
+            if masked else None
+        )
         cfg = dataclasses.replace(self.config_for(solver), nfe=nfe)
+        steps = (
+            self._step_mask(solver, cfg, chunk, padded - total)
+            if stepped else None
+        )
+        key = (solver, cfg, padded, seq_len, masked, stepped)
+        graph = self._graph_for(key) if on_card else None
 
         t0 = time.perf_counter()
-        buffers = program.alloc_buffers(x_init, cfg)
-        out = program.sample_scan(
-            self.dlm.eps_fn(), x_init, buffers, self.schedule, cfg
-        )
-        if self.device.type == "cuda":
+        if graph is not None:
+            x0, aux = self._replay(graph, x_init, lengths, steps)
             torch.cuda.synchronize(self.device)
+        else:
+            out = self._run_program(key, x_init, lengths, steps)
+            x0, aux = out.x0, out.aux
         wall = time.perf_counter() - t0
         self._m_batches.inc()
         self._m_rows.inc(total)
@@ -296,11 +600,20 @@ class FusedExecutor:
         self._m_wall.observe(wall, solver=solver)
 
         done = time.perf_counter()
+        padded_steps = program.steps_for_nfe(nfe, cfg) if stepped else None
         off = 0
         for ticket, req, t_submit in chunk:
+            cut = masked and req.seq_len < seq_len
             results[ticket] = SampleResult(
-                x0=out.x0[off : off + req.batch],
-                aux=program.scope_aux(out.aux, off, req.batch),
+                x0=x0[off : off + req.batch, : req.seq_len],
+                aux=program.scope_aux(
+                    aux, off, req.batch,
+                    seq_len=req.seq_len if cut else None,
+                    n_steps=(
+                        program.steps_for_nfe(req.nfe, cfg) if stepped else None
+                    ),
+                    padded_steps=padded_steps,
+                ),
                 latency_s=done - t_submit,
                 batch_wall_s=wall,
                 padded_batch=padded,
@@ -308,3 +621,245 @@ class FusedExecutor:
                 padded_nfe=nfe,
             )
             off += req.batch
+
+    def _run_program(
+        self, key: BucketKey, x_init: Tensor, lengths: Tensor | None,
+        steps: StepMask | None,
+    ) -> SolverOutput:
+        """One sampling run of a bucket's program, eagerly: fresh buffers,
+        then the loop on the bucket's grid (or the rows' own grids)."""
+        solver, cfg, _, _, _, stepped = key
+        program = self.program_for(solver)
+        return program.sample_scan(
+            self.dlm.eps_fn(lengths=lengths),
+            x_init,
+            program.alloc_buffers(x_init, cfg),
+            self.schedule,
+            cfg,
+            lengths=lengths,
+            steps=steps,
+            ts=None if stepped else self._grid(solver, cfg.nfe),
+        )
+
+    # ---- bucket graphs ---------------------------------------------------
+    def _graph_for(self, key: BucketKey) -> BucketGraph:
+        """The bucket's captured graph, captured now if this is its first
+        chunk.  Callers hold the executor lock."""
+        graph = self._graphs.get(key)
+        if graph is None:
+            return self._capture(key)
+        self._m_compile_hits.inc(solver=key[0])
+        self._m_compile_programs.inc(solver=key[0], source="memory")
+        self._compile_counts["memory"] += 1
+        return graph
+
+    def _capture(self, key: BucketKey) -> BucketGraph:
+        """Capture one whole sampling run of the bucket as a CUDA graph, on
+        a side stream, after one eager run of the same program there.  The
+        buffers are allocated inside the capture, so each replay starts
+        from fresh zeros.  Callers hold the executor lock."""
+        solver, cfg, batch, seq, masked, stepped = key
+        program = self.program_for(solver)
+        dev = self.device
+        t0 = time.perf_counter()
+        # static inputs, outside the graph pool: each chunk copies into them
+        x_init = torch.zeros(
+            (batch, seq, self.dlm.config.d_model), dtype=torch.float32,
+            device=dev,
+        )
+        lengths = (
+            torch.full((batch,), seq, dtype=torch.int32, device=dev)
+            if masked else None
+        )
+        steps = None
+        if stepped:
+            grid = self._grid(solver, cfg.nfe)
+            steps = StepMask(
+                active_steps=torch.full(
+                    (batch,), program.steps_for_nfe(cfg.nfe, cfg),
+                    dtype=torch.int32, device=dev,
+                ),
+                ts=grid.expand(batch, -1).contiguous(),
+            )
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        side = self._capture_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run_program(key, x_init, lengths, steps)
+        before = tuple(f.launches for f in COUNTED_KERNELS)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=side):
+            out = self._run_program(key, x_init, lengths, steps)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        # the wrappers counted launches the capture only recorded: take
+        # them back, and let every replay add them
+        launches = []
+        for f, b in zip(COUNTED_KERNELS, before):
+            launches.append(f.launches - b)
+            f.launches = b
+        entry = self._graphs[key] = BucketGraph(
+            graph=graph, x_init=x_init, lengths=lengths, steps=steps,
+            x0=out.x0, aux=out.aux, launches=tuple(launches),
+        )
+        wall = time.perf_counter() - t0
+        self._compile_counts["fresh"] += 1
+        self._m_compile_misses.inc(solver=solver, source="fresh")
+        self._m_compile_programs.inc(solver=solver, source="fresh")
+        self._m_compile_wall.observe(wall, solver=solver, source="fresh")
+        return entry
+
+    def _replay(
+        self, graph: BucketGraph, x_init: Tensor, lengths: Tensor | None,
+        steps: StepMask | None,
+    ) -> tuple[Tensor, dict[str, Tensor]]:
+        """Copy a chunk's inputs into the graph's static inputs, replay it
+        and copy its results out of graph memory."""
+        graph.x_init.copy_(x_init)
+        if graph.lengths is not None:
+            graph.lengths.copy_(lengths)
+        if graph.steps is not None:
+            graph.steps.active_steps.copy_(steps.active_steps)
+            graph.steps.ts.copy_(steps.ts)
+        graph.graph.replay()
+        for f, n in zip(COUNTED_KERNELS, graph.launches):
+            f.launches += n
+        return graph.x0.clone(), {k: v.clone() for k, v in graph.aux.items()}
+
+    # ---- ahead-of-time warmup --------------------------------------------
+    def warmup(
+        self,
+        *,
+        solvers: tuple[str, ...] | None = None,
+        seq_lens: tuple[int, ...] | None = None,
+        nfes: tuple[int, ...] | None = None,
+        progress=None,
+    ) -> dict[str, Any]:
+        """Capture the bucket grid ahead of traffic, into the same graph
+        cache chunks read, so the first request of any warmed bucket
+        replays instead of capturing.  On the CPU nothing is captured: the
+        grid is validated and reported.
+
+        Grid, per solver in ``solvers`` (default: the engine's default):
+        the nfe ladder when the solver nfe-buckets (explicit ``nfes`` folded
+        onto their buckets), else ``nfes`` (default: the config's nfe); the
+        seq ladder when it seq-buckets, else ``seq_lens`` (default: the
+        ladder's values as exact lengths; neither raises); the batch
+        ladder for fusable configs, else batch 1.  Every grid point is
+        validated through the program's request policy first, so an
+        unserveable grid fails before anything is captured.
+
+        ``progress`` (optional ``fn(done, total)``) and the
+        ``sampler_warmup_*`` instruments report progress.  Returns the grid
+        size, captures (``fresh``) and already-captured points
+        (``memory``), the wall seconds and the grid itself."""
+        on_card = self._on_card()
+        solver_list = tuple(solvers) if solvers else (self.solver_name,)
+        grid: list[BucketKey] = []
+        for solver in solver_list:
+            program = self.program_for(solver)  # unknown solver raises
+            base = self.config_for(solver)
+            masked = self.seq_masked(solver)
+            stepped = self.nfe_masked(solver)
+            seqs = (
+                self.seq_buckets if masked
+                else (tuple(seq_lens) if seq_lens else self.seq_buckets)
+            )
+            if not seqs:
+                raise ValueError(
+                    f"warmup needs seq_lens= when the engine has no seq-bucket "
+                    f"ladder (solver {solver!r} groups by exact seq_len)"
+                )
+            batches = (
+                self.batch_buckets
+                if self.batch_buckets and program.fusable(base) else (1,)
+            )
+            if stepped:
+                nfe_points = (
+                    tuple(sorted({self.bucket_nfe(n) for n in nfes}))
+                    if nfes else self.nfe_buckets
+                )
+            else:
+                nfe_points = tuple(nfes) if nfes else (base.nfe,)
+            for nfe in nfe_points:
+                cfg = dataclasses.replace(base, nfe=nfe)
+                for seq in seqs:
+                    for b in batches:
+                        program.validate(
+                            SampleRequest(batch=b, seq_len=seq, nfe=nfe,
+                                          solver=solver),
+                            cfg,
+                        )
+                        point = (solver, cfg, b, seq, masked, stepped)
+                        if point not in grid:
+                            grid.append(point)
+
+        total = len(grid)
+        counts = {"fresh": 0, "memory": 0}
+        t0 = time.perf_counter()
+        with self._lock:
+            self._warmup_state = {"state": "running", "total": total, "done": 0}
+        self._m_warmup_total.set(total)
+        self._m_warmup_done.set(0)
+        self._m_warmup_inflight.set(1)
+        done = 0
+        try:
+            for key in grid:
+                with self._lock:
+                    if key in self._graphs:
+                        counts["memory"] += 1
+                    elif on_card:
+                        self._capture(key)
+                        counts["fresh"] += 1
+                        self._m_warmup_programs.inc(solver=key[0])
+                    done += 1
+                    self._warmup_state["done"] = done
+                self._m_warmup_done.set(done)
+                if progress is not None:
+                    progress(done, total)
+            wall = time.perf_counter() - t0
+            with self._lock:
+                self._warmup_state = {
+                    "state": "done", "total": total, "done": done,
+                    K.WALL_S: wall, **counts,
+                }
+            self._m_warmup_wall.set(wall)
+        except BaseException as e:
+            with self._lock:
+                self._warmup_state = {
+                    "state": "failed", "total": total, "done": done,
+                    "error": f"{type(e).__name__}: {e}",
+                }
+            raise
+        finally:
+            self._m_warmup_inflight.set(0)
+        return {
+            "programs": total,
+            K.WALL_S: wall,
+            "grid": [
+                {"solver": s, "batch": b, "seq_len": q, "nfe": c.nfe}
+                for s, c, b, q, _, _ in grid
+            ],
+            **counts,
+        }
+
+    def warmup_status(self) -> dict[str, Any]:
+        """Warmup progress: ``state`` none|running|done|failed, done/total,
+        and the capture counts and wall seconds once done."""
+        with self._lock:
+            return dict(self._warmup_state)
+
+    # ---- introspection (tests / chip_smoke) ------------------------------
+    def compile_cache(self) -> dict[BucketKey, BucketGraph]:
+        """Bucket key -> captured graph (each captured once, by warmup or
+        by its first chunk; empty on the CPU)."""
+        with self._lock:
+            return dict(self._graphs)
+
+    def compile_stats(self) -> dict[str, int]:
+        """Graph acquisitions since boot: ``fresh`` captures and
+        ``memory`` replays of a graph captured before."""
+        with self._lock:
+            return dict(self._compile_counts)

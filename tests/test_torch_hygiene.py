@@ -4,9 +4,10 @@
   nor the reference package ``repro`` — checked both by importing every
   module in a fresh interpreter and by scanning the source.
 * Nothing falls back silently: without a card, entry points that were not
-  asked for the CPU raise, and the kernel modules, the solver core, the
-  attention module and the AR engine hold no ``try`` (a CUDA tensor
-  launches its kernel or raises).
+  asked for the CPU raise (the bucket-graph path and ``warmup()`` too), the
+  kernel modules, the solver core, the attention module and the AR engine
+  hold no ``try`` (a CUDA tensor launches its kernel or raises), and no
+  ``try`` on the executor's graph path swallows an error.
 """
 
 import ast
@@ -14,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -26,7 +28,12 @@ from repro_torch.core import era
 from repro_torch.launch import serve
 from repro_torch.models import DiffusionLM, build_model
 from repro_torch.models.attention import check_decode
-from repro_torch.serving import Engine, ServeConfig
+from repro_torch.serving import (
+    BatchedSampler,
+    Engine,
+    SampleRequest,
+    ServeConfig,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
@@ -59,6 +66,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     assert "repro_torch.kernels.flash_attention" in out["imported"]
     assert "repro_torch.kernels.decode_attention" in out["imported"]
     assert "repro_torch.launch.serve" in out["imported"]
+    assert "repro_torch.serving.executor" in out["imported"]
+    assert "repro_torch.core.program" in out["imported"]
     bad = [m for m in out["loaded"] if _forbidden(m)]
     assert not bad, bad
 
@@ -76,15 +85,37 @@ def test_source_imports_no_jax_or_reference(path):
         assert not any(_forbidden(n) for n in names), (path, names)
 
 
+EXECUTOR = PKG / "serving" / "executor.py"
+#: the executor's methods a chunk or warmup() runs on the card
+GRAPH_PATH = ("run_chunk", "_run_chunk_locked", "_on_card", "_run_program",
+              "_graph_for", "_capture", "_replay", "warmup")
+
+
 @pytest.mark.parametrize(
-    "path",
-    sorted((PKG / "kernels").glob("*.py")) + sorted((PKG / "core").glob("*.py"))
-    + [PKG / "serving" / "engine.py", PKG / "models" / "attention.py"],
-    ids=lambda p: str(p.relative_to(ROOT)),
+    "path,method",
+    [pytest.param(p, None, id=str(p.relative_to(ROOT))) for p in (
+        sorted((PKG / "kernels").glob("*.py"))
+        + sorted((PKG / "core").glob("*.py"))
+        + [PKG / "serving" / "engine.py", PKG / "models" / "attention.py"])]
+    + [pytest.param(EXECUTOR, m, id=f"{EXECUTOR.relative_to(ROOT)}::{m}")
+       for m in GRAPH_PATH],
 )
-def test_kernels_and_solver_hold_no_fallback_try(path):
+def test_kernels_and_solver_hold_no_fallback_try(path, method):
+    """Whole modules hold no ``try``; on the graph path a ``try`` may only
+    record a failure and raise it again (warmup's failed state)."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+    if method is None:
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+        return
+    (fn,) = [n for n in ast.walk(tree)
+             if isinstance(n, ast.FunctionDef) and n.name == method]
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Try):
+            assert not node.orelse, method
+            for handler in node.handlers:
+                last = handler.body[-1]
+                assert isinstance(last, ast.Raise) and last.exc is None, (
+                    f"{method}: an except clause that does not re-raise")
 
 
 @pytest.fixture
@@ -105,6 +136,31 @@ def test_entry_points_raise_without_a_card(no_card):
         era.sample(eps, x, linear_schedule(), ERAConfig(nfe=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_solver("era")(eps, x, linear_schedule(), ERAConfig(nfe=4))
+
+
+def test_graph_path_and_warmup_raise_without_a_card(no_card):
+    """An engine whose denoiser sits on the card neither warms up nor runs
+    a chunk without one (no eager or CPU fallback); an engine built on the
+    CPU validates its warmup grid and drains eagerly."""
+    card = types.SimpleNamespace(
+        device=torch.device("cuda"), supports_length_masking=True,
+        config=types.SimpleNamespace(d_model=8),
+    )
+    eng = BatchedSampler(card, linear_schedule(), seq_buckets=(4,),
+                         nfe_buckets=(8,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eng.warmup()
+    eng.submit(SampleRequest(batch=1, seq_len=4, nfe=6))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eng.drain()
+    assert eng.compile_cache() == {}
+
+    cfg = get_config("qwen2-1.5b", smoke=True).with_(num_layers=1)
+    cpu = BatchedSampler(DiffusionLM(cfg, device="cpu"), linear_schedule(),
+                         batch_buckets=(2,), seq_buckets=(4,), nfe_buckets=(6,))
+    assert cpu.warmup()["programs"] == 1 and cpu.compile_cache() == {}
+    t = cpu.submit(SampleRequest(batch=1, seq_len=3, nfe=5))
+    assert cpu.drain()[t].x0.shape == (1, 3, cfg.d_model)
 
 
 def test_cpu_is_only_taken_when_asked(no_card):
