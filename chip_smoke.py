@@ -52,8 +52,19 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    batches; checks each result's shape and step count, each against its
    solo drain, that nothing is captured during the drains, and profiles the
    drain;
-8. prints one ``{"kernels": [...]}`` line with each kernel's launches,
-   error and times beside its bound, then the result line.
+8. the baseline solvers: checks that the port registers all eight solver
+   programs, then serves each of the seven baselines (DDIM, AB4 and PECE
+   Adams, DPM-Solver 2 / fast / ++2M, adaptive DPM) through
+   ``build_engine``: an 8x256 nfe=10 batch as a graph replay captured by
+   ``warmup()``, checked finite, bitwise equal to the same batch run
+   eagerly through the program's loop, unchanged by a later replay, with
+   exactly 280 ``flash_attention`` launches and no ``era_update``;
+   profiles the replay and the eager run; for the five programs that
+   support steps, a drain of budgets 10, 8 and 6 fused into one 8-row
+   batch of NFE bucket 10, each request bitwise equal to its solo drain;
+9. prints one ``{"solvers": {...}}`` line with phase 8's figures and one
+   ``{"kernels": [...]}`` line with each kernel's launches, error and
+   times beside its bound, then the result line.
 
 ``python3 chip_smoke.py --era-ab PARENT/src`` instead times only the ERA
 path's host cost (one denoiser forward and a drain) with the
@@ -75,6 +86,7 @@ CUDA device is present or the port's sources are missing.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -601,8 +613,6 @@ def profile_replays(submit, drain, what: str, wall_ms: float, nfe: int,
 
 
 def phase_slice(ku, kf, kd, dlm):
-    import dataclasses
-
     from repro_torch.core import get_program, linear_schedule
     from repro_torch.serving import BatchedSampler, SampleRequest, result_keys
 
@@ -1190,6 +1200,181 @@ def phase_bucketed(ku, kf, kd, dlm):
                           graph_mib_private=private_mb)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the baseline solvers
+# ---------------------------------------------------------------------------
+
+BASELINES = ("ddim", "explicit_adams", "implicit_adams_pece", "dpm_solver_2",
+             "dpm_solver_fast", "dpm_solver_pp2m", "dpm_adaptive")
+STEPPED_BASELINES = ("ddim", "explicit_adams", "implicit_adams_pece",
+                     "dpm_solver_pp2m", "dpm_adaptive")
+# (batch, seq_len, nfe, seed): one 8-row batch of NFE bucket 10
+MIXED_NFE_REQS = ((1, 256, 10, 41), (3, 256, 8, 42), (4, 256, 6, 43))
+
+
+def phase_solvers(ku, kf, kd, dlm):
+    """Serve each baseline's 8x256 nfe=10 batch as a graph replay through
+    ``build_engine`` (replay == eager run bitwise, copy-out, 280 flash
+    launches, no era_update), then, for the programs that support steps, a
+    mixed-NFE drain fused into one batch, each request bitwise its solo
+    drain.  Returns the launches of the served drains and a report a
+    solver."""
+    from repro_torch.core import get_program, linear_schedule, solver_names
+    from repro_torch.serving import EngineConfig, SampleRequest, build_engine
+
+    cfg = dlm.config
+    sched = linear_schedule()
+    check(solver_names() == sorted(BASELINES + ("era",)),
+          f"the port's solvers are {solver_names()}")
+    flash_per_batch = cfg.num_layers * NFE
+    total = {"era_update": 0, "flash_attention": 0, "decode_attention": 0}
+
+    def served(drain) -> dict:
+        """Drive one drain of the main path with the counts set to 0, and
+        add what it launched to the phase's total."""
+        reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+        drain()
+        torch.cuda.synchronize()
+        counts = read_counts(ku, kf, kd)
+        for k, v in counts.items():
+            total[k] += v
+        return counts
+
+    report = {}
+    for name in BASELINES:
+        program = get_program(name)
+        eng = build_engine(dlm, sched, EngineConfig(
+            solver=name, nfe=NFE, batch_buckets=(8,)))
+        t0 = time.perf_counter()
+        rep = eng.warmup(seq_lens=(256,))
+        warmup_s = time.perf_counter() - t0
+        check(rep["fresh"] == rep["programs"] == 1, f"{name} warmup: {rep}")
+        req = SampleRequest(batch=8, seq_len=256, nfe=NFE, seed=51)
+        _, fut = eng.submit_with_future(req)
+        t0 = time.perf_counter()
+        launches = served(eng.drain)
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        res = fut.result()
+        check(launches == {"era_update": 0, "flash_attention": flash_per_batch,
+                           "decode_attention": 0},
+              f"{name} launches {launches}")
+        check(tuple(res.x0.shape) == (8, 256, cfg.d_model),
+              f"{name} x0 shape {tuple(res.x0.shape)}")
+        check(bool(torch.isfinite(res.x0).all()), f"{name} x0 not finite")
+
+        # copy-out: a replay with other noise leaves the result as it was
+        kept = res.x0.clone()
+        eng.submit_with_future(dataclasses.replace(req, seed=52))
+        eng.drain()
+        check(torch.equal(res.x0, kept), f"{name}: a replay changed a result")
+        # two more replays of the same request: the same x0, and the walls
+        walls = [replay_ms]
+        for _ in range(2):
+            _, again = eng.submit_with_future(req)
+            t0 = time.perf_counter()
+            eng.drain()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            check(torch.equal(again.result().x0, res.x0),
+                  f"{name}: a repeated replay differs")
+        replay_ms = sorted(walls)[1]
+        check(eng.compile_stats()["fresh"] == 1, f"{name}: a drain captured")
+
+        # the same batch eagerly, through the program's own loop
+        ex = eng.executor
+        ecfg = ex.config_for(name)
+        x_init = ex.noise(req)
+        ts = program.step_times(sched, NFE, ecfg, device="cuda")
+
+        def eager():
+            return program.sample_scan(
+                dlm.eps_fn(), x_init, program.alloc_buffers(x_init, ecfg),
+                sched, ecfg, ts=ts)
+
+        eager()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eager()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(out.x0, res.x0),
+              f"{name}: graph replay differs from the eager run by "
+              f"{float((out.x0 - res.x0).abs().max())}")
+        for key, value in out.aux.items():
+            check(torch.equal(value, res.aux[key]),
+                  f"{name}: aux {key} differs between replay and eager")
+        rows, _, _ = device_events(eager)
+        eager_busy = sum(r[0] for r in rows)
+
+        idle, busy = profile_replays(
+            lambda: eng.submit_with_future(req), eng.drain,
+            f"{name}: graph replay of one 8x256 batch, nfe={NFE}", replay_ms,
+            NFE, flash_per_batch, 0)
+        entry = dict(replay_ms=replay_ms, replay_ms_runs=walls, busy_ms=busy,
+                     idle_share=idle,
+                     eager_ms=eager_ms, eager_busy_ms=eager_busy,
+                     eager_idle_share=1 - eager_busy / eager_ms,
+                     warmup_s=warmup_s, reported_nfe=out.nfe)
+        log(f"{name}: 8x256 nfe={NFE} replay {replay_ms:.1f} ms (median of "
+            f"{[round(w, 1) for w in walls]}; device busy "
+            f"{busy:.1f} ms, idle {idle:.3f}), eager {eager_ms:.1f} ms (busy "
+            f"{eager_busy:.1f} ms, idle {entry['eager_idle_share']:.3f}), "
+            f"replay == eager bitwise, warmup {warmup_s:.2f}s, reported nfe "
+            f"{out.nfe}")
+        del eng
+
+        if name in STEPPED_BASELINES:
+            entry.update(mixed_nfe(name, sched, dlm, served))
+        report[name] = entry
+    return total, report
+
+
+def mixed_nfe(name, sched, dlm, served) -> dict:
+    """Requests of budget 10, 8 and 6 in NFE bucket 10: one fused 8-row
+    graph replay, each request bitwise its solo drain."""
+    from repro_torch.serving import EngineConfig, SampleRequest, build_engine
+
+    eng = build_engine(dlm, sched, EngineConfig(
+        solver=name, nfe=NFE, batch_buckets=(8,), nfe_buckets=(NFE,)))
+    rep = eng.warmup(seq_lens=(256,))
+    check(rep["fresh"] == rep["programs"] == 1, f"{name} mixed warmup: {rep}")
+    reqs = [SampleRequest(batch=b, seq_len=s, nfe=n, seed=sd)
+            for b, s, n, sd in MIXED_NFE_REQS]
+    futs = [eng.submit_with_future(r)[1] for r in reqs]
+    batches0 = eng.metrics.get("sampler_batches_total").value()
+    t0 = time.perf_counter()
+    launches = served(eng.drain)
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    batches = eng.metrics.get("sampler_batches_total").value() - batches0
+    check(batches == 1, f"{name}: the mixed-NFE drain ran {batches} batches")
+    check(launches["flash_attention"] == dlm.config.num_layers * NFE
+          and launches["era_update"] == launches["decode_attention"] == 0,
+          f"{name} mixed-NFE launches {launches}")
+    realized = []
+    for req, fut in zip(reqs, futs):
+        res = fut.result()
+        check((res.padded_batch, res.padded_seq_len, res.padded_nfe)
+              == (8, 256, NFE), f"{name} mixed padding for {req}")
+        check(bool(torch.isfinite(res.x0).all()), f"{name} mixed x0 not finite")
+        _, solo = eng.submit_with_future(req)
+        eng.drain()
+        solo = solo.result()
+        check(torch.equal(res.x0, solo.x0),
+              f"{name}: {req} fused differs from its solo drain by "
+              f"{float((res.x0 - solo.x0).abs().max())}")
+        if "realized_nfe" in res.aux:
+            check(torch.equal(res.aux["realized_nfe"],
+                              solo.aux["realized_nfe"]),
+                  f"{name}: realized_nfe differs from the solo drain")
+            realized.append(res.aux["realized_nfe"].tolist())
+    check(eng.compile_stats()["fresh"] == 1, f"{name}: a mixed drain captured")
+    log(f"{name}: mixed-NFE drain (nfe 10, 8, 6) in one 8-row batch, "
+        f"{drain_ms:.1f} ms, each request bitwise its solo drain"
+        + (f"; realized_nfe per request {realized}" if realized else ""))
+    del eng
+    return dict(mixed_drain_ms=drain_ms,
+                **({"realized_nfe": realized} if realized else {}))
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
               pick=None) -> float:
     """Mean device time of one call: the profiler's device time of every
@@ -1581,10 +1766,12 @@ def main() -> None:
     decode_err, decode_t = phase_decode(kd)
     ar_launches, ar = phase_ar(ku, kf, kd)
     bucketed_launches, bucketed = phase_bucketed(ku, kf, kd, dlm)
+    solver_launches, solvers = phase_solvers(ku, kf, kd, dlm)
 
     def counts(name):
         by_path = {"era": era_launches[name], "ar": ar_launches[name],
-                   "bucketed": bucketed_launches[name]}
+                   "bucketed": bucketed_launches[name],
+                   "solvers": solver_launches[name]}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -1628,10 +1815,17 @@ def main() -> None:
     log(f"bucketed ERA drain: {bucketed['drain_ms']:.1f} ms, device busy "
         f"{bucketed['busy_ms']:.1f} ms, idle share {bucketed['idle_share']:.3f}; "
         f"warmup {bucketed['warmup_s']:.2f}s")
+    for name, r in solvers.items():
+        log(f"solver {name}: replay {r['replay_ms']:.1f} ms, device busy "
+            f"{r['busy_ms']:.1f} ms, idle share {r['idle_share']:.3f}; eager "
+            f"{r['eager_ms']:.1f} ms; warmup {r['warmup_s']:.2f}s"
+            + (f"; mixed-NFE drain {r['mixed_drain_ms']:.1f} ms"
+               if "mixed_drain_ms" in r else ""))
     log(f"AR path: prefill {ar['prefill_ms']:.2f} ms, decode "
         f"{ar['decode_ms_per_step']:.3f} ms per step, {ar['tok_s']:.1f} tok/s, "
         f"decode-loop idle share {ar['idle_share']:.3f}, rope "
         f"{ar['rope_op_share']:.3f} of its device ops")
+    log(json.dumps({"solvers": solvers}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

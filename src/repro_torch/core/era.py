@@ -48,7 +48,7 @@ from repro_torch.core.program import (
     step_active,
     step_row_times,
 )
-from repro_torch.core.schedules import NoiseSchedule, timesteps
+from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.core.solver_base import (
     EpsFn,
     SolverConfig,
@@ -56,6 +56,7 @@ from repro_torch.core.solver_base import (
     buffer_append,
     buffer_init,
     ddim_step,
+    loop_grid,
 )
 from repro_torch.kernels.era_update import era_update
 
@@ -190,11 +191,7 @@ def sample_scan(
         # exact run appends to its t_buf)
         t_cur0 = steps.ts[:, 0].reshape((-1,) + (1,) * (x_init.dim() - 1))
     else:
-        if ts is None:
-            ts = timesteps(schedule, n, config.scheme, t_end=config.t_end,
-                           device=dev)
-        if tuple(ts.shape) != (n + 1,):
-            raise ValueError(f"time grid shape {tuple(ts.shape)} != {(n + 1,)}")
+        ts = loop_grid(ts, schedule, n, config.scheme, config.t_end, dev)
         t_cur0 = ts[0]
     dt = config.solver_dtype
     valid = (

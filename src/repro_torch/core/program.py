@@ -199,3 +199,14 @@ class SolverProgram:
         if pad_steps > 0:
             cut(self.aux_step_axes, 0, lambda n: n - pad_steps)
         return scoped if hit else aux
+
+
+def trajectory_aux(
+    x_init: Tensor, traj_tail: list[Tensor], enabled: bool, dtype=None
+) -> dict[str, Tensor]:
+    """The ``trajectory`` aux ``(steps + 1, B, ...)``: the initial state
+    (cast to ``dtype`` when given), then the loop's per-step latents."""
+    if not enabled:
+        return {}
+    x0 = x_init if dtype is None else x_init.to(dtype)
+    return {"trajectory": torch.stack([x0, *traj_tail])}

@@ -115,6 +115,14 @@ def cosine_schedule(s: float = 8e-3, t_end: float = 1e-3) -> NoiseSchedule:
     )
 
 
+def get_schedule(name: str, **kw) -> NoiseSchedule:
+    if name == "linear":
+        return linear_schedule(**kw)
+    if name == "cosine":
+        return cosine_schedule(**kw)
+    raise ValueError(f"unknown schedule {name!r}")
+
+
 def _linspace(start, stop, num: int) -> Tensor:
     """float32 ``start + i * (stop - start) / (num - 1)`` with the last
     point pinned to ``stop`` — the reference's ``jnp.linspace`` arithmetic."""

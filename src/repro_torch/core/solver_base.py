@@ -15,7 +15,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.schedules import NoiseSchedule
+from repro_torch.core.schedules import NoiseSchedule, timesteps
 
 Tensor = torch.Tensor
 EpsFn = Callable[[Tensor, Tensor], Tensor]
@@ -78,3 +78,17 @@ def step_grid(ts: Tensor) -> tuple[range, Tensor, Tensor]:
     """``(i, t_cur, t_next)`` for an n-step loop over the (n+1,) grid."""
     n = ts.shape[0] - 1
     return range(n), ts[:-1], ts[1:]
+
+
+def loop_grid(
+    ts: Tensor | None, schedule: NoiseSchedule, n: int, scheme: str,
+    t_end: float | None, device: torch.device,
+) -> Tensor:
+    """The ``(n + 1,)`` grid an unmasked loop steps through: ``ts`` as
+    given (the executor's copy on the device, so a captured loop makes no
+    host-to-device copy), else built from the schedule on ``device``."""
+    if ts is None:
+        ts = timesteps(schedule, n, scheme, t_end=t_end, device=device)
+    if tuple(ts.shape) != (n + 1,):
+        raise ValueError(f"time grid shape {tuple(ts.shape)} != {(n + 1,)}")
+    return ts

@@ -1,5 +1,5 @@
-"""Serving launcher of the port: AR generation or ERA-Solver diffusion
-sampling (port of ``repro.launch.serve``).
+"""Serving launcher of the port: AR generation or diffusion sampling with
+any registry solver (port of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --mode ar --batch 8 --prompt-len 512 --gen 64 --max-len 1024
@@ -10,10 +10,13 @@ sampling (port of ``repro.launch.serve``).
 
 Runs on the card unless ``--device cpu`` is given.  Weights are random,
 drawn from ``--seed``; the prompts are drawn from the same seed with numpy,
-as the reference draws them.  The continuous-batching simulator, the HTTP
-front door and its client (``--continuous``, ``--listen``, ``--connect``)
-and the vlm and audio families are not ported yet: asking for them exits
-with an error that names the ROADMAP item they wait in.
+as the reference draws them.  The diffusion mode builds its engine with
+:func:`repro_torch.serving.build_engine`, as every reference serve mode
+does, and serves one request through it.  The continuous-batching
+simulator, the HTTP front door and its client (``--continuous``,
+``--listen``, ``--connect``) and the vlm and audio families are not ported
+yet: asking for them exits with an error that names the ROADMAP item
+they wait in, by its title.
 """
 
 from __future__ import annotations
@@ -25,13 +28,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs import arch_names, get_config
-from repro_torch.core import ERAConfig, linear_schedule
+from repro_torch.core import linear_schedule, solver_names
 from repro_torch.models import DiffusionLM, build_model
 from repro_torch.serving import (
     Engine,
+    EngineConfig,
     SampleRequest,
     SamplerService,
     ServeConfig,
+    build_engine,
     result_keys as K,
 )
 
@@ -58,11 +63,12 @@ def run_ar(args) -> None:
 def run_diffusion(args) -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     dlm = DiffusionLM(cfg, device=args.device, seed=args.seed)
-    svc = SamplerService(
-        dlm, linear_schedule(), solver=args.solver,
-        solver_config=ERAConfig(k=args.k, lam=args.lam, per_sample=False),
-    )
-    res = svc.sample(SampleRequest(
+    # the one-shot facade: exact-size batches, the paper's shared delta_eps
+    engine = build_engine(dlm, linear_schedule(), EngineConfig(
+        solver=args.solver, nfe=args.nfe, k=args.k, lam=args.lam,
+        per_sample=False, batch_buckets=None,
+    ))
+    res = SamplerService(engine=engine).sample(SampleRequest(
         batch=args.batch, seq_len=args.seq, nfe=args.nfe, seed=args.seed
     ))
     x0 = res.x0.float()
@@ -88,7 +94,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--window", type=int, default=-1)
-    ap.add_argument("--solver", default="era")
+    ap.add_argument("--solver", default="era", choices=solver_names())
     ap.add_argument("--nfe", type=int, default=10)
     ap.add_argument("--k", type=int, default=4)
     ap.add_argument("--lam", type=float, default=5.0)
@@ -102,13 +108,15 @@ def main(argv: list[str] | None = None) -> None:
     if args.continuous or args.listen or args.connect:
         ap.error(
             "--continuous/--listen/--connect (the scheduler and the HTTP "
-            "front door) are not ported yet: ROADMAP queue 1 item 4"
+            "front door) are not ported yet: ROADMAP, queue 'modules to "
+            "port', item 'Serving surface'"
         )
     if args.arch not in arch_names():
         ap.error(
             f"architecture {args.arch!r} is not ported yet (ported: "
             f"{arch_names()}); the other families (moe, ssm, hybrid, vlm, "
-            f"audio) wait in ROADMAP queue 1 item 6"
+            f"audio) wait in ROADMAP, queue 'modules to port', item 'Other "
+            f"denoiser families'"
         )
     if args.mode == "ar":
         run_ar(args)

@@ -16,4 +16,10 @@ from repro_torch.serving.executor import (
     SampleRequest,
     SampleResult,
 )
+from repro_torch.serving.factory import (
+    EngineConfig,
+    build_engine,
+    make_solver_config,
+    warmup_kwargs,
+)
 from repro_torch.serving.metrics import MetricsRegistry

@@ -11,8 +11,9 @@ bucket and runs one sampling loop on the device.
 ``seq_len`` fuse into one batch.  Each request's noise is drawn at its
 exact shape and right-padded with zeros to the smallest bucket that fits;
 a per-row ``lengths`` vector masks pad keys out of every attention softmax
-(``DiffusionLM.eps(lengths=...)``) and pad positions out of ERA's error
-norms, and results are sliced back to each request's ``seq_len``.
+(``DiffusionLM.eps(lengths=...)``) and pad positions out of the solvers'
+sequence reductions (ERA's error norms, adaptive DPM's error RMS), and
+results are sliced back to each request's ``seq_len``.
 
 **NFE bucketing** (``nfe_buckets=(10, 20, ...)``): requests of different
 ``nfe`` fuse into one batch that runs the bucket's step count under a

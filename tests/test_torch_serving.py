@@ -112,7 +112,7 @@ def _engine(**kw):
     (dict(batch=1, seq_len=4, nfe=2000), "max_nfe"),
     (dict(batch=1, seq_len=4, seed=SEED_MAX + 1), "64-bit"),
     (dict(batch=1, seq_len=4, seed=True), "seed"),
-    (dict(batch=1, seq_len=4, solver="ddim"), "solver"),
+    (dict(batch=1, seq_len=4, solver="nope"), "solver"),
 ])
 def test_validate_rejects_at_submit(req, match):
     eng = _engine()
