@@ -62,7 +62,22 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    profiles the replay and the eager run; for the five programs that
    support steps, a drain of budgets 10, 8 and 6 fused into one 8-row
    batch of NFE bucket 10, each request bitwise equal to its solo drain;
-9. prints one ``{"solvers": {...}}`` line with phase 8's figures and one
+9. the serving surface: ``serve_frontdoor`` on a loopback port over an
+   ERA engine (batch buckets 1 and 8, seq 256, nfe 10) whose two graphs the
+   front door's background warmup captures; a 1-row wire request is served
+   while the warmup runs (the warmup holds after its first graph until that
+   request has replayed it, and captures the second while the result is
+   encoded and sent) and is bitwise its solo drain; ``/readyz`` turns 200
+   when the grid is in (time to ready, warmup wall, ``memory_reserved``
+   growth); eight concurrent 1-row wire requests ride one 8-row replay
+   (+280 ``flash_attention``, +7 ``era_update`` launches, no capture), each
+   bitwise its solo drain at the same bucket; a 429 and a 504 come back
+   typed from a held queue; ``/metrics`` parses; an open-loop stream of 32
+   requests through ``AsyncBatchedSampler`` (p50/p99, throughput, batches,
+   idle share); and the launcher's ``--listen`` default grid (batch 1, 8,
+   64 at seq 256) is captured for its wall and memory;
+10. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
+   ``{"frontdoor": {...}}`` line with phase 9's and one
    ``{"kernels": [...]}`` line with each kernel's launches, error and
    times beside its bound, then the result line.
 
@@ -1375,6 +1390,348 @@ def mixed_nfe(name, sched, dlm, served) -> dict:
                 **({"realized_nfe": realized} if realized else {}))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving surface (scheduler and HTTP front door)
+# ---------------------------------------------------------------------------
+
+FD_SEQ, FD_BUCKETS = 256, (1, 8)
+# long enough that eight concurrent wire requests fuse into one batch (an
+# 8-row queue launches at once at occupancy 1.0)
+FD_MAX_WAIT_MS = 2000.0
+# the open-loop stream: requests and arrivals a second (the launcher's
+# --continuous defaults for the rest: max_wait 25 ms, occupancy 1.0, seed 0)
+FD_STREAM = (32, 20.0)
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text exposition -> {sample with its labels: value}."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        check(bool(name), f"/metrics line {line!r} does not parse")
+        samples[name] = float(value)
+    return samples
+
+
+def time_host(fn) -> float:
+    """Host wall ms of one call."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def wire_equal(wire, local) -> bool:
+    """A wire result (CPU tensors) bitwise a local one (any device)."""
+    return torch.equal(wire.x0, local.x0.cpu()) and all(
+        torch.equal(wire.aux[k], v.cpu()) for k, v in local.aux.items())
+
+
+def typed_errors(engine, req) -> float:
+    """A typed 429 (a burst past ``max_queue_rows``) and 504 (a deadline
+    that expires in the queue) through the wire client, from a front door
+    over an unstarted scheduler on a fake clock, so the queue holds until
+    it is pumped.  Returns the 429's ``Retry-After`` seconds."""
+    import threading
+
+    from repro_torch.serving import (
+        AsyncBatchedSampler, DeadlineExceededError, FrontDoor,
+        FrontDoorClient, QueueFullError, SchedulerPolicy)
+
+    clk = [0.0]
+    held = AsyncBatchedSampler(
+        engine, SchedulerPolicy(max_wait_ms=10.0, max_queue_rows=2),
+        clock=lambda: clk[0])
+    out = {}
+    retry_after = None
+    with FrontDoor(held) as door:
+        client = FrontDoorClient(door.url, timeout=300)
+
+        def call(name, r):
+            try:
+                out[name] = client.sample(r)
+            except Exception as e:  # noqa: BLE001 - checked below
+                out[name] = e
+
+        calls = [threading.Thread(target=call, args=a) for a in
+                 (("doomed", req(200, deadline_ms=50.0)), ("kept", req(201)))]
+        for t in calls:
+            t.start()
+        t0 = time.perf_counter()
+        while held.pending < 2 and time.perf_counter() - t0 < 60:
+            time.sleep(0.005)
+        check(held.pending == 2, "the held queue did not fill")
+        try:
+            client.sample(req(202))
+        except QueueFullError as e:
+            retry_after = e.retry_after_s
+        check(retry_after is not None, "no 429 past max_queue_rows")
+        clk[0] = 1.0
+        check(held.drain_once(now=clk[0]) == 1, "held queue launch")
+        for t in calls:
+            t.join(timeout=300)
+    held.stop()
+    check(isinstance(out.get("doomed"), DeadlineExceededError),
+          f"no typed 504: {out.get('doomed')!r}")
+    check(hasattr(out.get("kept"), "x0")
+          and bool(torch.isfinite(out["kept"].x0).all()),
+          f"the admitted request failed: {out.get('kept')!r}")
+    log(f"frontdoor: 429 QueueFullError (Retry-After {retry_after:g}s) and "
+        f"504 DeadlineExceededError came back typed")
+    return retry_after
+
+
+def listen_default_grid(dlm) -> dict:
+    """Capture the launcher's ``--listen`` default grid at seq 256 (batch
+    buckets 1, 8, 64 x nfe 10): its wall and graph memory."""
+    from repro_torch.core import linear_schedule
+    from repro_torch.launch import serve
+    from repro_torch.serving import build_engine, warmup_kwargs
+
+    args = serve.build_parser().parse_args(
+        ["--mode", "diffusion", "--listen", "--seq", str(FD_SEQ)])
+    cfg = serve._engine_config(args, per_sample=True, fused=True,
+                               warmup_seq_lens=(FD_SEQ,))
+    engine = build_engine(dlm, linear_schedule(), cfg)
+    mem0 = reserved_mb()
+    t0 = time.perf_counter()
+    rep = engine.warmup(solvers=(args.solver,), **warmup_kwargs(cfg))
+    wall_s = time.perf_counter() - t0
+    graph_mb = reserved_mb() - mem0
+    check(rep["fresh"] == rep["programs"] == 3, f"default grid warmup {rep}")
+    log(f"frontdoor: the --listen default grid (batch {cfg.batch_buckets} x "
+        f"seq {FD_SEQ} x nfe {NFE}) captured in {wall_s:.2f}s, "
+        f"memory_reserved +{graph_mb:.0f} MiB")
+    return dict(batch_buckets=list(cfg.batch_buckets), seq=FD_SEQ, nfe=NFE,
+                graphs=rep["programs"], wall_s=wall_s, graph_mib=graph_mb)
+
+
+def phase_frontdoor(ku, kf, kd, dlm):
+    """The serving surface on the card: ``serve_frontdoor`` over an ERA
+    engine (batch buckets 1, 8 at seq 256, nfe 10) whose two graphs are
+    captured on the front door's background warmup while a wire request is
+    served; eight concurrent wire requests fused into one 8-row replay; a
+    typed 429 and 504; ``/metrics``; an open-loop stream through
+    ``AsyncBatchedSampler``; and the launcher's ``--listen`` default grid
+    (batch 1, 8, 64 at seq 256) captured for its wall and memory.  Returns
+    the launches of the fused wire batch and a report."""
+    import threading
+
+    from repro_torch.core import linear_schedule
+    from repro_torch.launch import serve
+    from repro_torch.serving import (
+        EngineConfig, FrontDoorClient, SampleRequest, SchedulerPolicy,
+        build_engine, decode_result, encode_result, serve_frontdoor,
+        warmup_kwargs)
+
+    cfg = dlm.config
+    sched = linear_schedule()
+    ecfg = EngineConfig(nfe=NFE, batch_buckets=FD_BUCKETS, warmup="grid",
+                        warmup_seq_lens=(FD_SEQ,))
+    engine = build_engine(dlm, sched, ecfg)
+    ex = engine.executor
+    batches = engine.metrics.get("sampler_batches_total")
+    report = {}
+
+    def req(seed, **kw):
+        return SampleRequest(batch=1, seq_len=FD_SEQ, nfe=NFE, seed=seed, **kw)
+
+    # the warmup captures the 1-row graph, then holds until the request
+    # sent during the warmup has replayed it, then captures the 8-row graph
+    # while that request's result is encoded, sent and decoded
+    held = {}
+
+    def progress(done, total):
+        if done == 1:
+            t0 = time.perf_counter()
+            while batches.value() < 1:
+                if time.perf_counter() - t0 > 120:
+                    raise RuntimeError("the request sent during the warmup "
+                                       "did not run")
+                time.sleep(0.002)
+            held["s"] = time.perf_counter() - t0
+
+    kw = warmup_kwargs(ecfg)
+    mem0 = reserved_mb()
+    t_start = time.perf_counter()
+    door = serve_frontdoor(
+        engine, SchedulerPolicy(max_wait_ms=FD_MAX_WAIT_MS,
+                                target_occupancy=1.0),
+        warmup=lambda: engine.warmup(progress=progress, **kw))
+    try:
+        client = FrontDoorClient(door.url, timeout=300)
+        check(not client.readyz()["ready"], "/readyz was 200 before the warmup")
+        t0 = time.perf_counter()
+        early = client.sample(req(100))
+        early_ms = (time.perf_counter() - t0) * 1e3
+        after = client.readyz()
+        log(f"frontdoor: a 1-row request sent during the warmup came back in "
+            f"{early_ms:.1f} ms (server latency {early.latency_s * 1e3:.1f} "
+            f"ms); /readyz then: ready {after['ready']}, warmup "
+            f"{after['warmup'].get('state')} {after['warmup'].get('done')}/"
+            f"{after['warmup'].get('total')}")
+        while True:
+            payload = client.readyz()
+            if payload["ready"] or "error" in payload:
+                break
+            check(time.perf_counter() - t_start < 300, "/readyz never turned 200")
+            time.sleep(0.02)
+        ready_s = time.perf_counter() - t_start
+        check(payload["ready"], f"the warmup failed: {payload.get('error')}")
+        status = payload["warmup"]
+        graph_mb = reserved_mb() - mem0
+        check(status["state"] == "done" and status["fresh"] == 2
+              and ex.compile_stats()["fresh"] == 2,
+              f"warmup status {status}, {ex.compile_stats()}")
+        report.update(
+            ready_s=ready_s, warmup_wall_s=status["wall_s"],
+            warmup_held_s=held["s"],
+            warmup_capture_s=status["wall_s"] - held["s"],
+            graph_mib=graph_mb, early_wire_ms=early_ms,
+            early_latency_ms=early.latency_s * 1e3,
+            early_back_before_ready=not after["ready"])
+        log(f"frontdoor: /readyz 200 {ready_s:.2f}s after start; warmup "
+            f"{status['wall_s']:.2f}s ({held['s']:.2f}s of it held for the "
+            f"early request), 2 graphs; memory_reserved +{graph_mb:.0f} MiB")
+
+        # the early request against the same request drained solo in
+        # process on the same engine (the same 1-row graph)
+        _, fut = engine.submit_with_future(req(100))
+        engine.drain()
+        check(wire_equal(early, fut.result()),
+              "the request served during the warmup differs from its solo "
+              "drain")
+        log("frontdoor: the request served during the warmup is bitwise its "
+            "solo drain")
+
+        # eight concurrent 1-row wire requests: one 8-row replay
+        reqs = [req(s) for s in range(8)]
+        out = [None] * 8
+        b0, fresh0 = batches.value(), ex.compile_stats()["fresh"]
+
+        def call(i):
+            t0 = time.perf_counter()
+            res = client.sample(reqs[i])
+            out[i] = (res, (time.perf_counter() - t0) * 1e3)
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(8)]
+        reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        fused_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(ku, kf, kd)
+        check(all(o is not None for o in out), "a concurrent wire request "
+              "did not come back")
+        check(batches.value() - b0 == 1,
+              f"8 wire requests ran {batches.value() - b0:.0f} batches, not 1")
+        check(ex.compile_stats()["fresh"] == fresh0, "a capture after ready")
+        check(launches == {"era_update": NFE - K + 1,
+                           "flash_attention": cfg.num_layers * NFE,
+                           "decode_attention": 0},
+              f"fused wire batch launches {launches}")
+        check(all(r.padded_batch == 8 for r, _ in out), "not one 8-row batch")
+        # each against the same request drained alone at the same 8-row
+        # bucket (bitwise: the same GEMM shapes); its 1-row drain on the
+        # front door's engine runs other GEMM shapes, so how far that one
+        # lies is only reported
+        solo8 = build_engine(dlm, sched, EngineConfig(nfe=NFE,
+                                                      batch_buckets=(8,)))
+        solo8.warmup(seq_lens=(FD_SEQ,))
+        cross = []
+        for r, (res, wire_ms) in zip(reqs, out):
+            check(bool(torch.isfinite(res.x0).all())
+                  and tuple(res.x0.shape) == (1, FD_SEQ, cfg.d_model),
+                  f"wire x0 {tuple(res.x0.shape)}")
+            _, f8 = solo8.submit_with_future(r)
+            solo8.drain()
+            check(wire_equal(res, f8.result()),
+                  f"wire request seed {r.seed} differs from its solo drain")
+            _, f1 = engine.submit_with_future(r)
+            engine.drain()
+            one = f1.result()
+            cross.append((float((res.x0 - one.x0.cpu()).abs().max()),
+                          torch.equal(res.aux["ers_selection_history"],
+                                      one.aux["ers_selection_history"].cpu()),
+                          one.batch_wall_s * 1e3))
+        del solo8
+        report.update(
+            fused_wall_ms=fused_ms,
+            fused_wire_ms=[round(w, 3) for _, w in out],
+            fused_latency_ms=[round(r.latency_s * 1e3, 3) for r, _ in out],
+            fused_batch_wall_ms=out[0][0].batch_wall_s * 1e3,
+            bucket1_vs_bucket8_max_abs=max(c[0] for c in cross),
+            bucket1_vs_bucket8_same_selections=sum(c[1] for c in cross),
+            one_row_replay_ms=sorted(c[2] for c in cross)[4])
+        log(f"frontdoor: 8 concurrent wire requests in one 8-row replay "
+            f"(batch wall {out[0][0].batch_wall_s * 1e3:.1f} ms), {fused_ms:.1f} "
+            f"ms for all; launches {launches}; each bitwise its solo drain at "
+            f"bucket 8; its 1-row drain (bucket 1) lies up to "
+            f"{report['bucket1_vs_bucket8_max_abs']:.3e} away, ERS selections "
+            f"equal in {report['bucket1_vs_bucket8_same_selections']} of 8; "
+            f"a 1-row replay takes {report['one_row_replay_ms']:.1f} ms "
+            f"(median of 8)")
+        for r, (res, wire_ms) in zip(reqs, out):
+            log(f"  seed {r.seed}: wire {wire_ms:.1f} ms, in-process latency "
+                f"{res.latency_s * 1e3:.1f} ms")
+        # the host work a response costs, alone: the server's encode (base64
+        # and JSON) and the client's decode of one 1-row result
+        body = json.dumps(encode_result(out[0][0]))
+        enc = sorted(time_host(lambda: json.dumps(encode_result(out[0][0])))
+                     for _ in range(5))[2]
+        dec = sorted(time_host(lambda: decode_result(json.loads(body)))
+                     for _ in range(5))[2]
+        report.update(response_bytes=len(body), encode_ms=enc, decode_ms=dec)
+        log(f"frontdoor: a 1-row response is {len(body) / 1e6:.2f} MB of JSON; "
+            f"encode {enc:.1f} ms, decode {dec:.1f} ms (host, median of 5)")
+
+        report["retry_after_s"] = typed_errors(engine, req)
+
+        samples = parse_metrics(client.metrics())
+        group = f'{{nfe="{NFE}",seq="{FD_SEQ}",solver="era"}}'
+        for name in (f"sampler_queue_depth_rows{group}",
+                     "sampler_request_latency_seconds_count",
+                     'frontdoor_http_requests_total{code="200",route="/v1/sample"}',
+                     'frontdoor_http_requests_total{code="200",route="/readyz"}',
+                     f"sampler_admission_rejects_total{group}",
+                     "sampler_deadline_expired_total"):
+            check(name in samples, f"/metrics lacks {name}")
+        check(samples["sampler_request_latency_seconds_count"] >= 10,
+              "latency histogram count")
+        report["metrics_samples"] = len(samples)
+        log(f"frontdoor: /metrics parses ({len(samples)} samples), queue, "
+            f"latency and HTTP counters present")
+    finally:
+        door.stop()
+
+    # an open-loop stream in process through the launcher's --continuous
+    # stream, at its defaults, on the same engine
+    n, rate = FD_STREAM
+    args = serve.build_parser().parse_args(
+        ["--mode", "diffusion", "--continuous", "--requests", str(n),
+         "--rate", str(rate), "--seq", str(FD_SEQ), "--nfe", str(NFE)])
+    stream = serve.continuous_stream(engine, args)
+    idle, _, _, busy = profile_device(
+        lambda: serve.continuous_stream(engine, args),
+        f"open loop, {n} requests at {rate:g}/s", stream["makespan_s"] * 1e3,
+        n, "request")
+    report["open_loop"] = dict(
+        requests=n, rate=rate, max_wait_ms=args.max_wait_ms,
+        occupancy=args.occupancy, **stream, busy_ms=busy, idle_share=idle)
+    log(f"frontdoor: open loop {n} req @ {rate:g}/s: p50 "
+        f"{stream['p50_ms']:.1f} ms, p99 {stream['p99_ms']:.1f} ms, "
+        f"{stream['throughput_rps']:.2f} req/s, {stream['batches']} batches "
+        f"of {stream['mean_batch_rows']:.2f} rows, idle share {idle:.3f}")
+    check(ex.compile_stats()["fresh"] == 2, "the stream captured a graph")
+    del engine, ex
+
+    report["default_grid"] = listen_default_grid(dlm)
+    return launches, report
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
               pick=None) -> float:
     """Mean device time of one call: the profiler's device time of every
@@ -1767,11 +2124,13 @@ def main() -> None:
     ar_launches, ar = phase_ar(ku, kf, kd)
     bucketed_launches, bucketed = phase_bucketed(ku, kf, kd, dlm)
     solver_launches, solvers = phase_solvers(ku, kf, kd, dlm)
+    frontdoor_launches, frontdoor = phase_frontdoor(ku, kf, kd, dlm)
 
     def counts(name):
         by_path = {"era": era_launches[name], "ar": ar_launches[name],
                    "bucketed": bucketed_launches[name],
-                   "solvers": solver_launches[name]}
+                   "solvers": solver_launches[name],
+                   "frontdoor": frontdoor_launches[name]}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -1826,6 +2185,7 @@ def main() -> None:
         f"decode-loop idle share {ar['idle_share']:.3f}, rope "
         f"{ar['rope_op_share']:.3f} of its device ops")
     log(json.dumps({"solvers": solvers}))
+    log(json.dumps({"frontdoor": frontdoor}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@
 The engine runs on its denoiser's device: the card unless the model was
 built with ``device="cpu"``.  The model owns its weights, so ``drain()``
 and ``warmup()`` take no parameter tree.  The continuous-batching
-scheduler and the HTTP front door wait for later slices.
+scheduler (:mod:`~repro_torch.serving.scheduler`) and the HTTP front door
+(:mod:`~repro_torch.serving.frontdoor`) run over the same executor.
 """
 
 from __future__ import annotations

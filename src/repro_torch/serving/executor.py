@@ -45,6 +45,20 @@ falls back to eager execution on the card.  On the CPU (an engine whose
 denoiser was built with ``device="cpu"``) a chunk runs its program
 eagerly and :meth:`warmup` only validates its grid.
 
+**Threads and captures.**  A capture runs in CUDA's global capture mode,
+under which a device call from any other thread (a copy to the host, a
+``cudaMalloc`` of the caching allocator, a synchronize) fails the call or
+invalidates the capture.  So every device touch of the serving stack
+happens under the executor's lock, which each capture holds: the chunk's
+noise, the replay, the copy out of graph memory, and, for a caller that
+asks with ``run_chunk(..., to_host=True)`` (the scheduler always does), the
+copy of its results to the host.  A thread that holds such a result, an
+HTTP handler encoding it, touches no device.  The sync ``drain()`` hands
+back results on the device: its caller reads them while no other thread
+captures.  Each chunk and each capture ends in a device synchronize, so no
+thread relies on stream order across threads.  Warmup progress has a lock
+of its own, so a readiness probe never waits out a capture.
+
 Each request's initial noise depends only on its seed and shape: it is
 drawn from its own ``torch.Generator`` seeded with ``req.seed`` at the
 request's exact ``(batch, seq_len, d_model)`` shape, so the batch it lands
@@ -57,6 +71,7 @@ counterpart; mesh placement waits for a later slice.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
@@ -96,13 +111,23 @@ COUNTED_KERNELS = (era_update, flash_attention, decode_attention)
 
 @dataclasses.dataclass(frozen=True)
 class SampleRequest:
-    """One sampling request.  ``seed`` fully determines its initial noise."""
+    """One sampling request.  ``seed`` fully determines its initial noise.
+
+    ``priority`` and ``deadline_ms`` are hints for the continuous-batching
+    scheduler (and travel verbatim over the front door's wire): when a
+    fuse-group queue launches, higher-priority requests board first, and a
+    request still queued ``deadline_ms`` after submit fails fast with
+    :class:`~repro_torch.serving.scheduler.DeadlineExceededError`.  Neither
+    reaches the bucket key, the noise or any result, and the sync
+    ``drain()`` ignores both."""
 
     batch: int
     seq_len: int
     nfe: int = 10
     solver: str | None = None   # None = the engine's default solver
     seed: int = 0
+    priority: int = 0
+    deadline_ms: float | None = None
 
 
 @dataclasses.dataclass
@@ -112,7 +137,8 @@ class SampleResult:
     fused batch it rode in: its batch bucket, seq bucket and NFE bucket."""
 
     x0: Tensor               # (batch, seq_len, d_model), on the engine's
-                             # device; never a view of graph memory
+                             # device (on the host from the scheduler);
+                             # never a view of graph memory
     aux: dict[str, Any]      # solver diagnostics of this request alone
     latency_s: float         # submit -> result wall time
     batch_wall_s: float      # wall time of the fused batch
@@ -221,6 +247,7 @@ class FusedExecutor:
         self._capture_stream: torch.cuda.Stream | None = None
         self._graph_pool = None
         self._lock = threading.RLock()
+        self._state_lock = threading.Lock()   # guards _warmup_state only
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._m_compile_hits = self.metrics.counter(
             "sampler_compile_cache_hits_total",
@@ -437,6 +464,18 @@ class FusedExecutor:
                 f"seed must fit in a signed 64-bit integer "
                 f"({SEED_MIN} <= seed <= {SEED_MAX}), got {req.seed}"
             )
+        if not isinstance(req.priority, int) or isinstance(req.priority, bool):
+            raise ValueError(f"priority must be an int, got {req.priority!r}")
+        if req.deadline_ms is not None and not (
+            isinstance(req.deadline_ms, (int, float))
+            and not isinstance(req.deadline_ms, bool)
+            and math.isfinite(req.deadline_ms)
+            and req.deadline_ms > 0
+        ):
+            raise ValueError(
+                f"deadline_ms must be a positive finite number of "
+                f"milliseconds (or None), got {req.deadline_ms!r}"
+            )
         program = self.program_for(req.solver)  # unknown solver raises here
         program.validate(req, self.config_for(req.solver))
 
@@ -490,12 +529,15 @@ class FusedExecutor:
         chunk: list[QueueItem],
         results: dict[int, SampleResult],
         pad: bool = True,
+        to_host: bool = False,
     ) -> None:
         """Run one same-group chunk as a single fused batch; fill
         ``results`` by ticket.  ``seq_len`` / ``nfe`` are the group's (a
-        bucket under bucketing).  Blocks until the batch is finished."""
+        bucket under bucketing).  Blocks until the batch is finished.
+        ``to_host`` copies the results to the CPU before the lock is let
+        go (see the module's note on threads and captures)."""
         with self._lock:
-            self._run_chunk_locked(seq_len, nfe, chunk, results, pad)
+            self._run_chunk_locked(seq_len, nfe, chunk, results, pad, to_host)
 
     def _on_card(self) -> bool:
         """True when chunks replay bucket graphs; an engine placed on the
@@ -553,7 +595,7 @@ class FusedExecutor:
             ts=torch.stack(rows_ts).to(self.device),
         )
 
-    def _run_chunk_locked(self, seq_len, nfe, chunk, results, pad):
+    def _run_chunk_locked(self, seq_len, nfe, chunk, results, pad, to_host):
         on_card = self._on_card()
         d = self.dlm.config.d_model
         solver = self.resolve_solver(chunk[0][1])
@@ -595,6 +637,10 @@ class FusedExecutor:
             out = self._run_program(key, x_init, lengths, steps)
             x0, aux = out.x0, out.aux
         wall = time.perf_counter() - t0
+        if to_host:
+            x0 = x0[:total].cpu()  # the requests' rows, not the pad rows
+            aux = {k: v.cpu() if isinstance(v, Tensor) else v
+                   for k, v in aux.items()}
         self._m_batches.inc()
         self._m_rows.inc(total)
         self._m_occupancy.observe(total / padded, solver=solver)
@@ -800,7 +846,7 @@ class FusedExecutor:
         total = len(grid)
         counts = {"fresh": 0, "memory": 0}
         t0 = time.perf_counter()
-        with self._lock:
+        with self._state_lock:
             self._warmup_state = {"state": "running", "total": total, "done": 0}
         self._m_warmup_total.set(total)
         self._m_warmup_done.set(0)
@@ -815,20 +861,21 @@ class FusedExecutor:
                         self._capture(key)
                         counts["fresh"] += 1
                         self._m_warmup_programs.inc(solver=key[0])
-                    done += 1
+                done += 1
+                with self._state_lock:
                     self._warmup_state["done"] = done
                 self._m_warmup_done.set(done)
                 if progress is not None:
                     progress(done, total)
             wall = time.perf_counter() - t0
-            with self._lock:
+            with self._state_lock:
                 self._warmup_state = {
                     "state": "done", "total": total, "done": done,
                     K.WALL_S: wall, **counts,
                 }
             self._m_warmup_wall.set(wall)
         except BaseException as e:
-            with self._lock:
+            with self._state_lock:
                 self._warmup_state = {
                     "state": "failed", "total": total, "done": done,
                     "error": f"{type(e).__name__}: {e}",
@@ -849,7 +896,7 @@ class FusedExecutor:
     def warmup_status(self) -> dict[str, Any]:
         """Warmup progress: ``state`` none|running|done|failed, done/total,
         and the capture counts and wall seconds once done."""
-        with self._lock:
+        with self._state_lock:
             return dict(self._warmup_state)
 
     # ---- introspection (tests / chip_smoke) ------------------------------

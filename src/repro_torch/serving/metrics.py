@@ -1,8 +1,7 @@
 """Prometheus-style metrics for the serving stack (stdlib only).
 
 A copy of ``repro.serving.metrics``: the port keeps its own so it imports
-nothing of the reference package.  In the port only the executor
-instruments into it so far.
+nothing of the reference package.
 
 A :class:`MetricsRegistry` holds named counters, gauges, and histograms;
 ``render()`` emits the Prometheus text exposition format that the front

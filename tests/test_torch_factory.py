@@ -4,13 +4,19 @@
 full ``ERAConfig`` for ``era``, the registry default at ``nfe`` for the
 others), ``build_engine`` serves every registry program through the
 port's ``BatchedSampler``, and the launcher's diffusion mode runs with
-each solver on the CPU.
+each solver on the CPU.  The launcher's serving modes run at smoke size on
+the CPU: ``--continuous`` (one solver, and a mixed stream over seq and NFE
+buckets), and ``--listen`` in a subprocess driven by ``--connect`` once it
+prints ``FRONTDOOR READY``.
 """
 
 import dataclasses
 import os
+import queue
+import signal
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -106,3 +112,79 @@ def test_launcher_module_entry_runs():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "via dpm_solver_pp2m nfe=10" in proc.stdout
+
+
+@pytest.mark.parametrize("extra,label", [
+    ([], "era"),
+    (["--mix", "era,ddim", "--seq-buckets", "4,8", "--seq-mix-lens", "3,8",
+      "--nfe-buckets", "8", "--nfe-mix-nfes", "6,8"], "era,ddim"),
+], ids=["one-solver", "mixed"])
+def test_launcher_continuous_mode(extra, label, capsys):
+    out = serve.run_continuous(
+        serve.DiffusionLM(serve.get_config("qwen2-1.5b", smoke=True),
+                          device="cpu"),
+        serve.build_parser().parse_args(
+            ["--mode", "diffusion", "--continuous", "--requests", "6",
+             "--rate", "500", "--seq", "8", "--nfe", "6",
+             "--batch-buckets", "1,4", "--max-wait-ms", "5", *extra]),
+    )
+    text = capsys.readouterr().out
+    assert "warmup: " in text
+    assert f"continuous[{label}]: 6 req @ 500.0/s" in text
+    assert out["submitted"] == out["rows"] == 6
+    assert 1 <= out["batches"] <= 6 and out["p99_ms"] >= out["p50_ms"] > 0
+
+
+def test_launcher_serving_flags():
+    """The serving modes need the diffusion mode; the reference's
+    ``--compile-cache-dir`` has no counterpart and is refused, not
+    ignored."""
+    for flag in (["--continuous"], ["--listen"], ["--connect", "http://x:1"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--mode", "ar", "--device", "cpu", "--smoke", *flag])
+    with pytest.raises(SystemExit):
+        serve.main(["--mode", "diffusion", "--listen", "--compile-cache-dir",
+                    "cache"])
+    args = serve.build_parser().parse_args(["--no-warm"])
+    assert args.warm is False
+    cfg = serve._engine_config(
+        serve.build_parser().parse_args(["--seq", "256"]), per_sample=True,
+        fused=True, warmup_seq_lens=(256,))
+    assert cfg.batch_buckets == (1, 8, 64) and cfg.warmup == "grid"
+    assert warmup_kwargs(cfg) == {"nfes": (10,), "seq_lens": (256,)}
+
+
+def test_launcher_listen_and_connect(capsys):
+    """``--listen`` in a subprocess prints ``FRONTDOOR READY <url>``; the
+    ``--connect`` client samples through it; SIGINT stops it cleanly."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "repro_torch.launch.serve", "--mode",
+         "diffusion", "--device", "cpu", "--smoke", "--listen", "--port", "0",
+         "--seq", "8", "--nfe", "6", "--batch-buckets", "1,2"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=str(ROOT),
+    )
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(line) for line in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        url = None
+        while url is None:
+            line = lines.get(timeout=240)
+            if line.startswith("FRONTDOOR READY "):
+                url = line.split()[-1]
+        serve.main(["--mode", "diffusion", "--connect", url, "--requests",
+                    "2", "--batch", "2", "--seq", "8", "--nfe", "6",
+                    "--timeout", "120"])
+        out = capsys.readouterr().out
+        assert "req[0] x0 (2, 8, 128) via era nfe=6" in out
+        assert "connect: 2 req" in out
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=10)

@@ -4,10 +4,14 @@
   nor the reference package ``repro`` — checked both by importing every
   module in a fresh interpreter and by scanning the source.
 * Nothing falls back silently: without a card, entry points that were not
-  asked for the CPU raise (the bucket-graph path and ``warmup()`` too), the
-  kernel modules, the solver core, the attention module and the AR engine
-  hold no ``try`` (a CUDA tensor launches its kernel or raises), and no
-  ``try`` on the executor's graph path swallows an error.
+  asked for the CPU raise (the bucket-graph path and ``warmup()`` too, and
+  the launcher's serving modes; ``--connect`` needs no card), the kernel
+  modules, the solver core, the attention module and the AR engine hold no
+  ``try`` (a CUDA tensor launches its kernel or raises), no ``try`` on the
+  executor's graph path swallows an error, and the scheduler's
+  ``_run_batches`` and the front door's ``_run_warmup`` only deliver a
+  failure (to the chunk's futures, or to ``/readyz``), never run the work
+  again on another path.
 """
 
 import ast
@@ -68,6 +72,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     assert "repro_torch.launch.serve" in out["imported"]
     assert "repro_torch.serving.executor" in out["imported"]
     assert "repro_torch.core.program" in out["imported"]
+    assert "repro_torch.serving.scheduler" in out["imported"]
+    assert "repro_torch.serving.frontdoor" in out["imported"]
     bad = [m for m in out["loaded"] if _forbidden(m)]
     assert not bad, bad
 
@@ -116,6 +122,46 @@ def test_kernels_and_solver_hold_no_fallback_try(path, method):
                 last = handler.body[-1]
                 assert isinstance(last, ast.Raise) and last.exc is None, (
                     f"{method}: an except clause that does not re-raise")
+
+
+#: methods that run a chunk or a warmup on behalf of others, and the one
+#: call each makes to do it; a failure may only be handed on
+DELIVERY_ONLY = {
+    (PKG / "serving" / "scheduler.py", "_run_batches"): "run_chunk",
+    (PKG / "serving" / "frontdoor.py", "_run_warmup"): "_warmup_fn",
+}
+#: what an except clause of those methods may call
+DELIVERY_CALLS = {"resolve_future", "type"}
+
+
+def _call_name(node: ast.Call) -> str:
+    f = node.func
+    return f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+
+
+@pytest.mark.parametrize(
+    "path,method", list(DELIVERY_ONLY),
+    ids=[f"{p.relative_to(ROOT)}::{m}" for p, m in DELIVERY_ONLY])
+def test_failures_are_delivered_not_retried(path, method):
+    """The scheduler's ``_run_batches`` and the front door's
+    ``_run_warmup`` run their work once (one call site), and an except
+    clause there only hands the error on: it calls nothing but
+    ``resolve_future`` (and ``type``, for a message), and runs no work."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    (fn,) = [n for n in ast.walk(tree)
+             if isinstance(n, ast.FunctionDef) and n.name == method]
+    work = DELIVERY_ONLY[(path, method)]
+    calls = [_call_name(n) for n in ast.walk(fn) if isinstance(n, ast.Call)]
+    assert calls.count(work) == 1, (method, calls)
+    tries = [n for n in ast.walk(fn) if isinstance(n, ast.Try)]
+    assert len(tries) == 1
+    (body_call,) = [_call_name(n) for stmt in tries[0].body
+                    for n in ast.walk(stmt) if isinstance(n, ast.Call)]
+    assert body_call == work
+    for handler in tries[0].handlers:
+        names = {_call_name(n) for stmt in handler.body
+                 for n in ast.walk(stmt) if isinstance(n, ast.Call)}
+        assert names <= DELIVERY_CALLS, (method, names)
 
 
 @pytest.fixture
@@ -178,6 +224,42 @@ def test_ar_entry_points_raise_without_a_card(no_card):
     for mode in ("ar", "diffusion"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--smoke", "--mode", mode])
+
+
+@pytest.mark.parametrize("flag", ["--continuous", "--listen"])
+def test_serving_modes_raise_without_a_card(no_card, flag):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--mode", "diffusion", flag, "--requests", "1"])
+
+
+def test_serving_modes_take_the_cpu_only_when_asked(no_card, capsys):
+    serve.main(["--smoke", "--device", "cpu", "--mode", "diffusion",
+                "--continuous", "--requests", "2", "--rate", "1000",
+                "--seq", "4", "--nfe", "5", "--batch-buckets", "2"])
+    assert "continuous[era]: 2 req" in capsys.readouterr().out
+
+
+def test_connect_needs_no_card_and_no_model(no_card, capsys, monkeypatch):
+    """``--connect`` builds no model: it runs without a card and without
+    ``--device``, against a server on the CPU."""
+    from repro_torch.serving import SchedulerPolicy, serve_frontdoor
+
+    cfg = get_config("qwen2-1.5b", smoke=True).with_(num_layers=1)
+    engine = BatchedSampler(DiffusionLM(cfg, device="cpu"), linear_schedule(),
+                            batch_buckets=(2,))
+    door = serve_frontdoor(engine, SchedulerPolicy(max_wait_ms=1.0))
+    try:
+        built = []
+        monkeypatch.setattr(serve, "DiffusionLM",
+                            lambda *a, **k: built.append(a))
+        serve.main(["--mode", "diffusion", "--connect", door.url,
+                    "--requests", "2", "--batch", "2", "--seq", "4",
+                    "--nfe", "5", "--timeout", "60"])
+    finally:
+        door.stop()
+    out = capsys.readouterr().out
+    assert "req[1] x0 (2, 4, 128)" in out and "connect: 2 req" in out
+    assert built == []
 
 
 def test_ar_path_takes_the_cpu_only_when_asked(no_card, capsys):
