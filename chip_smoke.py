@@ -17,9 +17,13 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    ragged-tile and head-dim variants, and in cases whose positions are not
    tile indices (queries offset from keys, a wrapped ring with empty slots,
    whole kv tiles masked in some rows), so that a tile skip decided from
-   indices would fail; prints each instance's registers, spills (none
-   allowed at hd=128) and shared memory; times it at the three path shapes
-   beside SDPA;
+   indices would fail; the (192, 128) instance of MLA (deepseek-v2-lite:
+   q/k 128 + 64 rope dims, v 128) at phase 10's 8x256 causal batch with
+   per-row lengths, its 8x512 AR prefill and a ragged S, and a CUDA call
+   with a head-dim pair that has no instance must raise; prints each
+   instance's registers, spills (none allowed at (128, 128)) and shared
+   memory; times it at the three path shapes beside SDPA, and the MLA
+   instance at 8x256, L2-warm and L2-cold, beside SDPA;
 4. the ERA path: ``warmup()`` captures the bucket graphs, then requests are
    served through the port's ``BatchedSampler`` on a full-width qwen2-1.5b
    denoiser (28 layers, d_model 1536, bf16, random seeded weights) with ERA
@@ -76,18 +80,37 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    requests through ``AsyncBatchedSampler`` (p50/p99, throughput, batches,
    idle share); and the launcher's ``--listen`` default grid (batch 1, 8,
    64 at seq 256) is captured for its wall and memory;
-10. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
-   ``{"frontdoor": {...}}`` line with phase 9's and one
-   ``{"kernels": [...]}`` line with each kernel's launches, error and
-   times beside its bound, then the result line.
+10. the MoE and MLA families, one model on the card at a time: the
+   full-width deepseek-v2-lite-16b denoiser (27 layers of MLA + 64-expert
+   top-6 MoE with 2 shared experts, bf16, random seeded weights) serves an
+   8x256 nfe=10 ERA batch as a replay of the graphs ``warmup()`` captured
+   (batch 8 x seq 128, 256), with exactly 270 ``flash_attention`` and 7
+   ``era_update`` launches, finite, bitwise its eager run and unchanged by
+   a later replay; two requests of 200 and 256 fused into one seq-256
+   batch, each bitwise its solo drain; the replay profiled (busy, idle
+   share, shares of GEMMs, the MoE dispatch's index kernels and flash).
+   Its token model runs ``Engine.generate`` (batch 8, prompt 512, 32 new
+   tokens, 1024 slots): decode ms a step, idle share, and decode logits
+   held to a fresh prefill's (both without MoE drops) with a planted fault
+   (the newest prompt entry dropped) that the check must see.  minitron-4b
+   at full width: the same replay against eager (320 flash launches) and a
+   short ``generate`` (16 tokens) with the logits check.  mixtral-8x7b at
+   full width cut to 4 of its 32 layers: the replay against eager (40
+   flash launches);
+11. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
+   ``{"frontdoor": {...}}`` line with phase 9's, one ``{"families":
+   {...}}`` line with phase 10's and one ``{"kernels": [...]}`` line with
+   each kernel's launches (by path), error and times beside its bound,
+   then the result line.
 
 ``python3 chip_smoke.py --era-ab PARENT/src`` instead times only the ERA
 path's host cost (one denoiser forward and a drain) with the
 ``repro_torch`` under ``PARENT/src`` against this checkout's, in the
 order parent, this, this, parent, one process each.
 ``python3 chip_smoke.py --flash-ab PARENT/src`` instead compares flash
-kernels in one process: the one under ``PARENT/src``, this checkout's and
-tile variants of it, each checked and then timed beside SDPA, in turns.
+kernels in one process: the one under ``PARENT/src`` (through its own
+wrapper), this checkout's and tile variants of it, each checked and then
+timed beside SDPA, in turns.
 ``python3 chip_smoke.py --decode-ab PARENT/src`` compares decode kernels in
 one process the same way: the one under ``PARENT/src`` (through its own
 wrapper), this checkout's and its cluster and warp variants, each checked
@@ -138,6 +161,9 @@ ERA_TOL = 1e-5
 DECODE_RTOL = 2 ** -7
 DECODE_ATOL = 1e-5
 
+# deepseek-v2-lite's MLA attention: heads, q/k head dim (128 + 64 rope), v
+MLA_H, MLA_HD, MLA_HD_V = 16, 192, 128
+
 # the AR path: batch, prompt, new tokens, cache slots (max_len)
 AR_BATCH, AR_PROMPT, AR_GEN, AR_MAX_LEN = 8, 512, 64, 1024
 AR_CHECK_STEPS = (1, 32, AR_GEN - 1)
@@ -151,6 +177,13 @@ AR_CHECK_STEPS = (1, 32, AR_GEN - 1)
 # faults in one key are left to the kernel checks of phases 3 and 5, which
 # hold the kernels to their plain versions at the path's shapes.
 AR_LOGIT_RTOL = 0.05
+# the same check on a MoE model (phase 10, routing pinned: PinnedMoE).  Its
+# residual stream carries the routed experts' ~1e2-scale outputs (the
+# reference's fan-in init divides the expert weights by the expert count),
+# so the two paths' bf16 rounding moves the logits further: 5.5-6.7% on
+# full-width deepseek-v2-lite on the H100, against 24% with the newest
+# prompt entry dropped from the latent cache
+AR_MOE_LOGIT_RTOL = 0.12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -304,12 +337,13 @@ def flash_cases(kf) -> float:
     dev = "cuda"
     h, kvh, hd = 12, 2, 128
 
-    def run(name, b, s, h, kvh, hd, *, sk=None, q_pos=None, kv_pos=None,
-            zero_row=None, **kw):
+    def run(name, b, s, h, kvh, hd, *, hd_v=None, sk=None, q_pos=None,
+            kv_pos=None, zero_row=None, **kw):
         sk = s if sk is None else sk
+        hd_v = hd if hd_v is None else hd_v
         q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, sk, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(b, sk, kvh, hd, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, sk, kvh, hd_v, generator=gen, device=dev).to(torch.bfloat16)
         if q_pos is None:
             q_pos = torch.arange(s, dtype=torch.int32, device=dev)
         if kv_pos is None:
@@ -354,6 +388,10 @@ def flash_cases(kf) -> float:
         for sq, lens in ((256, [256, 200, 200, 200, 256, 256, 256, 256]),
                          (128, [100] * 4 + [128] * 4))
     }
+    seq_masks["mla"] = (
+        torch.arange(256, device=dev)[None, :]
+        < torch.tensor([200] * 3 + [256] * 5, device=dev)[:, None]
+    ).to(torch.int32)
     ps = AR_PROMPT
     errs = [
         run("seq bucket 8x256, row lengths 256, 200 x3, 256 x4 (phase 7)",
@@ -385,6 +423,30 @@ def flash_cases(kf) -> float:
         run("hd=64 (llama3.2-1b heads)", 2, 256, 32, 8, 64, causal=False),
         run("hd=32 (smoke heads)", 2, 96, 4, 2, 32, causal=True),
     ]
+    if (MLA_HD, MLA_HD_V) in getattr(kf, "HEAD_DIM_PAIRS", ()):
+        # deepseek-v2-lite's MLA: q/k 128 + 64 rope dims, v 128, 16 heads
+        # with one kv head each; always causal (phase 10's 8x256 batch with
+        # its per-row lengths, its 8x512 AR prefill, a ragged S)
+        mla = dict(hd_v=MLA_HD_V, causal=True)
+        errs += [
+            run("MLA 8x256 causal, row lengths 200 x3, 256 x5 (phase 10)",
+                8, 256, MLA_H, MLA_H, MLA_HD, kv_mask=seq_masks["mla"], **mla),
+            run(f"MLA AR prefill {AR_BATCH}x{ps} causal", AR_BATCH, ps, MLA_H,
+                MLA_H, MLA_HD, **mla),
+            run("MLA S=200 (ragged tile) causal", 2, 200, MLA_H, MLA_H,
+                MLA_HD, **mla),
+        ]
+        # a CUDA tensor of a pair without an instance raises
+        q = torch.zeros(1, 64, 2, MLA_HD, dtype=torch.bfloat16, device=dev)
+        v = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=dev)
+        p64 = torch.arange(64, dtype=torch.int32, device=dev)
+        try:
+            kf.flash_attention(q, q, v, p64, p64)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, "flash_attention took the head dims (192, 64)")
+        log("flash_attention: head dims (192, 64) on the card raise")
     return max(errs)
 
 
@@ -455,6 +517,49 @@ def flash_timings(kf) -> dict:
     return timing
 
 
+def mla_flash_timings(kf) -> dict:
+    """The (192, 128) instance at phase 10's 8x256 causal batch: device
+    time L2-warm and L2-cold, its plain version and one SDPA call (its
+    default backend choice: q/k and v head dims differ), and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, s, h = 8, 256, MLA_H
+    q, k = (torch.randn(b, s, h, MLA_HD, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn(b, s, h, MLA_HD_V, generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def kernel():
+        return kf.flash_attention(q, k, v, pos, pos, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    is_flash = lambda name: "flash_fwd_kernel" in name  # noqa: E731
+    # each of q, k, v read once and the output written once, bf16; the
+    # causal half of 2 * (hd + hd_v) flops a (query, key, head)
+    nbytes = 2.0 * (2 * b * s * h * MLA_HD + 2 * b * s * h * MLA_HD_V)
+    flops = 2.0 * b * h * s * s * (MLA_HD + MLA_HD_V) * (s + 1) / (2 * s)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    t = dict(
+        ms=device_ms(kernel), ms_l2_cold=device_ms(kernel, cold=True, pick=is_flash),
+        plain_ms=device_ms(lambda: kf.flash_attention_plain(q, k, v, pos, pos),
+                           iters=5),
+        library_ms=device_ms(sdpa), library_ms_l2_cold=device_ms(sdpa, cold=True),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        shape=f"B={b} S={s} H={h} KV={h} hd={MLA_HD} hd_v={MLA_HD_V} bf16 causal",
+    )
+    t["kernel_over_library"] = t["ms"] / t["library_ms"]
+    log(f"flash_attention timing {t['shape']}: kernel {t['ms']:.5f} ms "
+        f"L2-warm, {t['ms_l2_cold']:.5f} ms L2-cold; plain {t['plain_ms']:.5f} "
+        f"ms; SDPA {t['library_ms']:.5f} / {t['library_ms_l2_cold']:.5f} ms; "
+        f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}, {nbytes / 1e6:.1f} MB)")
+    return t
+
+
 def ptxas_start(build, source: str):
     """Start a second ``nvcc`` of ``source`` with ``-Xptxas -v`` (beside the
     build, into a file that is thrown away) for its register and spill
@@ -492,8 +597,9 @@ def parse_ptxas(text: str, kernel: str = "flash_fwd_kernel") -> dict:
 
 def ptxas_report(started, kf) -> dict:
     """Each flash instance's registers, spills, shared memory and resident
-    blocks an SM, from ptxas and the CUDA occupancy API; fails on a spill
-    at hd=128."""
+    blocks an SM, from ptxas and the CUDA occupancy API, keyed "hd x hd_v";
+    fails on a spill at (128, 128) (spills at MLA's (192, 128) are
+    reported)."""
     import ctypes
 
     out, proc = started
@@ -502,25 +608,28 @@ def ptxas_report(started, kf) -> dict:
     check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
     lib = kf._library()
     smem_fn = lib.repro_flash_attention_smem_bytes
-    smem_fn.argtypes = [ctypes.c_int] * 2
+    smem_fn.argtypes = [ctypes.c_int] * 3
     smem_fn.restype = ctypes.c_longlong
     occ_fn = lib.repro_flash_attention_blocks_per_sm
-    occ_fn.argtypes = [ctypes.c_int] * 2
+    occ_fn.argtypes = [ctypes.c_int] * 3
     occ_fn.restype = ctypes.c_int
+    # instances are named by their first template argument, the q/k head
+    # dim, which tells the pairs apart
     report = parse_ptxas(text)
-    for d in kf.HEAD_DIMS:
+    out = {}
+    for d, dv in kf.HEAD_DIM_PAIRS:
         check(d in report and "registers" in report[d],
-              f"no ptxas report for flash hd={d}:\n{text}")
-        r = report[d]
-        r["smem_bytes_s256"] = int(smem_fn(d, 256))
-        r["blocks_per_sm_s256"] = int(occ_fn(d, 256))
-        log(f"flash_attention hd={d}: {r['registers']} registers, spill "
+              f"no ptxas report for flash ({d}, {dv}):\n{text}")
+        r = out[f"{d}x{dv}"] = report[d]
+        r["smem_bytes_s256"] = int(smem_fn(d, dv, 256))
+        r["blocks_per_sm_s256"] = int(occ_fn(d, dv, 256))
+        log(f"flash_attention ({d}, {dv}): {r['registers']} registers, spill "
             f"stores {r['spill_stores']} B, loads {r['spill_loads']} B, "
             f"{r['smem_bytes_s256']} B shared memory at Sk=256, "
             f"{r['blocks_per_sm_s256']} blocks an SM")
     check(report[128]["spill_stores"] == 0 and report[128]["spill_loads"] == 0,
-          "flash_attention hd=128 spills registers")
-    return {str(k): v for k, v in sorted(report.items())}
+          "flash_attention (128, 128) spills registers")
+    return out
 
 
 def decode_ptxas_report(text: str, kd, lib=None) -> dict:
@@ -577,16 +686,18 @@ def reserved_mb() -> float:
     return torch.cuda.memory_reserved() / 2**20
 
 
-def build_dlm():
-    """The full-width qwen2-1.5b denoiser, random weights from seed 0."""
+def build_dlm(cfg=None):
+    """A full-width denoiser (default: qwen2-1.5b), random weights from seed
+    0."""
     from repro_torch.configs import get_config
     from repro_torch.models import DiffusionLM
 
-    cfg = get_config("qwen2-1.5b")
-    check(
-        (cfg.num_layers, cfg.d_model, cfg.dtype) == (28, 1536, torch.bfloat16),
-        f"unexpected config {cfg}",
-    )
+    if cfg is None:
+        cfg = get_config("qwen2-1.5b")
+        check(
+            (cfg.num_layers, cfg.d_model, cfg.dtype) == (28, 1536, torch.bfloat16),
+            f"unexpected config {cfg}",
+        )
     t0 = time.perf_counter()
     dlm = DiffusionLM(cfg, seed=0)  # on the card
     # the reference zero-inits eps_head (eps = x_t); small random weights
@@ -607,7 +718,8 @@ def profile_replays(submit, drain, what: str, wall_ms: float, nfe: int,
     and hold the trace's kernel rows against the launches the captures
     recorded.  The profiler can drop records of a long replay (or a whole
     trace), so a trace short of them is taken again, up to five times;
-    every trace short fails.  Returns the idle share and device busy ms."""
+    every trace short fails.  Returns the idle share, device busy ms and
+    the trace's (ms, count, name) rows."""
     for attempt in range(5):
         submit()
         try:
@@ -620,7 +732,7 @@ def profile_replays(submit, drain, what: str, wall_ms: float, nfe: int,
         if (fl, er) == (flash, era):
             log(f"{what}: the trace holds the {fl} flash and {er} era_update "
                 f"kernels the captures recorded")
-            return idle, busy
+            return idle, busy, rows
         log(f"{what}: trace {attempt} holds flash {fl}, era_update {er} of "
             f"the {flash}, {era} kernels recorded; traced again")
     raise RuntimeError(f"chip_smoke: FAILED: {what}: no trace holds the "
@@ -756,7 +868,7 @@ def phase_slice(ku, kf, kd, dlm):
     check(ediff <= 1e-2, f"graph vs eager x0 differ by {ediff}")
 
     # both under the profiler, for the breakdown and the idle shares
-    g_idle, g_busy = profile_replays(
+    g_idle, g_busy, _ = profile_replays(
         lambda: eng.submit_with_future(reqs[1]), eng.drain,
         f"graph replay of one 8x256 batch, nfe={NFE}", graph_wall_ms, NFE,
         cfg.num_layers * NFE, NFE - K + 1)
@@ -1205,7 +1317,7 @@ def phase_bucketed(ku, kf, kd, dlm):
         check(diff <= 1e-2, f"bucketed fused vs solo x0 differ by {diff}")
     check(eng.compile_stats()["fresh"] == 2, "a solo drain captured a graph")
 
-    idle, busy = profile_replays(
+    idle, busy, _ = profile_replays(
         lambda: [eng.submit_with_future(r) for r in reqs], eng.drain,
         "bucketed drain, 2 batches of 8 rows, 10 step-masked steps",
         drain_ms, 2 * NFE, 2 * cfg.num_layers * NFE, 2 * (NFE - K + 1))
@@ -1320,7 +1432,7 @@ def phase_solvers(ku, kf, kd, dlm):
         rows, _, _ = device_events(eager)
         eager_busy = sum(r[0] for r in rows)
 
-        idle, busy = profile_replays(
+        idle, busy, _ = profile_replays(
             lambda: eng.submit_with_future(req), eng.drain,
             f"{name}: graph replay of one 8x256 batch, nfe={NFE}", replay_ms,
             NFE, flash_per_batch, 0)
@@ -1732,6 +1844,411 @@ def phase_frontdoor(ku, kf, kd, dlm):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE and MLA families, and minitron-4b
+# ---------------------------------------------------------------------------
+
+# an 8x256 nfe=10 batch, and two requests fused into one seq-256 batch (one
+# padded from 200, one exact)
+FAM_REQ = (8, 256, 61)
+FAM_FUSED = ((4, 200, 62), (4, 256, 63))
+# AR: prompt and cache slots (phase 6's); deepseek generates 32 tokens,
+# minitron 16
+FAM_AR_PROMPT, FAM_AR_SLOTS = 512, 1024
+# kernel-name fragments of a trace's rows: cuBLAS / CUTLASS GEMMs (the
+# experts' batched products among them), and the MoE dispatch's index
+# work (top-k, the rank's cumulative sum, the rank gather, the token copy
+# into the capacity buffer, the combine's index_select)
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+DISPATCH_NAMES = ("topk", "TopK", "sort", "Sort", "scan", "index", "Index",
+                  "gather", "scatter")
+
+
+def family_shares(rows, busy_ms: float) -> dict:
+    """Shares of a trace's device time: GEMMs, the MoE dispatch's index
+    kernels, flash, era_update, and the rest (elementwise work)."""
+    def ms(pick):
+        return sum(r[0] for r in rows if pick(r[2]))
+
+    gemm = ms(lambda n: any(g in n for g in GEMM_NAMES))
+    flash = ms(lambda n: "flash_fwd_kernel" in n)
+    era = ms(is_era_kernel)
+    dispatch = ms(lambda n: any(g in n for g in DISPATCH_NAMES)
+                  and not any(g in n for g in GEMM_NAMES)
+                  and "flash_fwd_kernel" not in n)
+    rest = busy_ms - gemm - flash - era - dispatch
+    return {k: v / busy_ms for k, v in dict(
+        gemm=gemm, moe_dispatch=dispatch, flash=flash, era_update=era,
+        rest=rest).items()}
+
+
+def family_era(ku, kf, kd, dlm, seq_buckets, *, fuse=False, profile=False):
+    """An 8x256 nfe=10 ERA batch served as a replay of the graph that
+    ``warmup()`` captured (batch bucket 8 x ``seq_buckets``): exact launch
+    counts, finite, copy-out, bitwise the same batch run eagerly through
+    the bucket's program; with ``fuse``, two requests (200 and 256 long) in
+    one seq-256 batch, each bitwise its solo drain; with ``profile``, the
+    replay's busy time, idle share and device-time shares.  Returns the
+    launches of the served drains and a report."""
+    from repro_torch.core import linear_schedule
+    from repro_torch.serving import BatchedSampler, SampleRequest, result_keys
+
+    cfg = dlm.config
+    total = {"era_update": 0, "flash_attention": 0, "decode_attention": 0}
+    want = {"era_update": NFE - K + 1, "flash_attention": cfg.num_layers * NFE,
+            "decode_attention": 0}
+
+    def served(drain) -> dict:
+        reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+        drain()
+        torch.cuda.synchronize()
+        counts = read_counts(ku, kf, kd)
+        for k, v in counts.items():
+            total[k] += v
+        check(counts == want, f"{cfg.name}: launches {counts} != {want}")
+        return counts
+
+    eng = BatchedSampler(dlm, linear_schedule(), batch_buckets=(8,),
+                         seq_buckets=seq_buckets)
+    mem0 = reserved_mb()
+    t0 = time.perf_counter()
+    rep = eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    graph_mb = reserved_mb() - mem0
+    check(rep["fresh"] == rep["programs"] == len(seq_buckets),
+          f"{cfg.name} warmup: {rep}")
+    b, seq, seed = FAM_REQ
+    req = SampleRequest(batch=b, seq_len=seq, nfe=NFE, seed=seed)
+    walls = []
+    for i in range(3):
+        _, fut = eng.submit_with_future(req)
+        t0 = time.perf_counter()
+        if i == 0:
+            served(eng.drain)
+        else:
+            eng.drain()
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            res = fut.result()
+            check(tuple(res.x0.shape) == (b, seq, cfg.d_model),
+                  f"{cfg.name} x0 shape {tuple(res.x0.shape)}")
+            check(bool(torch.isfinite(res.x0).all()), f"{cfg.name} x0 not finite")
+            # copy-out: a replay with other noise leaves the result as it was
+            kept = res.x0.clone()
+            eng.submit_with_future(dataclasses.replace(req, seed=seed + 10))
+            eng.drain()
+            check(torch.equal(res.x0, kept), f"{cfg.name}: a replay changed a result")
+        else:
+            check(torch.equal(fut.result().x0, res.x0),
+                  f"{cfg.name}: a repeated replay differs")
+    replay_ms = sorted(walls)[1]
+    check(eng.compile_stats()["fresh"] == len(seq_buckets),
+          f"{cfg.name}: a drain captured a graph")
+
+    # the same batch eagerly, through the bucket's program on this stream
+    ex = eng.executor
+    masked = ex.seq_masked("era")
+    key = ("era", dataclasses.replace(ex.config_for("era"), nfe=NFE), b, seq,
+           masked, False)
+    x_init = ex.noise(req)
+    lengths = (torch.full((b,), seq, dtype=torch.int32, device="cuda")
+               if masked else None)
+
+    def eager():
+        return ex._run_program(key, x_init, lengths, None)
+
+    eager()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eager()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(out.x0, res.x0),
+          f"{cfg.name}: replay differs from the eager run by "
+          f"{float((out.x0 - res.x0).abs().max())}")
+    check(torch.equal(out.aux[result_keys.ERS_SELECTION_HISTORY],
+                      res.aux[result_keys.ERS_SELECTION_HISTORY]),
+          f"{cfg.name}: ERS selections differ between replay and eager")
+    report = dict(replay_ms=replay_ms, replay_ms_runs=walls, eager_ms=eager_ms,
+                  warmup_s=warmup_s, graphs=rep["programs"], graph_mib=graph_mb,
+                  x0_std=float(res.x0.std()))
+    log(f"{cfg.name}: 8x256 nfe={NFE} replay {replay_ms:.1f} ms (median of "
+        f"{[round(w, 1) for w in walls]}), eager {eager_ms:.1f} ms, replay == "
+        f"eager bitwise, launches {want}; warmup of {rep['programs']} graphs "
+        f"{warmup_s:.2f}s, {graph_mb:.0f} MiB")
+
+    if fuse:
+        reqs = [SampleRequest(batch=bb, seq_len=ss, nfe=NFE, seed=sd)
+                for bb, ss, sd in FAM_FUSED]
+        futs = [eng.submit_with_future(r)[1] for r in reqs]
+        batches0 = eng.metrics.get("sampler_batches_total").value()
+        served(eng.drain)
+        batches = eng.metrics.get("sampler_batches_total").value() - batches0
+        check(batches == 1, f"{cfg.name}: the fused drain ran {batches} batches")
+        for r, f in zip(reqs, futs):
+            fused = f.result()
+            check(fused.padded_seq_len == 256 and fused.padded_batch == 8,
+                  f"{cfg.name}: fused padding for {r}")
+            _, solo = eng.submit_with_future(r)
+            eng.drain()
+            check(torch.equal(fused.x0, solo.result().x0),
+                  f"{cfg.name}: {r.batch}x{r.seq_len} fused differs from its "
+                  f"solo drain by {float((fused.x0 - solo.result().x0).abs().max())}")
+        log(f"{cfg.name}: requests of 200 and 256 fused into one seq-256 batch, "
+            f"each bitwise its solo drain")
+        report["fused_equals_solo"] = True
+
+    if profile:
+        idle, busy, rows = profile_replays(
+            lambda: eng.submit_with_future(req), eng.drain,
+            f"{cfg.name}: graph replay of one 8x256 batch, nfe={NFE}",
+            replay_ms, NFE, want["flash_attention"], want["era_update"])
+        shares = family_shares(rows, busy)
+        log(f"{cfg.name}: replay device busy {busy:.1f} ms, idle share "
+            f"{idle:.3f}; shares {json.dumps({k: round(v, 4) for k, v in shares.items()})}")
+        report.update(busy_ms=busy, idle_share=idle, shares=shares,
+                      device_ops=sum(r[1] for r in rows))
+    del eng
+    return total, report
+
+
+class PinnedMoE:
+    """The AR logits check of a MoE model compares a decode step with a
+    prefill, and in bf16 the two paths round differently: where a token's
+    k-th and (k+1)-th router probabilities are close, the paths pick other
+    experts, whose outputs differ by far more than the rounding, and over
+    27 layers nearly every row meets such a flip; a check so run measures
+    the flips, not the attention path.  So within the block every MoE layer
+    takes a capacity that drops nothing (a prefill of S tokens drops
+    assignments past int(S * k / E * 1.25) that a one-token decode keeps,
+    as in the reference), ``record()`` keeps the routing of the next
+    prefill, and ``replay(tokens)`` hands those tokens' recorded routing to
+    the next call of each layer: the compared paths run the same experts
+    with the same weights, and differ only as the attention path and its
+    cache make them.  A model without MoE layers passes through."""
+
+    def __init__(self, model):
+        from repro_torch.models.moe import MoE
+
+        self.moes = [m for m in model.modules() if isinstance(m, MoE)]
+        self.routes = {}
+
+    def __enter__(self):
+        self.cfgs = [m.cfg for m in self.moes]
+        for m in self.moes:
+            e, k = m.cfg.moe.num_experts, m.cfg.moe.top_k
+            m.cfg = m.cfg.with_(moe=dataclasses.replace(
+                m.cfg.moe, capacity_factor=float(e) / k + 1))
+        return self
+
+    def __exit__(self, *exc):
+        for m, c in zip(self.moes, self.cfgs):
+            m.cfg = c
+            m.__dict__.pop("route", None)
+
+    def record(self):
+        for m in self.moes:
+            def route(x, token_dims, m=m):
+                weights, ids, aux = type(m).route(m, x, token_dims)
+                self.routes[m] = (weights, ids)
+                return weights, ids, aux
+            m.route = route
+
+    def replay(self, tokens: slice):
+        for m in self.moes:
+            def route(x, token_dims, m=m):
+                _, _, aux = type(m).route(m, x, token_dims)
+                weights, ids = self.routes[m]
+                return weights[:, tokens], ids[:, tokens], aux
+            m.route = route
+
+
+def family_ar(ku, kf, kd, model, gen: int):
+    """``Engine.generate`` (batch 8, prompt 512, ``gen`` tokens, 1024 slots)
+    on a full-width token model: launch counts, tokens in the vocabulary,
+    the step-by-step loop equal to generate, decode ms a step; the decode
+    logits at three steps against a fresh prefill's (MoE routing pinned,
+    :class:`PinnedMoE`), and a planted fault (the newest prompt entry of the
+    cache dropped) that the check must see; the decode loop's idle share."""
+    import numpy as np
+
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = model.config
+    mla = cfg.mla is not None
+    eng = Engine(model, ServeConfig(max_len=FAM_AR_SLOTS))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (AR_BATCH, FAM_AR_PROMPT))
+    ).to(torch.int32).cuda()
+    eng.generate(prompts, gen)  # warm: cuBLAS plans, allocator
+    torch.cuda.synchronize()
+    reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, gen)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = read_counts(ku, kf, kd)
+    want = {"era_update": 0, "flash_attention": cfg.num_layers,
+            "decode_attention": 0 if mla else cfg.num_layers * (gen - 1)}
+    check(launches == want, f"{cfg.name} AR launches {launches} != {want}")
+    check(tuple(toks.shape) == (AR_BATCH, gen), f"{cfg.name} generated shape")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{cfg.name}: a generated token is outside the vocabulary")
+
+    # step by step, timed: the same tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill_step(prompts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nxt = [eng.sample_token(logits)]
+    for i in range(gen - 1):
+        logits, cache = eng.decode_step(cache, nxt[-1][:, None], FAM_AR_PROMPT + i)
+        nxt.append(eng.sample_token(logits))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(torch.equal(torch.stack(nxt, dim=1), toks),
+          f"{cfg.name}: step-by-step tokens differ")
+    prefill_ms, decode_wall_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    per_step = decode_wall_ms / (gen - 1)
+    log(f"{cfg.name} AR: generate {tuple(toks.shape)} in {gen_s:.3f}s, prefill "
+        f"{prefill_ms:.2f} ms, decode {per_step:.3f} ms a step, launches {launches}")
+
+    # decode vs prefill logits: at three steps, the last-token logits of a
+    # prefill over the prompt and the tokens generated before the step,
+    # against a decode of that token from the cache of a prefill of the
+    # rest; then the same with the newest prompt entry dropped from the
+    # cache (a planted fault the check must see).  MoE models run it with
+    # the routing pinned (PinnedMoE)
+    steps = (1, gen // 2, gen - 1)
+    ratios, fault = [], None
+    with PinnedMoE(model) as pin:
+        for i in steps:
+            seq = torch.cat([prompts, toks[:, :i]], dim=1)
+            n = seq.shape[1]
+            pin.record()
+            ref = model.prefill(seq, FAM_AR_SLOTS)[0].float()
+            for planted in ((False, True) if i == steps[-1] else (False,)):
+                pin.replay(slice(0, n - 1))
+                _, c = model.prefill(seq[:, :-1], FAM_AR_SLOTS)
+                if planted:
+                    c["pos"][FAM_AR_PROMPT - 1] = -1
+                pin.replay(slice(n - 1, n))
+                lg = model.decode(c, seq[:, -1:], n - 1)[0].float()
+                r = float((lg - ref).abs().max()) / float(ref.abs().max())
+                if planted:
+                    fault = r
+                else:
+                    ratios.append(r)
+    tol = AR_MOE_LOGIT_RTOL if cfg.moe is not None else AR_LOGIT_RTOL
+    log(f"{cfg.name}: decode vs prefill logits at steps {steps}: ratios "
+        f"{[round(r, 4) for r in ratios]}; {fault:.4f} with the newest prompt "
+        f"entry dropped (tolerance {tol})")
+    check(max(ratios) <= tol < fault,
+          f"{cfg.name}: the logits check does not tell a dropped entry from "
+          f"the served path: {ratios}, {fault}")
+
+    # the decode loop under the profiler
+    logits, cache = eng.prefill_step(prompts)
+
+    def decode_loop():
+        lg, c = logits, cache
+        t = eng.sample_token(lg)
+        for i in range(gen - 1):
+            lg, c = eng.decode_step(c, t[:, None], FAM_AR_PROMPT + i)
+            t = eng.sample_token(lg)
+
+    idle, n_ops, _, busy = profile_device(
+        decode_loop, f"{cfg.name} decode loop, {gen - 1} steps of {AR_BATCH} "
+        f"tokens", decode_wall_ms, gen - 1, "step")
+    del eng
+    return launches, dict(prefill_ms=prefill_ms, decode_ms_per_step=per_step,
+                          tok_s=AR_BATCH * gen / gen_s, idle_share=idle,
+                          busy_ms=busy, ops_per_step=n_ops / (gen - 1),
+                          logit_ratios=ratios, fault_ratio=fault)
+
+
+def phase_families(ku, kf, kd):
+    """deepseek-v2-lite-16b at full width (denoiser, then token model),
+    minitron-4b at full width (denoiser, token model), mixtral-8x7b at full
+    width cut to 4 of its 32 layers (denoiser); one model on the card at a
+    time.  Returns the launches of the served runs and a report."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    total = {"era_update": 0, "flash_attention": 0, "decode_attention": 0}
+    report = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    def token_model(cfg):
+        t0 = time.perf_counter()
+        model = build_model(cfg, seed=0)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        log(f"AR model: {cfg.name} {cfg.num_layers} layers d={cfg.d_model}, "
+            f"{n / 1e9:.3f}B params, built in {time.perf_counter() - t0:.1f}s")
+        return model, n
+
+    ds = get_config("deepseek-v2-lite-16b")
+    check((ds.num_layers, ds.d_model, ds.num_heads, ds.mla.kv_lora_rank,
+           ds.moe.num_experts, ds.moe.top_k, ds.moe.num_shared,
+           ds.moe.d_ff_expert, ds.dtype)
+          == (27, 2048, 16, 512, 64, 6, 2, 1408, torch.bfloat16),
+          f"unexpected config {ds}")
+    dlm = build_dlm(ds)
+    n_dlm = sum(p.numel() for p in dlm.parameters())
+    counts, era = family_era(ku, kf, kd, dlm, SEQ_BUCKETS, fuse=True, profile=True)
+    add(counts)
+    del dlm
+    reserved_mb()
+    model, n_model = token_model(ds)
+    counts, ar = family_ar(ku, kf, kd, model, gen=32)
+    add(counts)
+    del model
+    reserved_mb()
+    report[ds.name] = dict(params_denoiser=n_dlm, params_token_model=n_model,
+                           era=era, ar=ar)
+
+    mt = get_config("minitron-4b")
+    check((mt.num_layers, mt.d_model, mt.num_heads, mt.num_kv_heads)
+          == (32, 3072, 24, 8), f"unexpected config {mt}")
+    dlm = build_dlm(mt)
+    counts, era = family_era(ku, kf, kd, dlm, (256,))
+    add(counts)
+    del dlm
+    reserved_mb()
+    model, n_model = token_model(mt)
+    counts, ar = family_ar(ku, kf, kd, model, gen=16)
+    add(counts)
+    del model
+    reserved_mb()
+    report[mt.name] = dict(params_token_model=n_model, era=era, ar=ar)
+
+    mx = get_config("mixtral-8x7b").with_(num_layers=4)
+    dlm = build_dlm(mx)
+    n_dlm = sum(p.numel() for p in dlm.parameters())
+    counts, era = family_era(ku, kf, kd, dlm, (256,))
+    add(counts)
+    del dlm
+    reserved_mb()
+    report[mx.name] = dict(params_denoiser=n_dlm, era=era,
+                           reduced="4 of 32 layers")
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"families phase: {report['wall_s']:.1f}s")
+    return total, report
+
+
+# ---------------------------------------------------------------------------
+# timing and tracing
+# ---------------------------------------------------------------------------
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
               pick=None) -> float:
     """Mean device time of one call: the profiler's device time of every
@@ -1917,11 +2434,11 @@ def flash_ab(parent_src: str) -> None:
     time each at the three path shapes beside SDPA, in the order given and
     then reversed.  Prints one JSON line per variant and round."""
     import ctypes
+    import importlib.util
+    import re
 
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
-
-    import re
 
     this = (build.CSRC_DIR / kf.SOURCE).read_text()
     consts = {}
@@ -1936,7 +2453,8 @@ def flash_ab(parent_src: str) -> None:
             text = text.replace(f"constexpr int {key} = {consts[key]};",
                                 f"constexpr int {key} = {val};")
         sources[f"BK={bk}, {mb} blocks an SM"] = text
-    sources["parent"] = (Path(parent_src) / "repro_torch" / "csrc" / kf.SOURCE).read_text()
+    parent_dir = Path(parent_src) / "repro_torch"
+    sources["parent"] = (parent_dir / "csrc" / kf.SOURCE).read_text()
     vdir = build.BUILD_DIR / f"flash_ab.{os.getpid()}"
     vdir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -1946,21 +2464,33 @@ def flash_ab(parent_src: str) -> None:
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
+    # the parent's own wrapper module (its C signature may differ), its
+    # library the parent's build
+    spec = importlib.util.spec_from_file_location(
+        "parent_flash_attention", parent_dir / "kernels" / "flash_attention.py")
+    parent = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent)
     libs, regs = {}, {}
     for name, (so, proc) in procs.items():
         text, _ = proc.communicate()
         check(proc.returncode == 0, f"nvcc failed on flash variant {name}:\n{text}")
         regs[name] = parse_ptxas(text).get(128, {})
-        libs[name] = kf.bind(ctypes.CDLL(str(so)))
-    for name, lib in libs.items():
-        kf._library = lambda lib=lib: lib
+        lib = ctypes.CDLL(str(so))
+        libs[name] = parent.bind(lib) if name == "parent" else kf.bind(lib)
+
+    def use(name):
+        """The wrapper module of ``name``, pointed at its build."""
+        mod = parent if name == "parent" else kf
+        mod._library = lambda lib=libs[name]: lib
+        return mod
+
+    for name in libs:
         log(f"flash variant {name}: ptxas hd=128 {regs[name]}, "
-            f"max_abs_err {flash_cases(kf):.3e}")
+            f"max_abs_err {flash_cases(use(name)):.3e}")
     names = list(libs)
     for rnd, order in enumerate((names, names[::-1])):
         for name in order:
-            kf._library = lambda lib=libs[name]: lib
-            t = flash_timings(kf)
+            t = flash_timings(use(name))
             row = dict(variant=name, round=rnd, ptxas_hd128=regs[name])
             for key, shape in (("era", t), ("era_seq128", t["era_seq128"]),
                                ("prefill", t["prefill"])):
@@ -2118,6 +2648,7 @@ def main() -> None:
 
     era_err, era_t = phase_era(ku)
     flash_err, flash_t = flash_cases(kf), flash_timings(kf)
+    flash_mla_t = mla_flash_timings(kf)
     dlm = build_dlm()
     era_launches, drain_s, per_nfe_ms = phase_slice(ku, kf, kd, dlm)
     decode_err, decode_t = phase_decode(kd)
@@ -2125,12 +2656,16 @@ def main() -> None:
     bucketed_launches, bucketed = phase_bucketed(ku, kf, kd, dlm)
     solver_launches, solvers = phase_solvers(ku, kf, kd, dlm)
     frontdoor_launches, frontdoor = phase_frontdoor(ku, kf, kd, dlm)
+    del dlm
+    reserved_mb()
+    families_launches, families = phase_families(ku, kf, kd)
 
     def counts(name):
         by_path = {"era": era_launches[name], "ar": ar_launches[name],
                    "bucketed": bucketed_launches[name],
                    "solvers": solver_launches[name],
-                   "frontdoor": frontdoor_launches[name]}
+                   "frontdoor": frontdoor_launches[name],
+                   "families": families_launches[name]}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -2152,7 +2687,7 @@ def main() -> None:
              bound_by=flash_t["bound_by"], library_ms=flash_t["library_ms"],
              kernel_over_library=flash_t["kernel_over_library"],
              shape=flash_t["shape"], era_seq128=flash_t["era_seq128"],
-             ar_prefill=flash_t["prefill"], ptxas=flash_ptxas),
+             ar_prefill=flash_t["prefill"], mla=flash_mla_t, ptxas=flash_ptxas),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:23",
@@ -2186,6 +2721,7 @@ def main() -> None:
         f"{ar['rope_op_share']:.3f} of its device ops")
     log(json.dumps({"solvers": solvers}))
     log(json.dumps({"frontdoor": frontdoor}))
+    log(json.dumps({"families": families}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

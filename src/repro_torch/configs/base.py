@@ -1,9 +1,10 @@
-"""Model configuration: the :class:`ModelConfig` fields the dense family reads.
+"""Model configuration: :class:`ModelConfig` and its MoE / MLA sub-configs.
 
-Ports ``repro.configs.base`` for the dense architectures the port serves
-(qwen2-1.5b, llama3.2-1b), on the diffusion and the autoregressive paths.
-Dtypes are torch dtypes.  The MoE / MLA / SSM / frontend sub-configs wait
-for the slices that port those families.
+Ports ``repro.configs.base`` for the families the port serves: dense
+(qwen2-1.5b, llama3.2-1b, minitron-4b, deepseek-67b) and MoE (mixtral-8x7b
+with the ``moe`` block, deepseek-v2-lite-16b with ``mla_moe``), on the
+diffusion and the autoregressive paths.  Dtypes are torch dtypes.  The SSM
+and frontend sub-configs wait for the slice that ports those families.
 """
 
 from __future__ import annotations
@@ -16,9 +17,35 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared: int = 0            # always-active shared experts (DeepSeek)
+    capacity_factor: float = 1.25
+    dispatch_group: int = 4096     # tokens per capacity group
+    router_z_loss: float = 1e-3
+    aux_loss_weight: float = 1e-2
+    # dispatch strategy: "dropping" (capacity scatter, default) or
+    # "dense_mix" (every expert on every token: the test oracle)
+    dispatch: str = "dropping"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0           # 0 => full-rank q projection (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | moe (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -39,6 +66,9 @@ class ModelConfig:
     mlp_act: str = "silu"          # silu (swiglu) | gelu (geglu)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # ---- substructures ----
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     num_meta_tokens: int = 0       # Hymba learnable prefix tokens
     # ---- numerics / system ----
     dtype: Any = torch.bfloat16    # compute dtype of the block stack
@@ -62,11 +92,11 @@ class ModelConfig:
     def blocks(self) -> tuple[tuple[str, int], ...]:
         if self.stack_pattern:
             return self.stack_pattern
-        if self.family != "dense":
+        if self.family not in ("dense", "moe"):
             raise ValueError(
                 f"{self.name}: family {self.family!r} is not ported yet"
             )
-        return (("dense", self.num_layers),)
+        return ((self.family, self.num_layers),)
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -74,8 +104,7 @@ class ModelConfig:
     def smoke(self) -> "ModelConfig":
         """Reduced variant for CPU tests (same family, tiny dims) — the
         same reductions as the reference's ``ModelConfig.smoke``."""
-        return self.with_(
-            name=self.name + "-smoke",
+        kw: dict[str, Any] = dict(
             num_layers=2,
             d_model=min(self.d_model, 128),
             num_heads=min(self.num_heads, 4),
@@ -93,3 +122,28 @@ class ModelConfig:
             long_context_window=64,
             attn_chunk=64,
         )
+        if self.moe:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_ff_expert=min(self.moe.d_ff_expert, 128),
+                num_shared=min(self.moe.num_shared, 1),
+            )
+        if self.mla:
+            kw["mla"] = dataclasses.replace(
+                self.mla,
+                kv_lora_rank=64,
+                qk_nope_head_dim=32,
+                qk_rope_head_dim=16,
+                v_head_dim=32,
+            )
+        if self.stack_pattern:
+            # shrink the pattern to 2 layers, keeping >=1 of each block kind
+            kinds = []
+            for kind, _ in self.stack_pattern:
+                if kind not in kinds:
+                    kinds.append(kind)
+            kw["stack_pattern"] = tuple((k, 1) for k in kinds[:2]) or ()
+            kw["num_layers"] = sum(c for _, c in kw["stack_pattern"])
+        return self.with_(name=self.name + "-smoke", **kw)

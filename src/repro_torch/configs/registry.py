@@ -1,7 +1,10 @@
 """Architecture registry of the port: ``get_config(name, smoke=...)`` and
 ``long_context_policy``.
 
-Only the dense architectures are ported; asking for another one raises."""
+The dense architectures (llama3.2-1b, qwen2-1.5b, minitron-4b,
+deepseek-67b) and the MoE ones (mixtral-8x7b, deepseek-v2-lite-16b) are
+ported; asking for another one (the SSM, hybrid, audio and vision
+families) raises."""
 
 from __future__ import annotations
 
@@ -13,6 +16,10 @@ from repro_torch.configs.base import ModelConfig
 ALIASES = {
     "llama3.2-1b": "llama3_2_1b",
     "qwen2-1.5b": "qwen2_1_5b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "deepseek-67b": "deepseek_67b",
+    "minitron-4b": "minitron_4b",
 }
 
 

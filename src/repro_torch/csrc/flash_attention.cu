@@ -8,6 +8,11 @@
 // optional per-row kv_mask, an optional tanh softcap, and zeros for a row
 // whose every key is masked.  It reads and writes the model layout
 // (B, S, H, hd) directly: no transposes, and kv heads are never replicated.
+// The value head dim may differ from the query/key head dim: the instances
+// are (32,32), (64,64), (128,128) and, for DeepSeek's MLA, (192,128) (q and
+// k of 128 "nope" + 64 rope dims, v of 128).  The reference pads v to 192
+// and slices the output back; keeping v at 128 reads a third fewer V bytes
+// and holds a third fewer output accumulators.
 //
 // Bound.  At the ERA path's shape (B=8, S=256, H=12, KV=2, hd=128,
 // non-causal) the work is 4*B*H*S*S*hd = 3.2 GFLOP against 14.7 MB of
@@ -85,17 +90,19 @@ constexpr int BK = 32;          // keys per kv tile
 constexpr int NWARPS = BQ / 16; // one warp per 16 query rows
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MIN_BLOCKS = 3;   // blocks an SM must hold: <= 168 registers
+// the (192,128) instance keeps 48 registers of Q fragments a thread more
+// than (128,128): two blocks an SM (<= 255 registers) keep it from spilling
+constexpr int MIN_BLOCKS_WIDE = 2;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int Q_PAD_POS = -1000000000;  // position of a query row past Sq
-static_assert(BQ <= 2 * BK, "Q is staged in the second stage's K and V buffers");
 static_assert(2 * BK <= NTHREADS, "one thread a kv_pos and a kv_mask entry");
 
 struct Params {
   const bf16* q;       // (B, Sq, H, hd)
   const bf16* k;       // (B, Sk, KV, hd)
-  const bf16* v;       // (B, Sk, KV, hd)
-  bf16* o;             // (B, Sq, H, hd)
+  const bf16* v;       // (B, Sk, KV, hd_v)
+  bf16* o;             // (B, Sq, H, hd_v)
   const int* q_pos;    // (Sq,)
   const int* kv_pos;   // (Sk,), < 0 = invalid slot
   const int* kv_mask;  // (B, Sk), 0 = masked key; may be null
@@ -104,14 +111,21 @@ struct Params {
   int window, causal, protected_;
 };
 
-// Shared memory: K0 V0 K1 V1 tiles (bf16, pitch LDB), the two tiles' kv_pos
-// and kv_mask entries, the block's q positions and their min/max, then two
-// bitmasks over the kv tiles (live, full), sized at launch.
-template <int HD>
+// Shared memory: the K0 V0 K1 V1 tiles (bf16, pitches LDK and LDV; Q is
+// staged from stage 1 on before the loop, the output in stage 0 after it),
+// the two tiles' kv_pos and kv_mask entries, the block's q positions and
+// their min/max, then two bitmasks over the kv tiles (live, full), sized at
+// launch.
+template <int HD, int HDV>
 struct Smem {
-  static constexpr int LDB = HD + 8;
-  static constexpr size_t tile = size_t(BK) * LDB * 2;
-  static constexpr size_t kp_off = 4 * tile;
+  static constexpr int LDK = HD + 8;
+  static constexpr int LDV = HDV + 8;
+  static constexpr size_t ktile = size_t(BK) * LDK * 2;
+  static constexpr size_t stage = ktile + size_t(BK) * LDV * 2;
+  static constexpr size_t qbytes = size_t(BQ) * LDK * 2;
+  static constexpr size_t kv_bytes = stage + (qbytes > stage ? qbytes : stage);
+  static_assert(size_t(BQ) * LDV * 2 <= kv_bytes, "the output stages in the tiles");
+  static constexpr size_t kp_off = kv_bytes;
   static constexpr size_t km_off = kp_off + 2 * BK * 4;
   static constexpr size_t qp_off = km_off + 2 * BK * 4;
   static constexpr size_t red_off = qp_off + BQ * 4;
@@ -194,16 +208,19 @@ __device__ __forceinline__ int next_tile(const uint32_t* bits, int t, int nk) {
   return nk;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const Params p) {
-  using L = Smem<HD>;
-  constexpr int LDB = L::LDB;
-  constexpr int VPR = HD / 8;  // 16-byte vectors per row
+template <int HD, int HDV>
+__global__ void __launch_bounds__(NTHREADS, HD > 128 ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
+    flash_fwd_kernel(const Params p) {
+  using L = Smem<HD, HDV>;
+  constexpr int LDK = L::LDK;
+  constexpr int LDV = L::LDV;
+  constexpr int VPR = HD / 8;    // 16-byte vectors per Q / K row
+  constexpr int VPRV = HDV / 8;  // and per V / output row
   extern __shared__ __align__(128) unsigned char smem[];
-  // stage s: K at 2s tiles, V at 2s + 1 tiles (offsets, not a pointer
-  // array, so a run-time stage index stays in registers)
-  auto k_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + 2 * s * L::tile); };
-  auto v_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + (2 * s + 1) * L::tile); };
+  // stage s: K, then V (offsets, not a pointer array, so a run-time stage
+  // index stays in registers)
+  auto k_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + s * L::stage); };
+  auto v_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + s * L::stage + L::ktile); };
   int* Kp = reinterpret_cast<int*>(smem + L::kp_off);  // [2][BK] kv_pos
   int* Km = reinterpret_cast<int*>(smem + L::km_off);  // [2][BK] kv_mask
   int* Qp = reinterpret_cast<int*>(smem + L::qp_off);  // [BQ] q_pos
@@ -229,16 +246,16 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const P
   const int kv_stride = p.KV * HD;
   const long q_off = (long(b) * p.Sq * p.H + h) * HD;
   const long kv_off = (long(b) * p.Sk * p.KV + kvh) * HD;
+  const long v_off = (long(b) * p.Sk * p.KV + kvh) * HDV;
   const long mask_off = long(b) * p.Sk;
   const bool masked = p.kv_mask != nullptr;
 
-  // Q into the second stage's buffers (K, then V when BQ > BK); rows past
-  // Sq are zeros
+  // Q from the second stage's K buffer on; rows past Sq are zeros
   bf16* Qs = k_tile(1);
   for (int idx = tid; idx < BQ * VPR; idx += NTHREADS) {
     const int r = idx / VPR, c = (idx % VPR) * 8;
     const bool in = q0 + r < p.Sq;
-    cp_async16(Qs + r * LDB + c, p.q + (in ? q_off + long(q0 + r) * q_stride + c : 0), in);
+    cp_async16(Qs + r * LDK + c, p.q + (in ? q_off + long(q0 + r) * q_stride + c : 0), in);
   }
   cp_async_commit();
 
@@ -309,8 +326,17 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const P
       const int r = idx / VPR, c = (idx % VPR) * 8;
       const bool in = k0 + r < p.Sk;
       const long off = in ? kv_off + long(k0 + r) * kv_stride + c : 0;
-      cp_async16(k_tile(s) + r * LDB + c, p.k + off, in);
-      cp_async16(v_tile(s) + r * LDB + c, p.v + off, in);
+      cp_async16(k_tile(s) + r * LDK + c, p.k + off, in);
+      if (HDV == HD) cp_async16(v_tile(s) + r * LDV + c, p.v + off, in);
+    }
+    if (HDV != HD) {
+#pragma unroll 1
+      for (int idx = tid; idx < BK * VPRV; idx += NTHREADS) {
+        const int r = idx / VPRV, c = (idx % VPRV) * 8;
+        const bool in = k0 + r < p.Sk;
+        const long off = in ? v_off + long(k0 + r) * p.KV * HDV + c : 0;
+        cp_async16(v_tile(s) + r * LDV + c, p.v + off, in);
+      }
     }
     const int j = k0 + (tid % BK);
     const bool in = j < p.Sk;
@@ -334,7 +360,7 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const P
   uint32_t qf[HD / 16][4];
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    ldsm_x4(qf[kk], Qs + (row0 + (lane & 15)) * LDB + kk * 16 + (lane >> 4) * 8);
+    ldsm_x4(qf[kk], Qs + (row0 + (lane & 15)) * LDK + kk * 16 + (lane >> 4) * 8);
   __syncthreads();  // Q's buffer is the first prefetch's target
 
   // this thread's rows: g and g + 8 of the warp's 16; columns 2*t4, +1 of
@@ -346,9 +372,9 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const P
   const float mul = capped ? LOG2E : p.scale * LOG2E;
   const float cap_in = capped ? p.scale / p.softcap : 0.f;
 
-  float o[HD / 8][4];
+  float o[HDV / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < HDV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF};
   float l_run[2] = {0.f, 0.f};
 
@@ -376,7 +402,7 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const P
 #pragma unroll
       for (int jp = 0; jp < BK / 16; ++jp) {
         uint32_t kb[4];
-        ldsm_x4(kb, Kt + (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDB + kk * 16 +
+        ldsm_x4(kb, Kt + (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDK + kk * 16 +
                         ((lane >> 3) & 1) * 8);
         mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
         mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
@@ -432,7 +458,7 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const P
       l_run[r] = l_run[r] * alpha[r] + sum;  // this thread's columns only
     }
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < HDV / 8; ++n) {
       o[n][0] *= alpha[0];
       o[n][1] *= alpha[0];
       o[n][2] *= alpha[1];
@@ -447,9 +473,9 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const P
           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
+      for (int np = 0; np < HDV / 16; ++np) {
         uint32_t vb[4];
-        ldsm_x4_trans(vb, Vt + (kk * 16 + (lane & 15)) * LDB + np * 16 + (lane >> 4) * 8);
+        ldsm_x4_trans(vb, Vt + (kk * 16 + (lane & 15)) * LDV + np * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * np], pa, vb[0], vb[1]);
         mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
       }
@@ -462,23 +488,24 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) flash_fwd_kernel(const P
 
   // O / l as bf16, staged in the first stage's buffers (free after the
   // loop's last barrier), then written in 16-byte rows
-  bf16* Os = k_tile(0) + row0 * LDB;
+  bf16* Os = k_tile(0) + row0 * LDV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float l = quad_sum(l_run[r]);
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8 * r) * LDB + 8 * n + 2 * t4) =
+    for (int n = 0; n < HDV / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8 * r) * LDV + 8 * n + 2 * t4) =
           __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
   }
   __syncwarp();
-  for (int idx = lane; idx < 16 * VPR; idx += 32) {
-    const int r = idx / VPR, c = (idx % VPR) * 8;
+  const long o_off = (long(b) * p.Sq * p.H + h) * HDV;
+  for (int idx = lane; idx < 16 * VPRV; idx += 32) {
+    const int r = idx / VPRV, c = (idx % VPRV) * 8;
     const int qi = q0 + row0 + r;
     if (qi < p.Sq)
-      *reinterpret_cast<uint4*>(p.o + q_off + long(qi) * q_stride + c) =
-          *reinterpret_cast<const uint4*>(Os + r * LDB + c);
+      *reinterpret_cast<uint4*>(p.o + o_off + long(qi) * p.H * HDV + c) =
+          *reinterpret_cast<const uint4*>(Os + r * LDV + c);
   }
 }
 
@@ -486,7 +513,7 @@ constexpr int MAX_DEVICES = 64;
 
 // Raise the instance's dynamic shared-memory cap to the card's opt-in
 // maximum, once per card (a launch still asks only for what its Sk needs).
-template <int HD>
+template <int HD, int HDV>
 cudaError_t allow_smem() {
   static int done[MAX_DEVICES] = {0};
   int dev = 0;
@@ -497,32 +524,35 @@ cudaError_t allow_smem() {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
+  err = cudaFuncSetAttribute(flash_fwd_kernel<HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done[dev] = 1;
   return err;
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  cudaError_t err = allow_smem<HD>();
+  cudaError_t err = allow_smem<HD, HDV>();
   if (err != cudaSuccess) return err;
   const int nk = (p.Sk + BK - 1) / BK;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  flash_fwd_kernel<HD><<<grid, NTHREADS, Smem<HD>::bytes(nk), stream>>>(p);
+  flash_fwd_kernel<HD, HDV><<<grid, NTHREADS, Smem<HD, HDV>::bytes(nk), stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HDV>
 int blocks_per_sm(int Sk) {
   int blocks = -1;
-  if (allow_smem<HD>() != cudaSuccess) return -1;
-  const size_t bytes = Smem<HD>::bytes((Sk + BK - 1) / BK);
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_kernel<HD>, NTHREADS,
-                                                    bytes) != cudaSuccess)
+  if (allow_smem<HD, HDV>() != cudaSuccess) return -1;
+  const size_t bytes = Smem<HD, HDV>::bytes((Sk + BK - 1) / BK);
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_kernel<HD, HDV>,
+                                                    NTHREADS, bytes) != cudaSuccess)
     return -1;
   return blocks;
 }
+
+// the head-dim pairs (q/k, v) with an instance
+#define FLASH_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128) X(192, 128)
 
 }  // namespace
 
@@ -531,7 +561,7 @@ int blocks_per_sm(int Sk) {
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     const int* q_pos, const int* kv_pos, const int* kv_mask,
-    int B, int H, int KV, int Sq, int Sk, int hd,
+    int B, int H, int KV, int Sq, int Sk, int hd, int hd_v,
     float scale, float softcap, int window, int causal, int protected_,
     void* stream) {
   Params p;
@@ -553,33 +583,30 @@ extern "C" int repro_flash_attention_fwd(
   p.causal = causal;
   p.protected_ = protected_;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32: return int(launch<32>(p, s));
-    case 64: return int(launch<64>(p, s));
-    case 128: return int(launch<128>(p, s));
-    default: return int(cudaErrorInvalidValue);
-  }
+#define FLASH_LAUNCH(D, DV) \
+  if (hd == D && hd_v == DV) return int(launch<D, DV>(p, s));
+  FLASH_INSTANCES(FLASH_LAUNCH)
+#undef FLASH_LAUNCH
+  return int(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of one block for head dim `hd` and `Sk` keys, or
-// -1 for an unsupported head dim.
-extern "C" long long repro_flash_attention_smem_bytes(int hd, int Sk) {
+// Dynamic shared memory of one block for head dims (`hd`, `hd_v`) and `Sk`
+// keys, or -1 for an unsupported pair.
+extern "C" long long repro_flash_attention_smem_bytes(int hd, int hd_v, int Sk) {
   const int nk = (Sk + BK - 1) / BK;
-  switch (hd) {
-    case 32: return (long long)Smem<32>::bytes(nk);
-    case 64: return (long long)Smem<64>::bytes(nk);
-    case 128: return (long long)Smem<128>::bytes(nk);
-    default: return -1;
-  }
+#define FLASH_SMEM(D, DV) \
+  if (hd == D && hd_v == DV) return (long long)Smem<D, DV>::bytes(nk);
+  FLASH_INSTANCES(FLASH_SMEM)
+#undef FLASH_SMEM
+  return -1;
 }
 
-// Blocks of head dim `hd` and `Sk` keys that one SM holds at once (the
-// CUDA occupancy API, on the current card), or -1 on an error.
-extern "C" int repro_flash_attention_blocks_per_sm(int hd, int Sk) {
-  switch (hd) {
-    case 32: return blocks_per_sm<32>(Sk);
-    case 64: return blocks_per_sm<64>(Sk);
-    case 128: return blocks_per_sm<128>(Sk);
-    default: return -1;
-  }
+// Blocks of head dims (`hd`, `hd_v`) and `Sk` keys that one SM holds at
+// once (the CUDA occupancy API, on the current card), or -1 on an error.
+extern "C" int repro_flash_attention_blocks_per_sm(int hd, int hd_v, int Sk) {
+#define FLASH_OCC(D, DV) \
+  if (hd == D && hd_v == DV) return blocks_per_sm<D, DV>(Sk);
+  FLASH_INSTANCES(FLASH_OCC)
+#undef FLASH_OCC
+  return -1;
 }

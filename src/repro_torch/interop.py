@@ -14,10 +14,16 @@ to a numpy array and returns a state dict for ``load_state_dict``:
   ``padded_vocab`` rows, so it is copied as it is.
 
 The reference stacks each segment's per-layer parameters on a leading
-layer axis under ``segs["<i>_<kind>"]``; a linear weight is ``(d_in,
+layer axis under ``segs["<i>_<kind>"]``; layer ``j`` of a segment is the
+port's ``backbone.layers.<first + j>``, and the keys below it are the
+reference's nested keys joined by dots in both packages: ``ln1.scale``,
+``attn.{wq,wk,wv,wo}.{w,b}`` and ``mlp.{wi,wg,wo}.w`` (dense),
+``moe.router.w``, ``moe.experts.{wi,wg,wo}`` ((E, d, f) / (E, f, d)) and
+``moe.shared.{wi,wg,wo}.w`` (moe, mla_moe), ``mla.{wq,wkv_a,wkv_b,wo}.w``
+and ``mla.ckv_norm.scale`` (mla_moe).  A linear weight is ``(d_in,
 d_out)`` in both packages, so nothing is transposed.  qwen2 has biases on
 wq/wk/wv, llama has none.  Loading casts each tensor to the dtype of the
-module parameter it fills.
+module parameter it fills (the MoE router stays float32).
 """
 
 from __future__ import annotations
@@ -34,12 +40,22 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def _linear(prefix: str, p: dict, layer: int | None = None) -> dict:
-    pick = (lambda a: a) if layer is None else (lambda a: a[layer])
-    out = {f"{prefix}.w": _t(pick(p["w"]))}
-    if "b" in p:
-        out[f"{prefix}.b"] = _t(pick(p["b"]))
-    return out
+def _linear(prefix: str, p: dict) -> dict:
+    return {f"{prefix}.{name}": _t(p[name]) for name in ("w", "b") if name in p}
+
+
+#: block kinds whose reference parameters map in
+PORTED_BLOCKS = ("dense", "moe", "mla_moe")
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    """(dotted key, array) of every leaf of a nested dict."""
+    for name, sub in tree.items():
+        key = f"{prefix}.{name}" if prefix else name
+        if isinstance(sub, dict):
+            yield from _leaves(sub, key)
+        else:
+            yield key, sub
 
 
 def _backbone(segs: dict, final_norm: dict, cfg: ModelConfig) -> dict:
@@ -48,17 +64,12 @@ def _backbone(segs: dict, final_norm: dict, cfg: ModelConfig) -> dict:
     sd: dict[str, torch.Tensor] = {}
     layer0 = 0
     for seg_i, (kind, count) in enumerate(cfg.blocks):
-        if kind != "dense":
+        if kind not in PORTED_BLOCKS:
             raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-        seg = segs[f"{seg_i}_{kind}"]
+        leaves = list(_leaves(segs[f"{seg_i}_{kind}"]))
         for j in range(count):
-            pre = f"backbone.layers.{layer0 + j}"
-            sd[f"{pre}.ln1.scale"] = _t(seg["ln1"]["scale"][j])
-            sd[f"{pre}.ln2.scale"] = _t(seg["ln2"]["scale"][j])
-            for name in ("wq", "wk", "wv", "wo"):
-                sd.update(_linear(f"{pre}.attn.{name}", seg["attn"][name], j))
-            for name in seg["mlp"]:
-                sd.update(_linear(f"{pre}.mlp.{name}", seg["mlp"][name], j))
+            for key, stacked in leaves:
+                sd[f"backbone.layers.{layer0 + j}.{key}"] = _t(stacked[j])
         layer0 += count
     sd["backbone.final_norm.scale"] = _t(final_norm["scale"])
     return sd

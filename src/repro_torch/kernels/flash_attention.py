@@ -11,7 +11,10 @@ the next K/V tile is copied by ``cp.async`` while the current one is
 computed, and kv tiles that no (query, key) pair of the block can use are
 skipped, decided from the positions and ``kv_mask``.  GQA reads kv head
 ``h // G`` by index, and the kernel reads and writes the model layout
-``(B, S, H, hd)`` with no transposes.  It is built with ``nvcc`` for
+``(B, S, H, hd)`` with no transposes.  The value head dim may differ from
+the query/key one: the instances are (32,32), (64,64), (128,128) and, for
+MLA, (192,128); a CUDA tensor of another pair raises.  It is built with
+``nvcc`` for
 ``sm_90a`` at first use and bound with ctypes; the C entry point returns
 ``cudaGetLastError()`` after the launch and the wrapper raises if it is
 not 0.
@@ -19,8 +22,8 @@ not 0.
 Semantics (shared with :func:`flash_attention_plain`): keys with
 ``kv_pos < 0`` or a zero ``kv_mask`` entry are invalid; causal, window and
 protected-sink predicates apply on positions; an optional tanh softcap
-applies to the scaled scores; ``scale = hd ** -0.5``; a query row with no
-valid key gives zeros.
+applies to the scaled scores; ``scale = hd ** -0.5`` with ``hd`` the
+query/key head dim; a query row with no valid key gives zeros.
 """
 
 from __future__ import annotations
@@ -35,14 +38,15 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 NEG_INF = -1e30
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+#: (query/key head dim, value head dim) of each kernel instance
+HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128))
 MAX_GRID_Y = 65535
 
 
 def flash_attention_plain(
     q: Tensor,          # (B, Sq, H, hd)
     k: Tensor,          # (B, Sk, KV, hd)
-    v: Tensor,          # (B, Sk, KV, hd)
+    v: Tensor,          # (B, Sk, KV, hd_v)
     q_pos: Tensor,      # (Sq,) int
     kv_pos: Tensor,     # (Sk,) int, < 0 = invalid slot
     *,
@@ -78,10 +82,14 @@ def flash_attention_plain(
     any_valid = torch.amax(s, dim=-1, keepdim=True) > NEG_INF / 2
     w = torch.where(any_valid, w, torch.zeros((), device=w.device))
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
 def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
+    if (q.shape[-1], v.shape[-1]) not in HEAD_DIM_PAIRS:
+        raise ValueError(
+            f"flash_attention: head dims (q/k {q.shape[-1]}, v {v.shape[-1]}) "
+            f"not in {HEAD_DIM_PAIRS}")
     tensors = [("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
                ("kv_pos", kv_pos)]
     if kv_mask is not None:
@@ -103,9 +111,8 @@ def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
             raise TypeError(f"flash_attention: {name} must be int32, got {t.dtype}")
     b, sq, h, hd = q.shape
     _, sk, kvh, _ = k.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
-    if k.shape != (b, sk, kvh, hd) or v.shape != k.shape:
+    hd_v = v.shape[-1]
+    if k.shape != (b, sk, kvh, hd) or v.shape != (b, sk, kvh, hd_v):
         raise ValueError(
             f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
             f"match q {tuple(q.shape)}"
@@ -133,7 +140,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.repro_flash_attention_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 6
+        + [ctypes.c_int] * 7
         + [ctypes.c_float] * 2
         + [ctypes.c_int] * 3
         + [ctypes.c_void_p]
@@ -145,7 +152,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def flash_attention(
     q: Tensor,          # (B, Sq, H, hd) model layout
     k: Tensor,          # (B, Sk, KV, hd)
-    v: Tensor,
+    v: Tensor,          # (B, Sk, KV, hd_v)
     q_pos: Tensor,      # (Sq,)
     kv_pos: Tensor,     # (Sk,)
     *,
@@ -155,9 +162,9 @@ def flash_attention(
     softcap: float = 0.0,
     protected: int = 0,
 ) -> Tensor:
-    """GQA flash attention in the model layout.  CPU tensors take
-    :func:`flash_attention_plain`; CUDA tensors launch the kernel (bf16,
-    head_dim 32/64/128) or raise."""
+    """GQA flash attention in the model layout; returns (B, Sq, H, hd_v).
+    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
+    kernel (bf16, a head-dim pair of :data:`HEAD_DIM_PAIRS`) or raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, q_pos, kv_pos, kv_mask=kv_mask, window=window,
@@ -167,13 +174,13 @@ def flash_attention(
         kv_mask = kv_mask.to(torch.int32)
     _check(q, k, v, q_pos, kv_pos, kv_mask)
     b, sq, h, hd = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    sk, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty(b, sq, h, hd_v)
     err = _library().repro_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_pos.data_ptr(), kv_pos.data_ptr(),
         None if kv_mask is None else kv_mask.data_ptr(),
-        b, h, kvh, sq, sk, hd,
+        b, h, kvh, sq, sk, hd, hd_v,
         hd**-0.5, float(softcap), int(window), int(causal), int(protected),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -94,7 +94,7 @@ def _naive_sdpa(
     any_valid = torch.amax(scores, dim=-1, keepdim=True) > NEG_INF / 2
     w = torch.where(any_valid, w, torch.zeros((), device=w.device))
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
-    return out.reshape(b, sq, h, hd)
+    return out.reshape(b, sq, h, v.shape[-1])
 
 
 def _chunked_sdpa(
@@ -114,7 +114,8 @@ def _chunked_sdpa(
         if kv_mask is not None:
             kv_mask = F.pad(kv_mask, (0, pad))
     qg = (q * hd**-0.5).reshape(b, sq, kvh, g, hd)
-    acc = torch.zeros((b, sq, kvh, g, hd), dtype=torch.float32, device=q.device)
+    hd_v = v.shape[-1]
+    acc = torch.zeros((b, sq, kvh, g, hd_v), dtype=torch.float32, device=q.device)
     m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, sq, kvh, g), dtype=torch.float32, device=q.device)
     zero = torch.zeros((), device=q.device)
@@ -138,7 +139,7 @@ def _chunked_sdpa(
         l = l * scale + torch.sum(p, dim=-1)
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    return out.reshape(b, sq, h, hd_v).to(q.dtype)
 
 
 def resolve_impl(impl: str, device: torch.device, sq: int, sk: int) -> str:
@@ -181,8 +182,10 @@ def sdpa(
     protected: int = 0,
     kv_mask: Tensor | None = None,
 ) -> Tensor:
-    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); ``kv_mask`` an optional
-    (B, Sk) per-row key-validity mask (right-padded mixed-length rows)."""
+    """q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B, Sk, KV, hd_v) (hd_v may
+    differ from hd, as in MLA); ``kv_mask`` an optional (B, Sk) per-row
+    key-validity mask (right-padded mixed-length rows).  Returns (B, Sq, H,
+    hd_v)."""
     sq, sk = q.shape[1], k.shape[1]
     impl = resolve_impl(impl, q.device, sq, sk)
     kw = dict(window=window, causal=causal, softcap=softcap,

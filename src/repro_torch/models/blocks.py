@@ -1,6 +1,8 @@
-"""Blocks of the port (``repro.models.blocks``): the dense block only.
-
-The MoE, MLA, SSM, hymba and whisper blocks wait for later slices."""
+"""Blocks of the port (``repro.models.blocks``): ``dense`` (llama / qwen /
+minitron / deepseek-67b), ``moe`` (mixtral: GQA attention with its sliding
+window, then the MoE FFN) and ``mla_moe`` (deepseek-v2-lite: MLA, then the
+MoE FFN).  The MoE FFN's aux losses are dropped here; only training reads
+them.  The SSM, hymba and whisper blocks wait for a later slice."""
 
 from __future__ import annotations
 
@@ -9,6 +11,8 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import Attention
+from repro_torch.models.mla import MLA
+from repro_torch.models.moe import MoE
 
 Tensor = torch.Tensor
 
@@ -23,7 +27,13 @@ class DenseBlock(nn.Module):
         self.ln1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         self.attn = Attention(cfg, **kw)
         self.ln2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self._build_ffn(cfg, kw)
+
+    def _build_ffn(self, cfg, kw) -> None:
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, **kw)
+
+    def _ffn(self, h: Tensor) -> Tensor:
+        return self.mlp(h)
 
     def forward(
         self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
@@ -40,7 +50,40 @@ class DenseBlock(nn.Module):
             h, mode=mode, cache=cache, layer=layer, pos=pos, window=window,
             causal=causal, lengths=lengths,
         )
-        return x + self.mlp(self.ln2(x))
+        return x + self._ffn(self.ln2(x))
 
 
-BLOCKS = {"dense": DenseBlock}
+class MoEBlock(DenseBlock):
+    """The dense block with the MoE FFN in place of the MLP (mixtral)."""
+
+    def _build_ffn(self, cfg, kw) -> None:
+        self.moe = MoE(cfg, **kw)
+
+    def _ffn(self, h: Tensor) -> Tensor:
+        return self.moe(h)[0]
+
+
+class MLAMoEBlock(nn.Module):
+    """MLA + MoE FFN (deepseek-v2-lite).  MLA ignores ``window_override``
+    and ``causal``, as the reference's ``mla_moe_apply`` does."""
+
+    def __init__(self, cfg, *, generator, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.ln1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.mla = MLA(cfg, **kw)
+        self.ln2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.moe = MoE(cfg, **kw)
+
+    def forward(
+        self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
+        layer: int = 0, pos: int | None = None, window_override: int = -1,
+        causal: bool = True, lengths: Tensor | None = None,
+    ) -> Tensor:
+        x = x + self.mla(self.ln1(x), mode=mode, cache=cache, layer=layer,
+                         pos=pos, lengths=lengths)
+        return x + self.moe(self.ln2(x))[0]
+
+
+BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "mla_moe": MLAMoEBlock}

@@ -1,13 +1,16 @@
 """Model assembly (port of ``repro.models.model``): the block stack, and the
 token model that serves the autoregressive path.
 
-:class:`Backbone` is the dense block stack and ``final_norm``; the
-diffusion denoiser runs it on embedded states.  :class:`Model` adds the
-token embedding and the LM head (tied to ``embed.T`` where the config ties
-them) and mirrors the reference ``Model``'s cache, ``prefill`` and
-``decode``.  The reference scans stacked per-layer parameters; here the
-layers are a ``ModuleList`` run in order.  The meta-token and image-patch
-prefixes, and the families other than dense, wait for later slices.
+:class:`Backbone` is the block stack (the kinds of
+:data:`repro_torch.models.blocks.BLOCKS`: dense, moe, mla_moe) and
+``final_norm``; the diffusion denoiser runs it on embedded states.
+:class:`Model` adds the token embedding and the LM head (tied to
+``embed.T`` where the config ties them) and mirrors the reference
+``Model``'s cache, ``prefill`` and ``decode``: a K/V cache for attention
+stacks, the latent cache for MLA stacks.  The reference scans stacked
+per-layer parameters; here the layers are a ``ModuleList`` run in order.
+The meta-token and image-patch prefixes, and the SSM, hybrid, audio and
+vision block kinds, wait for later slices.
 """
 
 from __future__ import annotations
@@ -17,10 +20,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models.blocks import BLOCKS
+
+#: block kinds whose decode cache is the attention K/V cache, and the MLA one
+KV_CACHE_BLOCKS = frozenset({"dense", "moe"})
+MLA_CACHE_BLOCKS = frozenset({"mla_moe"})
 
 Tensor = torch.Tensor
 
@@ -31,7 +39,10 @@ class Backbone(nn.Module):
         layers = []
         for kind, count in cfg.blocks:
             if kind not in BLOCKS:
-                raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+                raise NotImplementedError(
+                    f"block kind {kind!r} is not ported yet (ROADMAP, queue "
+                    f"'modules to port', item 'Other denoiser families')"
+                )
             layers += [
                 BLOCKS[kind](cfg, generator=generator, device=device,
                              dtype=cfg.dtype)
@@ -73,22 +84,26 @@ class Model(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if cfg.family != "dense":
+        kinds = {kind for kind, _ in cfg.blocks}
+        if not (kinds <= KV_CACHE_BLOCKS or kinds <= MLA_CACHE_BLOCKS):
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                f"(ROADMAP queue 1 item 6)"
+                f"{cfg.name}: block kinds {sorted(kinds)} are not ported yet "
+                f"(ROADMAP, queue 'modules to port', item 'Other denoiser "
+                f"families')"
             )
         if cfg.kv_quant != "none":
             raise NotImplementedError(
                 f"kv_quant={cfg.kv_quant!r}: the int8 KV cache is not ported "
-                f"yet (ROADMAP queue 1 item 7)"
+                f"yet (ROADMAP, queue 'modules to port', item 'Autoregressive "
+                f"path: the rest')"
             )
         if cfg.num_meta_tokens:
             raise NotImplementedError(
-                "meta-token prefixes are not ported yet (ROADMAP queue 1 item 7)"
+                "meta-token prefixes are not ported yet (ROADMAP, queue "
+                "'modules to port', item 'Autoregressive path: the rest')"
             )
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         d = cfg.d_model
         self.config = cfg
         self.embed = nn.Parameter(
@@ -107,15 +122,25 @@ class Model(nn.Module):
         return self.embed.device
 
     # ---- caches ----
-    def _slots_for(self, slots: int) -> int:
-        """Sliding-window blocks only need ring buffers of window size."""
-        window = self.config.sliding_window
-        return min(slots, window) if window > 0 else slots
+    def _slots_for(self, kind: str, slots: int) -> int:
+        """Sliding-window blocks only need ring buffers of window size (the
+        reference's rule; MLA keeps every slot)."""
+        cfg = self.config
+        if kind in KV_CACHE_BLOCKS and cfg.sliding_window > 0:
+            return min(slots, cfg.sliding_window + cfg.num_meta_tokens)
+        return slots
 
     def init_cache(self, batch: int, slots: int) -> dict:
+        """The stack's decode cache, by block kind: the K/V cache of an
+        attention stack, or the latent cache of an MLA stack."""
         cfg = self.config
+        kind = cfg.blocks[0][0]
+        slots = self._slots_for(kind, slots)
+        if kind in MLA_CACHE_BLOCKS:
+            return MLA.init_cache(cfg, cfg.num_layers, batch, slots, cfg.dtype,
+                                  self.device)
         return A.init_cache(
-            cfg.num_layers, batch, self._slots_for(slots), cfg.num_kv_heads,
+            cfg.num_layers, batch, slots, cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.dtype, self.device,
         )
 

@@ -74,6 +74,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     assert "repro_torch.core.program" in out["imported"]
     assert "repro_torch.serving.scheduler" in out["imported"]
     assert "repro_torch.serving.frontdoor" in out["imported"]
+    assert "repro_torch.models.moe" in out["imported"]
+    assert "repro_torch.models.mla" in out["imported"]
     bad = [m for m in out["loaded"] if _forbidden(m)]
     assert not bad, bad
 
@@ -102,7 +104,8 @@ GRAPH_PATH = ("run_chunk", "_run_chunk_locked", "_on_card", "_run_program",
     [pytest.param(p, None, id=str(p.relative_to(ROOT))) for p in (
         sorted((PKG / "kernels").glob("*.py"))
         + sorted((PKG / "core").glob("*.py"))
-        + [PKG / "serving" / "engine.py", PKG / "models" / "attention.py"])]
+        + [PKG / "serving" / "engine.py", PKG / "models" / "attention.py",
+           PKG / "models" / "moe.py", PKG / "models" / "mla.py"])]
     + [pytest.param(EXECUTOR, m, id=f"{EXECUTOR.relative_to(ROOT)}::{m}")
        for m in GRAPH_PATH],
 )

@@ -6,7 +6,11 @@ get the same random ``eps_head`` (the reference zero-inits it, which would
 hide the backbone behind ``eps = x_t``).  Smoke configs run in float32.
 With the reference's init the residual stream of the smoke model reaches
 ~1e3, so float32 summation-order rounding there (~1e-4 absolute) carries
-through the final rmsnorm to the unit-scale outputs: atol 5e-4.
+through the final rmsnorm to the unit-scale outputs: atol 5e-4.  mixtral's
+routed experts, initialized with fan-in = the expert count (4), make its
+stream worse conditioned: the reference itself lands up to 1.0e-3 from a
+float64 run of the port on the same weights (the port 3.4e-4), so its eps
+are held to 2e-3.
 """
 
 import dataclasses
@@ -28,7 +32,9 @@ from repro_torch.models import layers as TL
 from repro_torch.models.attention import resolve_impl
 
 TOL = 5e-4
-ARCHS = ["qwen2-1.5b", "llama3.2-1b"]
+ARCH_TOL = {"mixtral-8x7b": 2e-3}
+ARCHS = ["qwen2-1.5b", "llama3.2-1b", "deepseek-v2-lite-16b", "mixtral-8x7b",
+         "minitron-4b", "deepseek-67b"]
 # (reference impl, port impl) — the reference's "auto" never picks Pallas,
 # so every case pins the reference impl explicitly
 IMPLS = [("naive", "auto"), ("chunked", "chunked"), ("pallas", "flash")]
@@ -62,7 +68,12 @@ def test_config_matches_reference(arch):
         for f in dataclasses.fields(t):
             if f.name in ("dtype", "param_dtype", "attention_impl"):
                 continue
-            assert getattr(t, f.name) == getattr(j, f.name), f.name
+            tv, jv = getattr(t, f.name), getattr(j, f.name)
+            if dataclasses.is_dataclass(tv) or dataclasses.is_dataclass(jv):
+                # the MoE / MLA sub-configs: the reference's fields, equal
+                assert dataclasses.asdict(tv) == dataclasses.asdict(jv), f.name
+            else:
+                assert tv == jv, f.name
         assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
         assert t.blocks == j.blocks
 
@@ -86,7 +97,8 @@ def test_eps_matches_reference(arch, impls, masked):
             lengths=None if lengths is None else torch.from_numpy(lengths),
         )
         assert got.dtype == torch.float32 and got.shape == x.shape
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ARCH_TOL.get(arch, TOL))
         if masked:
             assert np.all(got.numpy()[1, 7:] == 0.0)
 
