@@ -1,10 +1,13 @@
 """Model configuration: :class:`ModelConfig` and its MoE / MLA sub-configs.
 
 Ports ``repro.configs.base`` for the families the port serves: dense
-(qwen2-1.5b, llama3.2-1b, minitron-4b, deepseek-67b) and MoE (mixtral-8x7b
-with the ``moe`` block, deepseek-v2-lite-16b with ``mla_moe``), on the
-diffusion and the autoregressive paths.  Dtypes are torch dtypes.  The SSM
-and frontend sub-configs wait for the slice that ports those families.
+(qwen2-1.5b, llama3.2-1b, minitron-4b, deepseek-67b), MoE (mixtral-8x7b
+with the ``moe`` block, deepseek-v2-lite-16b with ``mla_moe``), SSM
+(xlstm-350m: ``mlstm`` and ``slstm``) and hybrid (hymba-1.5b:
+``hymba_full`` and ``hymba_swa``, with meta tokens), on the diffusion and
+the autoregressive paths.  Dtypes are torch dtypes.  The frontend
+sub-config (audio and vision) waits for the slice that ports those
+families.
 """
 
 from __future__ import annotations
@@ -43,9 +46,20 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style selective SSM (Hymba heads) / xLSTM cells."""
+
+    state_dim: int = 16
+    conv_dim: int = 4
+    expand: int = 2                # d_inner = expand * d_model
+    dt_rank: int = 0               # 0 => ceil(d_model / 16)
+    chunk: int = 256               # chunked-scan length
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe (the families ported so far)
+    family: str                    # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -69,6 +83,7 @@ class ModelConfig:
     # ---- substructures ----
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
+    ssm: SSMConfig | None = None
     num_meta_tokens: int = 0       # Hymba learnable prefix tokens
     # ---- numerics / system ----
     dtype: Any = torch.bfloat16    # compute dtype of the block stack
@@ -94,7 +109,8 @@ class ModelConfig:
             return self.stack_pattern
         if self.family not in ("dense", "moe"):
             raise ValueError(
-                f"{self.name}: family {self.family!r} is not ported yet"
+                f"{self.name}: family {self.family!r} needs an explicit "
+                "stack_pattern"
             )
         return ((self.family, self.num_layers),)
 
@@ -138,6 +154,8 @@ class ModelConfig:
                 qk_rope_head_dim=16,
                 v_head_dim=32,
             )
+        if self.ssm:
+            kw["ssm"] = dataclasses.replace(self.ssm, chunk=32)
         if self.stack_pattern:
             # shrink the pattern to 2 layers, keeping >=1 of each block kind
             kinds = []

@@ -2,9 +2,9 @@
 ``long_context_policy``.
 
 The dense architectures (llama3.2-1b, qwen2-1.5b, minitron-4b,
-deepseek-67b) and the MoE ones (mixtral-8x7b, deepseek-v2-lite-16b) are
-ported; asking for another one (the SSM, hybrid, audio and vision
-families) raises."""
+deepseek-67b), the MoE ones (mixtral-8x7b, deepseek-v2-lite-16b), the SSM
+one (xlstm-350m) and the hybrid one (hymba-1.5b) are ported; asking for
+another one (the audio and vision families) raises."""
 
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "deepseek-67b": "deepseek_67b",
     "minitron-4b": "minitron_4b",
+    "xlstm-350m": "xlstm_350m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

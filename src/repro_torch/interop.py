@@ -9,9 +9,10 @@ to a numpy array and returns a state dict for ``load_state_dict``:
   are not used by the denoiser and are dropped.
 * ``model_params_from_jax(tree, cfg)``: the tree of
   ``repro.models.build_model(cfg).init(key)`` (``embed``, ``final_norm``,
-  ``segs``, and ``lm_head`` where the embeddings are untied), for
-  ``repro_torch.models.Model``.  The reference's ``embed`` already has
-  ``padded_vocab`` rows, so it is copied as it is.
+  ``segs``, ``lm_head`` where the embeddings are untied, and ``meta``
+  where the config has meta tokens), for ``repro_torch.models.Model``.
+  The reference's ``embed`` already has ``padded_vocab`` rows, so it is
+  copied as it is.  The denoiser drops ``meta`` with the embedding.
 
 The reference stacks each segment's per-layer parameters on a leading
 layer axis under ``segs["<i>_<kind>"]``; layer ``j`` of a segment is the
@@ -20,10 +21,16 @@ reference's nested keys joined by dots in both packages: ``ln1.scale``,
 ``attn.{wq,wk,wv,wo}.{w,b}`` and ``mlp.{wi,wg,wo}.w`` (dense),
 ``moe.router.w``, ``moe.experts.{wi,wg,wo}`` ((E, d, f) / (E, f, d)) and
 ``moe.shared.{wi,wg,wo}.w`` (moe, mla_moe), ``mla.{wq,wkv_a,wkv_b,wo}.w``
-and ``mla.ckv_norm.scale`` (mla_moe).  A linear weight is ``(d_in,
-d_out)`` in both packages, so nothing is transposed.  qwen2 has biases on
-wq/wk/wv, llama has none.  Loading casts each tensor to the dtype of the
-module parameter it fills (the MoE router stays float32).
+and ``mla.ckv_norm.scale`` (mla_moe); ``mamba.{in_proj,x_proj,dt_proj,
+out_proj}.{w,b}``, ``mamba.conv.{w,b}``, ``mamba.A_log``, ``mamba.D``,
+``attn_norm.scale`` and ``mamba_norm.scale`` beside the dense block's keys
+(hymba_swa, hymba_full); ``norm``, ``up``, ``conv``, ``wq``, ``wk``,
+``wv``, ``wi``, ``wf``, ``out_norm`` and ``down`` (mlstm); ``norm``,
+``w{z,i,f,o}``, ``r{z,i,f,o}`` ((nh, hd, hd)), ``out_norm`` and ``down``
+(slstm).  A linear weight is ``(d_in, d_out)`` in both packages, so
+nothing is transposed.  qwen2 has biases on wq/wk/wv, llama has none.
+Loading casts each tensor to the dtype of the module parameter it fills
+(the MoE router, ``A_log``, ``D`` and ``r{z,i,f,o}`` stay float32).
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ def _linear(prefix: str, p: dict) -> dict:
 
 
 #: block kinds whose reference parameters map in
-PORTED_BLOCKS = ("dense", "moe", "mla_moe")
+PORTED_BLOCKS = ("dense", "moe", "mla_moe", "mlstm", "slstm", "hymba_swa",
+                 "hymba_full")
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -90,4 +98,6 @@ def model_params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
     sd["embed"] = _t(tree["embed"])
     if not cfg.tie_embeddings:
         sd["lm_head.w"] = _t(tree["lm_head"])
+    if cfg.num_meta_tokens:
+        sd["meta"] = _t(tree["meta"])
     return sd

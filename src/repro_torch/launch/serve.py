@@ -10,6 +10,10 @@ any registry solver (port of ``repro.launch.serve``).
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --arch deepseek-v2-lite-16b --mode diffusion
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --arch hymba-1.5b --mode ar
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --arch xlstm-350m --mode diffusion
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --mode diffusion --continuous --requests 16 --rate 20
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --mode diffusion --listen --port 0
@@ -36,10 +40,10 @@ Every diffusion mode builds its engine through
 the reference's ``_engine_config`` does.  The reference's
 ``--compile-cache-dir`` has no counterpart: CUDA graphs do not persist
 across processes.  ``--arch`` takes the dense (qwen2-1.5b, llama3.2-1b,
-minitron-4b, deepseek-67b) and MoE (mixtral-8x7b, deepseek-v2-lite-16b)
-architectures in every mode; the SSM, hybrid, audio and vision ones are not
-ported yet: asking for them exits with an error that names the ROADMAP item
-they wait in.
+minitron-4b, deepseek-67b), MoE (mixtral-8x7b, deepseek-v2-lite-16b), SSM
+(xlstm-350m) and hybrid (hymba-1.5b) architectures in every mode; the audio
+and vision ones (whisper-base, paligemma-3b) are not ported yet: asking for
+them exits with an error that names the ROADMAP item they wait in.
 """
 
 from __future__ import annotations
@@ -388,8 +392,8 @@ def main(argv: list[str] | None = None) -> None:
     if args.arch not in arch_names():
         ap.error(
             f"architecture {args.arch!r} is not ported yet (ported: "
-            f"{arch_names()}); the ssm, hybrid, vlm and audio families "
-            f"(xlstm-350m, hymba-1.5b, paligemma-3b, whisper-base) wait in "
+            f"{arch_names()}); the vlm and audio families "
+            f"(paligemma-3b, whisper-base) wait in "
             f"ROADMAP, queue 'modules to port', item 'Other denoiser "
             f"families'"
         )

@@ -1,15 +1,30 @@
 """Blocks of the port (``repro.models.blocks``): ``dense`` (llama / qwen /
 minitron / deepseek-67b), ``moe`` (mixtral: GQA attention with its sliding
-window, then the MoE FFN) and ``mla_moe`` (deepseek-v2-lite: MLA, then the
-MoE FFN).  The MoE FFN's aux losses are dropped here; only training reads
-them.  The SSM, hymba and whisper blocks wait for a later slice."""
+window, then the MoE FFN), ``mla_moe`` (deepseek-v2-lite: MLA, then the
+MoE FFN), ``mlstm`` and ``slstm`` (xlstm-350m, from
+:mod:`repro_torch.models.ssm`) and ``hymba_swa`` / ``hymba_full``
+(hymba-1.5b: attention and Mamba heads on one input, their normalized
+outputs averaged, then the MLP).  The MoE FFN's aux losses are dropped
+here; only training reads them.  The whisper blocks (``enc``, ``xdec``)
+wait for a later slice.
+
+Every block takes ``(x, mode=, cache=, layer=, pos=, window_override=,
+causal=, lengths=, protected=)``; ``cache`` is its segment's cache, with a
+leading layer axis, and ``layer`` its index in the segment.  Each block
+class also builds its segment's cache, ``init_cache(cfg, count, batch,
+slots, device)``, as the reference's ``BlockDef.cache`` does, and finds
+the attention ring in it, ``ring(cache)`` (the dict holding the slot
+positions ``pos``; None for a kind that attends over no cache)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as M
+from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import Attention
 from repro_torch.models.mla import MLA
 from repro_torch.models.moe import MoE
@@ -29,6 +44,18 @@ class DenseBlock(nn.Module):
         self.ln2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         self._build_ffn(cfg, kw)
 
+    @staticmethod
+    def init_cache(cfg, count: int, batch: int, slots: int, device) -> dict:
+        """A K/V ring; a sliding-window ring needs only the window plus the
+        meta tokens (the reference's ``_slots_for``)."""
+        if cfg.sliding_window > 0:
+            slots = min(slots, cfg.sliding_window + cfg.num_meta_tokens)
+        return _attn_cache(cfg, count, batch, slots, device)
+
+    @staticmethod
+    def ring(cache: dict) -> dict:
+        return cache
+
     def _build_ffn(self, cfg, kw) -> None:
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, **kw)
 
@@ -39,6 +66,7 @@ class DenseBlock(nn.Module):
         self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
         layer: int = 0, pos: int | None = None, window_override: int = -1,
         causal: bool = True, lengths: Tensor | None = None,
+        protected: int = 0,
     ) -> Tensor:
         """``window_override`` < 0 keeps the block's own window (the
         reference's ``_window``); 0 is full attention, > 0 a window."""
@@ -48,7 +76,7 @@ class DenseBlock(nn.Module):
         h = self.ln1(x)
         x = x + self.attn(
             h, mode=mode, cache=cache, layer=layer, pos=pos, window=window,
-            causal=causal, lengths=lengths,
+            causal=causal, lengths=lengths, protected=protected,
         )
         return x + self._ffn(self.ln2(x))
 
@@ -76,14 +104,108 @@ class MLAMoEBlock(nn.Module):
         self.ln2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         self.moe = MoE(cfg, **kw)
 
+    @staticmethod
+    def init_cache(cfg, count: int, batch: int, slots: int, device) -> dict:
+        """The latent ring, every slot kept."""
+        return M.init_cache(cfg, count, batch, slots, cfg.dtype, device)
+
+    @staticmethod
+    def ring(cache: dict) -> dict:
+        return cache
+
     def forward(
         self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
         layer: int = 0, pos: int | None = None, window_override: int = -1,
         causal: bool = True, lengths: Tensor | None = None,
+        protected: int = 0,
     ) -> Tensor:
         x = x + self.mla(self.ln1(x), mode=mode, cache=cache, layer=layer,
                          pos=pos, lengths=lengths)
         return x + self.moe(self.ln2(x))[0]
 
 
-BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "mla_moe": MLAMoEBlock}
+class HymbaBlock(nn.Module):
+    """Hymba: attention and Mamba heads run on one rmsnormed input; their
+    separately rmsnormed outputs are averaged into the residual, then the
+    MLP.  ``hymba_swa`` attends in ``cfg.sliding_window``, ``hymba_full``
+    over everything (window 0).  Its cache is {"attn": the K/V ring, "ssm":
+    the Mamba state {"conv", "ssm"}}, each with a leading layer axis."""
+
+    def __init__(self, cfg, *, generator, device, dtype, window: int):
+        super().__init__()
+        self.cfg = cfg
+        self.window = window
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        d = cfg.d_model
+        self.ln1 = L.RMSNorm(d, cfg.norm_eps, device=device)
+        self.attn = Attention(cfg, **kw)
+        self.mamba = SSM.Mamba(cfg, **kw)
+        self.attn_norm = L.RMSNorm(d, cfg.norm_eps, device=device)
+        self.mamba_norm = L.RMSNorm(d, cfg.norm_eps, device=device)
+        self.ln2 = L.RMSNorm(d, cfg.norm_eps, device=device)
+        self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_act, **kw)
+
+    @staticmethod
+    def ring_slots(cfg, slots: int) -> int:
+        """The ring's slots: every slot (``hymba_full``); ``hymba_swa``
+        keeps the window plus the meta tokens."""
+        return slots
+
+    @classmethod
+    def init_cache(cls, cfg, count: int, batch: int, slots: int, device) -> dict:
+        return {
+            "attn": _attn_cache(cfg, count, batch, cls.ring_slots(cfg, slots),
+                                device),
+            "ssm": SSM.stacked(SSM.mamba_init_state(cfg, batch, cfg.dtype,
+                                                    device), count),
+        }
+
+    @staticmethod
+    def ring(cache: dict) -> dict:
+        return cache["attn"]
+
+    def forward(
+        self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
+        layer: int = 0, pos: int | None = None, window_override: int = -1,
+        causal: bool = True, lengths: Tensor | None = None,
+        protected: int = 0,
+    ) -> Tensor:
+        window = self.window if window_override < 0 else window_override
+        h = self.ln1(x)
+        attn_out = self.attn(
+            h, mode=mode, cache=None if cache is None else cache["attn"],
+            layer=layer, pos=pos, window=window, causal=causal,
+            protected=protected, lengths=lengths,
+        )
+        ssm = None if cache is None else cache["ssm"]
+        mamba_out, state = self.mamba(h, SSM.layer_state(ssm, layer))
+        SSM.store_layer_state(ssm, layer, state)
+        fused = 0.5 * (self.attn_norm(attn_out) + self.mamba_norm(mamba_out))
+        x = x + fused
+        return x + self.mlp(self.ln2(x))
+
+
+class HymbaSWABlock(HymbaBlock):
+    def __init__(self, cfg, **kw):
+        super().__init__(cfg, window=cfg.sliding_window, **kw)
+
+    @staticmethod
+    def ring_slots(cfg, slots: int) -> int:
+        return min(slots, cfg.sliding_window + cfg.num_meta_tokens)
+
+
+class HymbaFullBlock(HymbaBlock):
+    def __init__(self, cfg, **kw):
+        super().__init__(cfg, window=0, **kw)
+
+
+def _attn_cache(cfg, count, batch, slots, device):
+    return A.init_cache(count, batch, slots, cfg.num_kv_heads,
+                        cfg.resolved_head_dim, cfg.dtype, device)
+
+
+BLOCKS = {
+    "dense": DenseBlock, "moe": MoEBlock, "mla_moe": MLAMoEBlock,
+    "mlstm": SSM.MLSTMBlock, "slstm": SSM.SLSTMBlock,
+    "hymba_swa": HymbaSWABlock, "hymba_full": HymbaFullBlock,
+}

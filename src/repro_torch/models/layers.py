@@ -109,6 +109,43 @@ class MLP(nn.Module):
         return self.wo(self.act(self.wg(x)) * self.wi(x))
 
 
+class CausalConv(nn.Module):
+    """Depthwise causal conv parameters: ``w`` (width, d) and ``b`` (d,),
+    in the compute dtype the reference casts them to."""
+
+    def __init__(self, d: int, width: int, *, generator, device, dtype):
+        super().__init__()
+        self.w = nn.Parameter(
+            init_tensor((width, d), "normal", generator, device, dtype, 0.1),
+            requires_grad=False,
+        )
+        self.b = nn.Parameter(torch.zeros(d, device=device, dtype=dtype),
+                              requires_grad=False)
+
+    def forward(self, x: Tensor, state: Tensor | None = None):
+        return causal_conv1d(self.w, self.b, x, state)
+
+
+def causal_conv1d(w: Tensor, b: Tensor, x: Tensor, state: Tensor | None = None):
+    """Depthwise causal conv over x (B, S, d) with w (W, d), in x's dtype:
+    left zero pad, or the carried ``state`` (B, W-1, d).  Returns (y,
+    new_state), the new state being the last W-1 inputs (the decode carry).
+    The taps are summed one by one in the reference's order."""
+    w = w.to(x.dtype)
+    width, s = w.shape[0], x.shape[1]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[-1]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                         # (B, S + W - 1, d)
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, width):
+        y = y + xp[:, i : i + s] * w[i]
+    y = y + b.to(x.dtype)
+    new_state = xp[:, xp.shape[1] - (width - 1) :] if width > 1 else pad
+    return y, new_state
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
     return 1.0 / (
         theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,

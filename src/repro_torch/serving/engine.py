@@ -109,7 +109,8 @@ class Engine:
             self.cfg, self.serve, prompts.shape[1] + max_new_tokens
         )
         logits, cache = self.prefill_step(prompts, wo)
-        pos = prompts.shape[1]
+        # the first decode position follows the meta tokens and the prompt
+        pos = self.cfg.num_meta_tokens + prompts.shape[1]
         toks = [self.sample_token(logits, generator)]
         for i in range(max_new_tokens - 1):
             logits, cache = self.decode_step(cache, toks[-1][:, None], pos + i, wo)

@@ -120,7 +120,7 @@ def test_prefill_and_teacher_forced_decode_match_reference(pair):
         assert t.shape == j.shape == (2, 1, tmodel.config.padded_vocab)
         np.testing.assert_allclose(t, j, atol=LOGIT_TOL, err_msg=f"step {step}")
     seg = jc["0_dense"]
-    assert np.array_equal(tc["pos"].numpy(), np.asarray(seg["pos"][0]))
+    assert np.array_equal(tc["0_dense"]["pos"].numpy(), np.asarray(seg["pos"][0]))
     assert np.all(np.asarray(seg["pos"]) == np.asarray(seg["pos"][0]))
 
 
@@ -135,7 +135,8 @@ def test_decode_past_a_16_slot_ring_matches_reference(pair, prompt_len):
     )
     for step, (j, t) in enumerate(zip(jls, tls)):
         np.testing.assert_allclose(t, j, atol=LOGIT_TOL, err_msg=f"step {step}")
-    assert np.array_equal(tc["pos"].numpy(), np.asarray(jc["0_dense"]["pos"][0]))
+    assert np.array_equal(tc["0_dense"]["pos"].numpy(),
+                          np.asarray(jc["0_dense"]["pos"][0]))
 
 
 def test_windowed_ring_decode_matches_reference(pair):
@@ -146,7 +147,7 @@ def test_windowed_ring_decode_matches_reference(pair):
         jmodel, params, tmodel, dict(max_len=128, window_override=32),
         prompt_len=40, steps=40,
     )
-    assert tc["pos"].shape == (32,)
+    assert tc["0_dense"]["pos"].shape == (32,)
     for step, (j, t) in enumerate(zip(jls, tls)):
         np.testing.assert_allclose(t, j, atol=LOGIT_TOL, err_msg=f"step {step}")
 

@@ -196,10 +196,10 @@ def test_deepseek_prefill_and_decode_match_reference(max_len, prompt_len, steps)
         steps=steps)
     for step, (j, t) in enumerate(zip(jls, tls)):
         np.testing.assert_allclose(t, j, atol=LOGIT_TOL, err_msg=f"step {step}")
-    seg = jc["0_mla_moe"]
-    assert np.array_equal(tc["pos"].numpy(), np.asarray(seg["pos"][0]))
-    _close(tc["ckv"], seg["ckv"])
-    _close(tc["krope"], seg["krope"])
+    seg, tseg = jc["0_mla_moe"], tc["0_mla_moe"]
+    assert np.array_equal(tseg["pos"].numpy(), np.asarray(seg["pos"][0]))
+    _close(tseg["ckv"], seg["ckv"])
+    _close(tseg["krope"], seg["krope"])
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["full", "lengths"])
