@@ -1,4 +1,10 @@
-from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import (
+    FrontendStub,
+    MLAConfig,
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+)
 from repro_torch.configs.registry import (
     ALIASES,
     arch_names,

@@ -1,13 +1,14 @@
-"""Model configuration: :class:`ModelConfig` and its MoE / MLA sub-configs.
+"""Model configuration: :class:`ModelConfig` and its MoE / MLA / SSM /
+frontend sub-configs.
 
-Ports ``repro.configs.base`` for the families the port serves: dense
+Ports ``repro.configs.base`` for every family of the reference: dense
 (qwen2-1.5b, llama3.2-1b, minitron-4b, deepseek-67b), MoE (mixtral-8x7b
 with the ``moe`` block, deepseek-v2-lite-16b with ``mla_moe``), SSM
-(xlstm-350m: ``mlstm`` and ``slstm``) and hybrid (hymba-1.5b:
-``hymba_full`` and ``hymba_swa``, with meta tokens), on the diffusion and
-the autoregressive paths.  Dtypes are torch dtypes.  The frontend
-sub-config (audio and vision) waits for the slice that ports those
-families.
+(xlstm-350m: ``mlstm`` and ``slstm``), hybrid (hymba-1.5b: ``hymba_full``
+and ``hymba_swa``, with meta tokens), audio (whisper-base: an ``enc``
+encoder over stub frames and ``xdec`` decoder blocks) and vlm
+(paligemma-3b: dense blocks after stub image patches), on the diffusion
+and the autoregressive paths.  Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
@@ -57,9 +58,18 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrontendStub:
+    """Modality frontend carve-out: precomputed embeddings of this shape."""
+
+    kind: str                      # "audio" | "vision"
+    num_positions: int             # frames or patches
+    feature_dim: int               # embedding dim delivered to the backbone
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -70,21 +80,24 @@ class ModelConfig:
     head_dim: int = 0              # 0 => d_model // num_heads
     qkv_bias: bool = False         # Qwen2
     rope_theta: float = 1e4
-    use_rope: bool = True
+    use_rope: bool = True          # Whisper decoder uses learned pos emb
     max_position: int = 32768
     sliding_window: int = 0        # 0 => full attention
     long_context_window: int = 8192  # window of the long-context variant
     attn_logit_softcap: float = 0.0
     # ---- blocks ----
     stack_pattern: tuple[tuple[str, int], ...] = ()
-    mlp_act: str = "silu"          # silu (swiglu) | gelu (geglu)
+    mlp_act: str = "silu"          # silu (swiglu) | gelu (geglu) | gelu_plain
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     # ---- substructures ----
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
+    frontend: FrontendStub | None = None
     num_meta_tokens: int = 0       # Hymba learnable prefix tokens
+    # ---- encoder-decoder ----
+    num_encoder_layers: int = 0    # Whisper
     # ---- numerics / system ----
     dtype: Any = torch.bfloat16    # compute dtype of the block stack
     vocab_pad_multiple: int = 2048  # the embedding's rows are padded to it
@@ -107,12 +120,15 @@ class ModelConfig:
     def blocks(self) -> tuple[tuple[str, int], ...]:
         if self.stack_pattern:
             return self.stack_pattern
-        if self.family not in ("dense", "moe"):
+        default = {
+            "dense": "dense", "moe": "moe", "vlm": "dense", "audio": "dense",
+        }.get(self.family)
+        if default is None:
             raise ValueError(
                 f"{self.name}: family {self.family!r} needs an explicit "
                 "stack_pattern"
             )
-        return ((self.family, self.num_layers),)
+        return ((default, self.num_layers),)
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -132,6 +148,7 @@ class ModelConfig:
             head_dim=min(self.resolved_head_dim, 32),
             dtype=torch.float32,
             num_meta_tokens=min(self.num_meta_tokens, 8),
+            num_encoder_layers=min(self.num_encoder_layers, 2),
             sliding_window=(
                 min(self.sliding_window, 64) if self.sliding_window else 0
             ),
@@ -156,6 +173,10 @@ class ModelConfig:
             )
         if self.ssm:
             kw["ssm"] = dataclasses.replace(self.ssm, chunk=32)
+        if self.frontend:
+            kw["frontend"] = dataclasses.replace(
+                self.frontend, num_positions=16, feature_dim=kw["d_model"]
+            )
         if self.stack_pattern:
             # shrink the pattern to 2 layers, keeping >=1 of each block kind
             kinds = []

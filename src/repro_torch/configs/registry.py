@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``get_config(name, smoke=...)`` and
 ``long_context_policy``.
 
-The dense architectures (llama3.2-1b, qwen2-1.5b, minitron-4b,
-deepseek-67b), the MoE ones (mixtral-8x7b, deepseek-v2-lite-16b), the SSM
-one (xlstm-350m) and the hybrid one (hymba-1.5b) are ported; asking for
-another one (the audio and vision families) raises."""
+Every architecture of the reference's registry is ported: dense
+(llama3.2-1b, qwen2-1.5b, minitron-4b, deepseek-67b), MoE (mixtral-8x7b,
+deepseek-v2-lite-16b), SSM (xlstm-350m), hybrid (hymba-1.5b), audio
+(whisper-base) and vlm (paligemma-3b)."""
 
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ ALIASES = {
     "minitron-4b": "minitron_4b",
     "xlstm-350m": "xlstm_350m",
     "hymba-1.5b": "hymba_1_5b",
+    "whisper-base": "whisper_base",
+    "paligemma-3b": "paligemma_3b",
 }
 
 
@@ -33,7 +35,7 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in ALIASES.values():
         raise ValueError(
-            f"unknown or not yet ported architecture {name!r}; "
+            f"unknown architecture {name!r}; "
             f"known: {arch_names()}"
         )
     cfg: ModelConfig = importlib.import_module(

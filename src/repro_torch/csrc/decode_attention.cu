@@ -9,7 +9,11 @@
 // h / G (G = H / KV); a slot is valid where kv_pos >= 0, kv_pos <= q_pos
 // and, with a window, kv_pos > q_pos - window or kv_pos < protected
 // (attention sinks); scale hd^-0.5; online softmax with f32 state; a query
-// with no valid slot gives exact zeros.  Empty slots (-1) may sit anywhere
+// with no valid slot gives exact zeros.  A non-causal mode (causal = 0)
+// drops kv_pos <= q_pos: whisper's decoder attends from one query over
+// all of the encoder's keys (positions 0..F-1, most past the query's),
+// the TPU kernel's function with its causal predicate left out, as the
+// reference's cross-attention leaves it out.  Empty slots (-1) may sit anywhere
 // in a wrapped ring, so validity is read from kv_pos, never inferred from
 // slot numbers.
 //
@@ -71,8 +75,12 @@
 //  5. q_pos from device memory, so a captured CUDA graph can replay the
 //     launch while the position changes.
 // The cache is read in its own layout (B, S, KV, hd): no transpose, and no
-// padding of G or hd in memory (hd 32, 64 and 128 are template instances;
-// G is a run-time value).
+// padding of G or hd in memory (hd 32, 64, 128 and 256 are template
+// instances; G is a run-time value).  At hd 256 (paligemma's MQA heads,
+// G = 8 in one chunk) Q^T's fragments take 32 registers a thread and
+// O^T's accumulators 64, twice hd 128's; a warp's ring stage is 16.5 KB,
+// so the wrapper gives a warp at most the stages that fit the block's
+// 227 KB (2 at 4 warps).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,6 +112,7 @@ struct Params {
   int stages;          // ring stages a warp
   int nloc;            // most tiles a block of the cluster holds
   int window, protected_;
+  int causal;          // 0: no kv_pos <= q_pos (cross-attention)
   float scale;
 };
 
@@ -235,7 +244,7 @@ __device__ __forceinline__ float col_sum(float x) {
 }
 
 __device__ __forceinline__ bool slot_valid(int kp, int qp, const Params& p) {
-  bool valid = kp >= 0 && kp <= qp;
+  bool valid = kp >= 0 && (!p.causal || kp <= qp);
   if (p.window > 0) valid = valid && (kp > qp - p.window || kp < p.protected_);
   return valid;
 }
@@ -608,6 +617,7 @@ extern "C" long long repro_decode_attention_smem_bytes(int hd, int stages, int n
     case 32: return (long long)Smem<32>::bytes(stages, nloc, cluster);
     case 64: return (long long)Smem<64>::bytes(stages, nloc, cluster);
     case 128: return (long long)Smem<128>::bytes(stages, nloc, cluster);
+    case 256: return (long long)Smem<256>::bytes(stages, nloc, cluster);
     default: return -1;
   }
 }
@@ -618,18 +628,20 @@ extern "C" int repro_decode_attention_blocks_per_sm(int hd, long long bytes) {
     case 32: return blocks_per_sm<32>(bytes);
     case 64: return blocks_per_sm<64>(bytes);
     case 128: return blocks_per_sm<128>(bytes);
+    case 256: return blocks_per_sm<256>(bytes);
     default: return -1;
   }
 }
 
 // Plain C entry point (bound with ctypes).  q_pos points to one int32 on
 // the device.  `cluster` blocks (1..16) split each group's slots; `stages`
-// (1..4) is the ring depth a warp.  Returns a cudaError_t: 0 on a
-// successful launch, which is asynchronous on `stream`.
+// (1..4) is the ring depth a warp; `causal` 0 drops kv_pos <= q_pos.
+// Returns a cudaError_t: 0 on a successful launch, which is asynchronous
+// on `stream`.
 extern "C" int repro_decode_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const int* q_pos,
     const int* kv_pos, int B, int H, int KV, int S, int hd, int cluster, int stages,
-    int window, int protected_, float scale, void* stream) {
+    int window, int protected_, int causal, float scale, void* stream) {
   if (cluster < 1 || cluster > MAX_CLUSTER || stages < 1 || stages > MAX_STAGES ||
       KV < 1 || H % KV != 0 || S < 1)
     return int(cudaErrorInvalidValue);
@@ -650,12 +662,14 @@ extern "C" int repro_decode_attention_fwd(
   p.nloc = ((S + TILE - 1) / TILE + cluster - 1) / cluster;
   p.window = window;
   p.protected_ = protected_;
+  p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32: return int(launch<32>(p, cluster, s));
     case 64: return int(launch<64>(p, cluster, s));
     case 128: return int(launch<128>(p, cluster, s));
+    case 256: return int(launch<256>(p, cluster, s));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -9,10 +9,11 @@
 // whose every key is masked.  It reads and writes the model layout
 // (B, S, H, hd) directly: no transposes, and kv heads are never replicated.
 // The value head dim may differ from the query/key head dim: the instances
-// are (32,32), (64,64), (128,128) and, for DeepSeek's MLA, (192,128) (q and
-// k of 128 "nope" + 64 rope dims, v of 128).  The reference pads v to 192
-// and slices the output back; keeping v at 128 reads a third fewer V bytes
-// and holds a third fewer output accumulators.
+// are (32,32), (64,64), (128,128), for DeepSeek's MLA (192,128) (q and k of
+// 128 "nope" + 64 rope dims, v of 128), and for paligemma's Gemma heads
+// (256,256).  The reference pads v to 192 and slices the output back;
+// keeping v at 128 reads a third fewer V bytes and holds a third fewer
+// output accumulators.
 //
 // Bound.  At the ERA path's shape (B=8, S=256, H=12, KV=2, hd=128,
 // non-causal) the work is 4*B*H*S*S*hd = 3.2 GFLOP against 14.7 MB of
@@ -71,6 +72,22 @@
 //  6. Host.  The shared-memory attribute is set once per instance and card,
 //     not on every launch.
 //
+//  7. Head dim 256: Q from shared memory.  Kept in registers, a warp's Q
+//     fragments would take 64 registers a thread and its 16 x 256 output
+//     accumulator 128, which with the score tile and addresses is past the
+//     255 a thread can have: it would spill.  So the (256,256) instance
+//     keeps Q in shared memory (64 x 264 bf16, 33 KB of its own, beside the
+//     two 33 KB K/V stages: ~100 KB a block, two blocks an SM) and reads
+//     each 16-dim A fragment by ldmatrix as the Q.K^T loop needs it, once a
+//     kv tile: 16 more ldmatrix a warp and tile against 32 for K, and the
+//     64 registers go to the accumulator.  The alternatives were an output
+//     split over two warps that share each score tile (the scores computed
+//     twice, or passed through shared memory) and 8 query rows a warp (half
+//     of each m16 product wasted); both cost more than the reloads.  At
+//     paligemma's ERA shape (B=8, S=256, H=8, KV=1, non-causal) the work is
+//     4.3 GFLOP against 18.9 MB, 0.0056 ms at 3.35 TB/s against 0.0043 ms
+//     at the bf16 peak: bytes bound it, as at hd 128.
+//
 // Numbers.  Scores are accumulated in f32; the softmax uses exp2f with the
 // scale folded in by log2(e) (CUDA's exp2f: at most 2 ulp, far inside the
 // 2^-7 relative tolerance the output is held to); the softcap uses the
@@ -91,7 +108,8 @@ constexpr int NWARPS = BQ / 16; // one warp per 16 query rows
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MIN_BLOCKS = 3;   // blocks an SM must hold: <= 168 registers
 // the (192,128) instance keeps 48 registers of Q fragments a thread more
-// than (128,128): two blocks an SM (<= 255 registers) keep it from spilling
+// than (128,128), and (256,256) 64 more accumulators: two blocks an SM
+// (<= 255 registers) keep them from spilling
 constexpr int MIN_BLOCKS_WIDE = 2;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -112,18 +130,24 @@ struct Params {
 };
 
 // Shared memory: the K0 V0 K1 V1 tiles (bf16, pitches LDK and LDV; Q is
-// staged from stage 1 on before the loop, the output in stage 0 after it),
+// staged from stage 1 on before the loop, or kept in a buffer of its own
+// after them where it is read each tile (QSMEM), the output in stage 0
+// after the loop),
 // the two tiles' kv_pos and kv_mask entries, the block's q positions and
 // their min/max, then two bitmasks over the kv tiles (live, full), sized at
 // launch.
 template <int HD, int HDV>
 struct Smem {
+  // Q read from shared memory in the kv loop, not held in registers
+  static constexpr bool QSMEM = HD > 192;
   static constexpr int LDK = HD + 8;
   static constexpr int LDV = HDV + 8;
   static constexpr size_t ktile = size_t(BK) * LDK * 2;
   static constexpr size_t stage = ktile + size_t(BK) * LDV * 2;
   static constexpr size_t qbytes = size_t(BQ) * LDK * 2;
-  static constexpr size_t kv_bytes = stage + (qbytes > stage ? qbytes : stage);
+  static constexpr size_t q_off = 2 * stage;  // Q's own buffer (QSMEM)
+  static constexpr size_t kv_bytes =
+      QSMEM ? q_off + qbytes : stage + (qbytes > stage ? qbytes : stage);
   static_assert(size_t(BQ) * LDV * 2 <= kv_bytes, "the output stages in the tiles");
   static constexpr size_t kp_off = kv_bytes;
   static constexpr size_t km_off = kp_off + 2 * BK * 4;
@@ -212,6 +236,7 @@ template <int HD, int HDV>
 __global__ void __launch_bounds__(NTHREADS, HD > 128 ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
     flash_fwd_kernel(const Params p) {
   using L = Smem<HD, HDV>;
+  constexpr bool QSMEM = L::QSMEM;
   constexpr int LDK = L::LDK;
   constexpr int LDV = L::LDV;
   constexpr int VPR = HD / 8;    // 16-byte vectors per Q / K row
@@ -250,8 +275,9 @@ __global__ void __launch_bounds__(NTHREADS, HD > 128 ? MIN_BLOCKS_WIDE : MIN_BLO
   const long mask_off = long(b) * p.Sk;
   const bool masked = p.kv_mask != nullptr;
 
-  // Q from the second stage's K buffer on; rows past Sq are zeros
-  bf16* Qs = k_tile(1);
+  // Q from the second stage's K buffer on (or its own buffer); rows past
+  // Sq are zeros
+  bf16* Qs = QSMEM ? reinterpret_cast<bf16*>(smem + L::q_off) : k_tile(1);
   for (int idx = tid; idx < BQ * VPR; idx += NTHREADS) {
     const int r = idx / VPR, c = (idx % VPR) * 8;
     const bool in = q0 + r < p.Sq;
@@ -355,12 +381,15 @@ __global__ void __launch_bounds__(NTHREADS, HD > 128 ? MIN_BLOCKS_WIDE : MIN_BLO
   }
   __syncthreads();
 
-  // this warp's Q rows as A fragments, kept for the whole loop
+  // this warp's Q rows as A fragments, kept for the whole loop (QSMEM:
+  // one fragment, read from shared memory for each 16-dim step of a tile)
   const int row0 = warp * 16;
-  uint32_t qf[HD / 16][4];
+  const bf16* q_row = Qs + (row0 + (lane & 15)) * LDK + (lane >> 4) * 8;
+  uint32_t qf[QSMEM ? 1 : HD / 16][4];
+  if constexpr (!QSMEM) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    ldsm_x4(qf[kk], Qs + (row0 + (lane & 15)) * LDK + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(qf[kk], q_row + kk * 16);
+  }
   __syncthreads();  // Q's buffer is the first prefetch's target
 
   // this thread's rows: g and g + 8 of the warp's 16; columns 2*t4, +1 of
@@ -399,13 +428,15 @@ __global__ void __launch_bounds__(NTHREADS, HD > 128 ? MIN_BLOCKS_WIDE : MIN_BLO
     for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      if constexpr (QSMEM) ldsm_x4(qf[0], q_row + kk * 16);
+      const uint32_t(&qa)[4] = qf[QSMEM ? 0 : kk];
 #pragma unroll
       for (int jp = 0; jp < BK / 16; ++jp) {
         uint32_t kb[4];
         ldsm_x4(kb, Kt + (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDK + kk * 16 +
                         ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+        mma_bf16(s[2 * jp], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -552,7 +583,7 @@ int blocks_per_sm(int Sk) {
 }
 
 // the head-dim pairs (q/k, v) with an instance
-#define FLASH_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128) X(192, 128)
+#define FLASH_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128) X(192, 128) X(256, 256)
 
 }  // namespace
 

@@ -18,9 +18,13 @@ and bound with ctypes; the C entry point returns the launch's
 Semantics (shared with :func:`decode_attention_plain`): one query token at
 absolute position ``q_pos`` (a host ``int``, or an int32 tensor of one
 element, which the kernel reads on the device); a slot is valid where
-``kv_pos >= 0`` and ``kv_pos <= q_pos`` and, with ``window > 0``,
-``kv_pos > q_pos - window`` or ``kv_pos < protected``; ``scale = hd **
--0.5``; a query with no valid slot gives zeros.  No softcap, no kv_mask.
+``kv_pos >= 0`` and, when ``causal`` (the default: a self-attention ring),
+``kv_pos <= q_pos``, and, with ``window > 0``, ``kv_pos > q_pos - window``
+or ``kv_pos < protected``; ``causal=False`` serves cross-attention over an
+encoder's keys (whisper's decoder), whose positions run past the query's;
+``scale = hd ** -0.5``; a query with no valid slot gives zeros.  No
+softcap, no kv_mask.  The head dims with an instance are 32, 64, 128 and
+256 (paligemma's MQA heads); a CUDA tensor of another raises.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 NEG_INF = -1e30
 SOURCE = "decode_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 TILE = 16             # cache slots a warp tile (csrc TILE)
 NWARPS = 4            # warps a block (csrc NWARPS)
 HEADS = 8             # query heads a block (csrc HEADS)
@@ -55,6 +59,7 @@ def decode_attention_plain(
     *,
     window: int = 0,
     protected: int = 0,
+    causal: bool = True,
 ) -> Tensor:
     """The kernel's function in plain PyTorch, all math in float32."""
     shape = q.shape
@@ -65,7 +70,9 @@ def decode_attention_plain(
     kp = kv_pos.to(torch.int64)
     if isinstance(q_pos, Tensor):
         q_pos = q_pos.to(device=kp.device, dtype=torch.int64).reshape(())
-    valid = (kp >= 0) & (kp <= q_pos)
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= q_pos)
     if window > 0:
         in_w = kp > q_pos - window
         if protected > 0:
@@ -129,7 +136,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.repro_decode_attention_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 9
+        + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -181,14 +188,16 @@ def decode_attention(
     *,
     window: int = 0,
     protected: int = 0,
+    causal: bool = True,
 ) -> Tensor:
     """GQA decode attention over the cache.  CPU tensors take
     :func:`decode_attention_plain`; CUDA tensors launch the kernel (bf16,
-    head_dim 32/64/128) or raise.  A host-int ``q_pos`` is written to the
-    card first; a tensor is read there by the kernel."""
+    a head_dim of :data:`HEAD_DIMS`) or raise.  A host-int ``q_pos`` is
+    written to the card first; a tensor is read there by the kernel."""
     if q.device.type == "cpu":
         return decode_attention_plain(
-            q, k, v, q_pos, kv_pos, window=window, protected=protected
+            q, k, v, q_pos, kv_pos, window=window, protected=protected,
+            causal=causal,
         )
     if not isinstance(q_pos, Tensor):
         q_pos = torch.full((1,), int(q_pos), dtype=torch.int32, device=q.device)
@@ -198,6 +207,10 @@ def decode_attention(
     b, h, hd = q3.shape
     s, kvh = k.shape[1], k.shape[2]
     cluster, stages = split_plan(b, kvh, s, h // kvh)
+    # a wide head's ring stages may not all fit a block: fewer stages a
+    # warp (the ring refills as it is consumed)
+    while stages > 1 and smem_bytes(hd, stages, s, cluster) > MAX_SMEM:
+        stages -= 1
     smem = smem_bytes(hd, stages, s, cluster)
     if smem > MAX_SMEM:
         raise ValueError(
@@ -209,7 +222,7 @@ def decode_attention(
         q3.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_pos.data_ptr(), kv_pos.data_ptr(),
         b, h, kvh, s, hd, cluster, stages, int(window), int(protected),
-        hd**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), hd**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")

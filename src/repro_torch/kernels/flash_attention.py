@@ -12,8 +12,10 @@ computed, and kv tiles that no (query, key) pair of the block can use are
 skipped, decided from the positions and ``kv_mask``.  GQA reads kv head
 ``h // G`` by index, and the kernel reads and writes the model layout
 ``(B, S, H, hd)`` with no transposes.  The value head dim may differ from
-the query/key one: the instances are (32,32), (64,64), (128,128) and, for
-MLA, (192,128); a CUDA tensor of another pair raises.  It is built with
+the query/key one: the instances are (32,32), (64,64), (128,128), for
+MLA (192,128) and for paligemma (256,256), which reads Q from shared
+memory each kv tile instead of holding it in registers; a CUDA tensor of
+another pair raises.  It is built with
 ``nvcc`` for
 ``sm_90a`` at first use and bound with ctypes; the C entry point returns
 ``cudaGetLastError()`` after the launch and the wrapper raises if it is
@@ -39,7 +41,7 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 SOURCE = "flash_attention.cu"
 #: (query/key head dim, value head dim) of each kernel instance
-HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 MAX_GRID_Y = 65535
 
 

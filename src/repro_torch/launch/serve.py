@@ -14,6 +14,10 @@ any registry solver (port of ``repro.launch.serve``).
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --arch xlstm-350m --mode diffusion
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --arch whisper-base --mode ar
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+        --arch paligemma-3b --mode diffusion
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --mode diffusion --continuous --requests 16 --rate 20
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
         --mode diffusion --listen --port 0
@@ -22,8 +26,9 @@ any registry solver (port of ``repro.launch.serve``).
 
 Every mode runs on the card unless ``--device cpu`` is given; ``--connect``
 needs neither a device nor a model.  Weights are random, drawn from
-``--seed``; the prompts are drawn from the same seed with numpy, as the
-reference draws them.
+``--seed``; the prompts, and the audio and vlm families' stub frames and
+image patches (:func:`repro_torch.data.frontend_features`), are drawn from
+the same seed with numpy, as the reference draws them.
 
 ``--continuous`` drives the continuous-batching scheduler with a simulated
 open-loop client: ``--requests`` one-row requests arrive with Poisson gaps
@@ -39,11 +44,10 @@ Every diffusion mode builds its engine through
 :func:`repro_torch.serving.build_engine` from one :class:`EngineConfig`, as
 the reference's ``_engine_config`` does.  The reference's
 ``--compile-cache-dir`` has no counterpart: CUDA graphs do not persist
-across processes.  ``--arch`` takes the dense (qwen2-1.5b, llama3.2-1b,
-minitron-4b, deepseek-67b), MoE (mixtral-8x7b, deepseek-v2-lite-16b), SSM
-(xlstm-350m) and hybrid (hymba-1.5b) architectures in every mode; the audio
-and vision ones (whisper-base, paligemma-3b) are not ported yet: asking for
-them exits with an error that names the ROADMAP item they wait in.
+across processes.  ``--arch`` takes every architecture of the registry
+in every mode: dense (qwen2-1.5b, llama3.2-1b, minitron-4b, deepseek-67b),
+MoE (mixtral-8x7b, deepseek-v2-lite-16b), SSM (xlstm-350m), hybrid
+(hymba-1.5b), audio (whisper-base) and vlm (paligemma-3b).
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ import torch
 
 from repro_torch.configs import arch_names, get_config
 from repro_torch.core import linear_schedule, solver_names
+from repro_torch.data import frontend_features
 from repro_torch.models import DiffusionLM, build_model
 from repro_torch.serving import (
     AsyncBatchedSampler,
@@ -124,8 +129,13 @@ def run_ar(args) -> None:
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     ).to(torch.int32)
+    extras = {}
+    if cfg.frontend is not None:
+        key = "frames" if cfg.family == "audio" else "patches"
+        extras[key] = torch.from_numpy(frontend_features(
+            rng, args.batch, cfg.frontend.num_positions, cfg.d_model))
     t0 = time.perf_counter()
-    toks = eng.generate(prompts, args.gen).cpu()  # the copy waits for the card
+    toks = eng.generate(prompts, args.gen, extras=extras).cpu()  # waits for the card
     dt = time.perf_counter() - t0
     print(
         f"generated {tuple(toks.shape)} in {dt:.2f}s "
@@ -390,13 +400,7 @@ def main(argv: list[str] | None = None) -> None:
         run_connect(args)
         return
     if args.arch not in arch_names():
-        ap.error(
-            f"architecture {args.arch!r} is not ported yet (ported: "
-            f"{arch_names()}); the vlm and audio families "
-            f"(paligemma-3b, whisper-base) wait in "
-            f"ROADMAP, queue 'modules to port', item 'Other denoiser "
-            f"families'"
-        )
+        ap.error(f"unknown architecture {args.arch!r}; known: {arch_names()}")
     if args.mode == "ar":
         run_ar(args)
         return

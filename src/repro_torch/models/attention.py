@@ -28,9 +28,11 @@ cache keeps its last ``slots`` entries) in one dict per model: ``k`` and
 ``v`` of shape (L, B, slots, KV, hd) and one ``pos`` (slots,) int32, where
 the reference stacks an identical ``pos`` for every layer.  The reference
 donates its cache buffers to each jitted decode step; the port updates
-the cache tensors in place instead.  The int8 cache and the banded
-windowed prefill (``_banded_sdpa``, a faster layout of the same windowed
-attention) wait for a later slice (ROADMAP).
+the cache tensors in place instead.  Cross-attention (whisper's
+decoder over the encoder's states) takes the same two kernels: ``flash``
+at train and prefill, the decode kernel's non-causal mode at decode.  The
+int8 cache and the banded windowed prefill (``_banded_sdpa``, a faster
+layout of the same windowed attention) wait for a later slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -284,6 +286,7 @@ class Attention(nn.Module):
         layer: int = 0, pos: int | None = None, window: int = 0,
         causal: bool = True, protected: int = 0,
         lengths: Tensor | None = None,
+        cross_kv: tuple[Tensor, Tensor, Tensor] | None = None,
     ) -> Tensor:
         """``mode``: ``train`` (the full sequence, no cache), ``prefill``
         (causal over the prompt at positions ``arange(S)``, also filling
@@ -292,11 +295,18 @@ class Attention(nn.Module):
         whose slot positions the caller has already recorded with
         :func:`cache_insert`, and the query attends over the whole cache).
         ``lengths`` ((B,) int, train mode) marks positions >= lengths[b] as
-        right-padding: those keys are masked out of every row's softmax."""
+        right-padding: those keys are masked out of every row's softmax.
+        ``cross_kv`` (whisper's decoder) is the encoder's K/V (B, F, KV, hd)
+        and their positions ``arange(F)`` (int32): the queries attend over
+        all F of them, non-causally, with no cache and no rope
+        (:meth:`_cross`)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         q = self.wq(x).reshape(b, s, h, hd)
+        if cross_kv is not None:
+            out = self._cross(q, *cross_kv, mode)
+            return self.wo(out.reshape(b, s, h * hd))
         k = self.wk(x).reshape(b, s, kvh, hd)
         v = self.wv(x).reshape(b, s, kvh, hd)
         if mode == "decode":
@@ -321,6 +331,25 @@ class Attention(nn.Module):
                 protected=protected, kv_mask=kv_mask,
             )
         return self.wo(out.reshape(b, s, h * hd))
+
+    def _cross(self, q, ek, ev, kv_pos, mode) -> Tensor:
+        """Cross-attention over the encoder's keys at positions ``kv_pos``
+        (the reference's ``cross_kv`` branch): window 0, not causal.
+        Without a causal mask or a window the queries' positions select
+        nothing, so every query sits at 0 (the reference puts a decode
+        query at ``pos``, to the same effect) and decode reads
+        ``kv_pos[:1]``: no tensor is built per layer or step.  Decode takes
+        the decode kernel in its non-causal mode."""
+        cfg = self.cfg
+        if mode == "decode":
+            check_decode(cfg.attention_impl, q.device, cfg.attn_logit_softcap)
+            return decode_attention(q, ek, ev, kv_pos[:1], kv_pos, causal=False)
+        q_pos = torch.zeros(q.shape[1], dtype=torch.int32, device=q.device)
+        return sdpa(
+            q, ek, ev, q_pos, kv_pos, window=0, causal=False,
+            softcap=cfg.attn_logit_softcap, impl=cfg.attention_impl,
+            chunk=cfg.attn_chunk,
+        )
 
     def _decode(self, q, k, v, cache, layer, pos, positions, window,
                 protected) -> Tensor:

@@ -4,9 +4,11 @@ window, then the MoE FFN), ``mla_moe`` (deepseek-v2-lite: MLA, then the
 MoE FFN), ``mlstm`` and ``slstm`` (xlstm-350m, from
 :mod:`repro_torch.models.ssm`) and ``hymba_swa`` / ``hymba_full``
 (hymba-1.5b: attention and Mamba heads on one input, their normalized
-outputs averaged, then the MLP).  The MoE FFN's aux losses are dropped
-here; only training reads them.  The whisper blocks (``enc``, ``xdec``)
-wait for a later slice.
+outputs averaged, then the MLP), and whisper-base's ``enc`` (bidirectional
+self-attention, layernorms, the plain GELU MLP) and ``xdec`` (causal
+self-attention, cross-attention over the encoder's states where there are
+any, the plain GELU MLP).  The MoE FFN's aux losses are dropped here; only
+training reads them.
 
 Every block takes ``(x, mode=, cache=, layer=, pos=, window_override=,
 causal=, lengths=, protected=)``; ``cache`` is its segment's cache, with a
@@ -14,7 +16,9 @@ leading layer axis, and ``layer`` its index in the segment.  Each block
 class also builds its segment's cache, ``init_cache(cfg, count, batch,
 slots, device)``, as the reference's ``BlockDef.cache`` does, and finds
 the attention ring in it, ``ring(cache)`` (the dict holding the slot
-positions ``pos``; None for a kind that attends over no cache)."""
+positions ``pos``; None for a kind that attends over no cache).  ``enc``
+runs only in whisper's encoder, over the whole input, and so has neither;
+``xdec`` also takes ``enc_out``, the encoder's states."""
 
 from __future__ import annotations
 
@@ -199,6 +203,103 @@ class HymbaFullBlock(HymbaBlock):
         super().__init__(cfg, window=0, **kw)
 
 
+class EncBlock(nn.Module):
+    """Whisper encoder block: layernorm, bidirectional self-attention over
+    the frames (train mode, no window), layernorm, plain GELU MLP."""
+
+    def __init__(self, cfg, *, generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.ln1 = L.LayerNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.attn = Attention(cfg, **kw)
+        self.ln2 = L.LayerNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, "gelu_plain", **kw)
+
+    def forward(
+        self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
+        layer: int = 0, pos: int | None = None, window_override: int = -1,
+        causal: bool = True, lengths: Tensor | None = None,
+        protected: int = 0,
+    ) -> Tensor:
+        """Always the full sequence, not causal: the reference's
+        ``enc_apply`` ignores the mode, window and causality it is given."""
+        x = x + self.attn(self.ln1(x), causal=False, lengths=lengths)
+        return x + self.mlp(self.ln2(x))
+
+
+class XDecBlock(nn.Module):
+    """Whisper decoder block: layernorm, self-attention (causal whatever
+    ``causal`` says, as the reference's ``xdec_apply`` passes no causality:
+    a whisper denoiser denoises left to right), then, where there are
+    encoder states (``enc_out`` at train and prefill, the ``xk`` / ``xv``
+    cache at decode), layernorm and cross-attention over them, then
+    layernorm and the plain GELU MLP.  Without encoder states (the
+    denoiser) the block runs decoder-only.  Its cache is {"self": the K/V
+    ring, "xk", "xv": the encoder's K/V (count, B, F, KV, hd), written at
+    prefill and read at decode, "xpos": their positions ``arange(F)``
+    (int32), built once with the cache}."""
+
+    def __init__(self, cfg, *, generator, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        d = cfg.d_model
+        self.ln1 = L.LayerNorm(d, cfg.norm_eps, device=device)
+        self.self_attn = Attention(cfg, **kw)
+        self.ln_x = L.LayerNorm(d, cfg.norm_eps, device=device)
+        self.cross_attn = Attention(cfg, **kw)
+        self.ln2 = L.LayerNorm(d, cfg.norm_eps, device=device)
+        self.mlp = L.MLP(d, cfg.d_ff, "gelu_plain", **kw)
+
+    @staticmethod
+    def init_cache(cfg, count: int, batch: int, slots: int, device) -> dict:
+        shape = (count, batch, cfg.frontend.num_positions, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return {
+            "self": _attn_cache(cfg, count, batch, slots, device),
+            "xk": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "xv": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "xpos": torch.arange(shape[2], dtype=torch.int32, device=device),
+        }
+
+    @staticmethod
+    def ring(cache: dict) -> dict:
+        return cache["self"]
+
+    def forward(
+        self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
+        layer: int = 0, pos: int | None = None, window_override: int = -1,
+        causal: bool = True, lengths: Tensor | None = None,
+        protected: int = 0, enc_out: Tensor | None = None,
+    ) -> Tensor:
+        cfg = self.cfg
+        window = cfg.sliding_window if window_override < 0 else window_override
+        x = x + self.self_attn(
+            self.ln1(x), mode=mode, cache=None if cache is None else cache["self"],
+            layer=layer, pos=pos, window=window, lengths=lengths,
+        )
+        ek = ev = None
+        if mode == "decode":
+            ek, ev = cache["xk"][layer], cache["xv"][layer]
+        elif enc_out is not None:
+            b, f, _ = enc_out.shape
+            shape = (b, f, cfg.num_kv_heads, cfg.resolved_head_dim)
+            ek = self.cross_attn.wk(enc_out).reshape(shape)
+            ev = self.cross_attn.wv(enc_out).reshape(shape)
+            if mode == "prefill" and cache is not None:
+                cache["xk"][layer] = ek
+                cache["xv"][layer] = ev
+        if ek is not None:  # no encoder states: decoder-only (the denoiser)
+            if cache is not None:
+                xpos = cache["xpos"]
+            else:
+                xpos = torch.arange(ek.shape[1], dtype=torch.int32,
+                                    device=x.device)
+            x = x + self.cross_attn(self.ln_x(x), mode=mode,
+                                    cross_kv=(ek, ev, xpos))
+        return x + self.mlp(self.ln2(x))
+
+
 def _attn_cache(cfg, count, batch, slots, device):
     return A.init_cache(count, batch, slots, cfg.num_kv_heads,
                         cfg.resolved_head_dim, cfg.dtype, device)
@@ -208,4 +309,5 @@ BLOCKS = {
     "dense": DenseBlock, "moe": MoEBlock, "mla_moe": MLAMoEBlock,
     "mlstm": SSM.MLSTMBlock, "slstm": SSM.SLSTMBlock,
     "hymba_swa": HymbaSWABlock, "hymba_full": HymbaFullBlock,
+    "enc": EncBlock, "xdec": XDecBlock,
 }

@@ -3,14 +3,17 @@
 
 x_t lives in embedding space (B, S, d).  The wrapper adds sinusoidal time
 conditioning, runs the block stack non-causally and projects to a noise
-estimate; each NFE of an ERA run is one :meth:`DiffusionLM.eps`.  The
-dense, MoE (mixtral), MLA + MoE (deepseek-v2-lite), xLSTM (xlstm-350m) and
-hymba (hymba-1.5b) stacks are ported.  MLA attends causally whatever
-``causal`` says, as the reference's does, so a deepseek-v2-lite denoiser
-is causal (``models/mla.py``); the scans (Mamba, mLSTM, sLSTM) always run
-left to right, while hymba's attention half denoises bidirectionally.  As
-in the reference, the denoiser runs no meta-token prefix and protects no
-slot.
+estimate; each NFE of an ERA run is one :meth:`DiffusionLM.eps`.  Every
+stack of the reference is ported: dense (also paligemma-3b's Gemma
+decoder), MoE (mixtral), MLA + MoE (deepseek-v2-lite), xLSTM (xlstm-350m),
+hymba (hymba-1.5b) and whisper-base's ``xdec`` decoder.  MLA attends
+causally whatever ``causal`` says, as the reference's does, so a
+deepseek-v2-lite denoiser is causal (``models/mla.py``); so does ``xdec``'s
+self-attention, so a whisper denoiser is causal too, and it runs
+decoder-only (no encoder states, no cross-attention).  The scans (Mamba,
+mLSTM, sLSTM) always run left to right, while hymba's attention half
+denoises bidirectionally.  As in the reference, the denoiser runs no
+prefix (meta tokens, patches) and protects no slot.
 
 The module owns its weights.  It is built on the card unless the caller
 passes ``device="cpu"``, with the reference's init rules drawn from a
@@ -33,10 +36,10 @@ Tensor = torch.Tensor
 
 #: block kinds safe to run right-padded with per-row ``lengths`` (every
 #: cross-position mixing is an attention softmax that takes the kv mask, or
-#: a left-to-right scan).  The reference's full set; all but "enc" and
-#: "xdec" are ported.  The MoE FFN does not hold this up to the reference's
-#: claim: its capacity comes from the padded length, so padding can change
-#: which assignments it drops (``models/moe.py``, ROADMAP queue 3).
+#: a left-to-right scan).  The reference's full set.  The MoE FFN does not
+#: hold this up to the reference's claim: its capacity comes from the
+#: padded length, so padding can change which assignments it drops
+#: (``models/moe.py``, ROADMAP queue 3).
 MASKABLE_BLOCKS = frozenset(
     {
         "dense", "moe", "enc", "xdec",

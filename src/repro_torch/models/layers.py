@@ -91,21 +91,59 @@ def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
     return (x * scale.to(torch.float32)).to(dt)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm with a scale and a bias, statistics in float32 (whisper)."""
+
+    def __init__(self, d: int, eps: float = 1e-5, *, device):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(
+            torch.ones(d, device=device, dtype=torch.float32),
+            requires_grad=False,
+        )
+        self.bias = nn.Parameter(
+            torch.zeros(d, device=device, dtype=torch.float32),
+            requires_grad=False,
+        )
+
+    def forward(self, x: Tensor) -> Tensor:
+        return layernorm(x, self.scale, self.bias, self.eps)
+
+
+def layernorm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    xc = x - mu
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    x = xc * torch.rsqrt(var + eps)
+    out = x * scale.to(torch.float32) + bias.to(torch.float32)
+    return out.to(dt)
+
+
+def gelu(x: Tensor) -> Tensor:
+    """GELU in its tanh form, as ``jax.nn.gelu`` computes it by default."""
+    return F.gelu(x, approximate="tanh")
+
+
 class MLP(nn.Module):
-    """Gated MLP: swiglu (``act="silu"``) or geglu (``act="gelu"``)."""
+    """Gated MLP, swiglu (``act="silu"``) or geglu (``act="gelu"``), or
+    the plain ``gelu(x @ wi) @ wo`` (``act="gelu_plain"``, whisper)."""
 
     def __init__(self, d: int, d_ff: int, act: str = "silu", *, generator,
                  device, dtype):
         super().__init__()
-        if act not in ("silu", "gelu"):
-            raise NotImplementedError(f"mlp_act {act!r} is not ported yet")
-        self.act = F.silu if act == "silu" else F.gelu
+        if act not in ("silu", "gelu", "gelu_plain"):
+            raise ValueError(f"unknown mlp_act {act!r}")
+        self.act = F.silu if act == "silu" else gelu
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.wg = Linear(d, d_ff, **kw)
+        self.wg = Linear(d, d_ff, **kw) if act != "gelu_plain" else None
         self.wi = Linear(d, d_ff, **kw)
         self.wo = Linear(d_ff, d, **kw)
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.wg is None:
+            return self.wo(self.act(self.wi(x)))
         return self.wo(self.act(self.wg(x)) * self.wi(x))
 
 

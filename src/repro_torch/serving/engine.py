@@ -63,9 +63,13 @@ class Engine:
 
     # ---- steps ----
     def prefill_step(
-        self, tokens: Tensor, window_override: int = -1
+        self, tokens: Tensor, window_override: int = -1,
+        extras: dict | None = None,
     ) -> tuple[Tensor, dict]:
-        return self.model.prefill(tokens, self.slots, window_override)
+        """``extras``: the stub modality inputs, ``frames`` (audio) or
+        ``patches`` (vlm), (B, positions, d_model)."""
+        return self.model.prefill(tokens, self.slots, window_override,
+                                  **(extras or {}))
 
     def decode_step(
         self, cache: dict, tokens: Tensor, pos: int, window_override: int = -1
@@ -97,20 +101,26 @@ class Engine:
         prompts: Tensor,          # (B, S_prompt) int
         max_new_tokens: int,
         generator: torch.Generator | None = None,
+        extras: dict | None = None,
     ) -> Tensor:
-        """Prefill the prompts, then decode greedily or sampled; returns
-        (B, max_new_tokens) int32 tokens.  Sampling draws from
-        ``generator`` (a fresh one seeded 0 on the model's device when
-        None)."""
+        """Prefill the prompts (after the stub inputs in ``extras``:
+        ``frames`` for the audio family, ``patches`` for the vlm family),
+        then decode greedily or sampled; returns (B, max_new_tokens) int32
+        tokens.  Sampling draws from ``generator`` (a fresh one seeded 0 on
+        the model's device when None)."""
         if generator is None and not self.serve.greedy:
             generator = torch.Generator(device=self.model.device).manual_seed(0)
         prompts = prompts.to(self.model.device)
+        extras = {k: v.to(self.model.device) for k, v in (extras or {}).items()}
         wo = resolve_window(
             self.cfg, self.serve, prompts.shape[1] + max_new_tokens
         )
-        logits, cache = self.prefill_step(prompts, wo)
-        # the first decode position follows the meta tokens and the prompt
+        logits, cache = self.prefill_step(prompts, wo, extras)
+        # the first decode position follows the meta tokens, the image
+        # patches and the prompt
         pos = self.cfg.num_meta_tokens + prompts.shape[1]
+        if self.cfg.family == "vlm" and extras:
+            pos += extras["patches"].shape[1]
         toks = [self.sample_token(logits, generator)]
         for i in range(max_new_tokens - 1):
             logits, cache = self.decode_step(cache, toks[-1][:, None], pos + i, wo)

@@ -19,6 +19,7 @@ import torch
 
 from repro.core.era import AM4 as J_AM4
 from repro.kernels import ops, ref
+from repro.models import attention as JA
 from repro_torch.core.era import AM4
 from repro_torch.core.lagrange import lagrange_weights
 from repro_torch.kernels import decode_attention as kd
@@ -138,6 +139,15 @@ FLASH_CASES = {
         kw=dict(causal=True, window=12, protected=3),
         kv_pos=_ring(48, 17, (8, 16)),
     ),
+    # paligemma's Gemma heads: hd 256 over one kv head, per-row lengths
+    "head dim 256, one kv head, kv_mask": dict(
+        b=3, s=40, h=4, kvh=1, hd=256, kw=dict(causal=False), lengths=(40, 17, 0)
+    ),
+    # whisper's cross-attention prefill: queries at 0 over more keys
+    "cross: Sq < Sk, queries at 0, non-causal": dict(
+        b=2, s=9, sk=40, h=4, kvh=4, hd=64, kw=dict(causal=False),
+        q_pos=np.zeros(9, dtype=np.int32),
+    ),
 }
 
 
@@ -192,6 +202,7 @@ DECODE_CASES = [
     (2, 6, 3, 200, 80, 32, 4, "float32"),
     (1, 25, 5, 130, 64, 48, 8, "float32"),   # hymba head counts, G = 5
     (2, 8, 1, 256, 64, 0, 0, "bfloat16"),
+    (2, 8, 1, 100, 256, 0, 0, "float32"),   # paligemma heads: G = 8, hd 256
 ]
 
 
@@ -240,6 +251,24 @@ def test_decode_plain_matches_reference(case, q_pos_form):
         protected=prot,
     )
     np.testing.assert_allclose(got, np.asarray(pallas, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("q_pos", [5, 37])
+def test_decode_non_causal_matches_cross_attention(q_pos):
+    """``causal=False`` (whisper's cross-attention at decode): one query
+    over all 40 keys whatever its position, as the reference's naive SDPA
+    computes it with ``causal=False``; with ``causal=True`` a query at 5
+    drops the 34 keys past it."""
+    (q, k, v), (jq, jk, jv), _, _ = _decode_case(2, 8, 4, 40, 64, "float32")
+    kv_pos = np.arange(40, dtype=np.int32)
+    got = kd.decode_attention(q, k, v, q_pos, torch.from_numpy(kv_pos),
+                              causal=False)
+    want = JA._naive_sdpa(jq[:, None], jk, jv, jnp.asarray([q_pos], jnp.int32),
+                          jnp.asarray(kv_pos), window=0, causal=False,
+                          softcap=0.0)[:, 0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    causal = kd.decode_attention(q, k, v, q_pos, torch.from_numpy(kv_pos))
+    assert torch.equal(causal, got) == (q_pos >= 39)
 
 
 def test_decode_matches_flash_single_row():

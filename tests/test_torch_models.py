@@ -34,7 +34,8 @@ from repro_torch.models.attention import resolve_impl
 TOL = 5e-4
 ARCH_TOL = {"mixtral-8x7b": 2e-3}
 ARCHS = ["qwen2-1.5b", "llama3.2-1b", "deepseek-v2-lite-16b", "mixtral-8x7b",
-         "minitron-4b", "deepseek-67b", "xlstm-350m", "hymba-1.5b"]
+         "minitron-4b", "deepseek-67b", "xlstm-350m", "hymba-1.5b",
+         "whisper-base", "paligemma-3b"]
 # (reference impl, port impl) — the reference's "auto" never picks Pallas,
 # so every case pins the reference impl explicitly
 IMPLS = [("naive", "auto"), ("chunked", "chunked"), ("pallas", "flash")]

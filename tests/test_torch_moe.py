@@ -269,16 +269,18 @@ def test_launcher_serves_the_moe_families(arch, mode, capsys):
                           else "sampled latents (2, 8, 128)"), out
 
 
-def test_launcher_names_the_families_still_missing(capsys):
-    """Only the audio and vlm families are left; the ssm and hybrid ones
-    (xlstm-350m, hymba-1.5b) are served and no longer named as missing."""
-    with pytest.raises(SystemExit):
-        serve.main(["--smoke", "--device", "cpu", "--arch", "paligemma-3b"])
-    err = capsys.readouterr().err
-    for name in ("paligemma-3b", "whisper-base", "Other denoiser families"):
-        assert name in err
-    ported = err.split("(ported:")[1].split(")")[0]
-    assert "xlstm-350m" in ported and "hymba-1.5b" in ported
+@pytest.mark.parametrize("mode", ["ar", "diffusion"])
+@pytest.mark.parametrize("arch", ["whisper-base", "paligemma-3b"])
+def test_launcher_serves_the_audio_and_vlm_families(arch, mode, capsys):
+    """Every registry architecture is served: the audio and vlm families
+    in both modes, AR with their stub frames / patches drawn from the
+    seed."""
+    serve.main(["--smoke", "--device", "cpu", "--arch", arch, "--mode", mode,
+                "--batch", "2", "--prompt-len", "8", "--gen", "3", "--seq", "8",
+                "--nfe", "5"])
+    out = capsys.readouterr().out
+    assert out.startswith("generated (2, 3)" if mode == "ar"
+                          else "sampled latents (2, 8, 128)"), out
 
 
 # ---- the reference's MoE padding hazard, shown ----------------------------
