@@ -4,7 +4,9 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 1. prints the card's name and power limit, builds the CUDA kernels from the
    sources in the checkout (one ``nvcc`` each, in parallel, beside one
-   ``nvcc -Xptxas -v`` of each for its registers and spills);
+   ``nvcc -Xptxas -v`` of each for its registers and spills): the flash
+   forward (its serving instances and the training instances that also
+   write the log-sum-exp), the flash backward and the decode kernel;
 2. holds the Triton ``era_update`` kernel against its plain PyTorch version
    (max abs error <= 1e-5, the reference's fused-step tolerance) at the
    rows of qwen2-1.5b's, hymba-1.5b's, xlstm-350m's, whisper-base's and
@@ -162,11 +164,34 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    planted fault the check must see (whisper: one layer's ``xk`` zeroed
    after the prefill; paligemma: the patch slots' K overwritten in every
    layer);
-13. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
+13. training: holds the CUDA flash backward kernel (``flash_attention``
+   under autograd) against ``flash_attention_bwd_plain`` (all-float32
+   formulas, given the plain forward's output) on dq, dk and dv, and the
+   forward's training instance against ``flash_attention_plain`` on its
+   output and its log-sum-exp, at qwen2-1.5b's 8x256 diffusion batch with
+   per-row lengths, its causal 8x512, hymba-1.5b's hd 64 at G = 5 with
+   window 1024 and 128 protected keys (S = 1280), a ragged S, a fully
+   masked row (zero grads), queries offset from keys and softcap at hd 32,
+   two runs bitwise equal; a call at (192, 128) or (256, 256) must raise;
+   its registers and spills (none at hd 128); its device time L2-warm and
+   L2-cold beside its bound (the five products the gradient needs, or
+   its bytes) and one autograd backward of SDPA.  Then
+   full-width qwen2-1.5b (float32 parameters, bf16 compute) trains through
+   ``launch/train.py``'s ``setup``: 10 steps of the diffusion objective,
+   then 5 of the LM objective, batch 8 x 256, each step with exactly 28
+   flash forward and 28 backward launches and a finite loss, the first
+   loss equal to the same loss under ``no_grad`` on the same draws, every
+   attention weight with a non-zero gradient, steps/s, tokens/s, peak
+   memory, one profiled step (GEMM, flash forward / backward shares) and
+   AdamW's update timed alone; and a checkpoint round trip at qwen2's widths cut to 2 layers (a full
+   archive is 21 GB), restored into a fresh denoiser whose ``eps`` is
+   bitwise the trained one's;
+14. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
    ``{"frontdoor": {...}}`` line with phase 9's, one ``{"families":
-   {...}}`` line with phases 10, 11 and 12's and one ``{"kernels": [...]}``
-   line with each kernel's launches (by path), error and times beside its
-   bound, then the result line.
+   {...}}`` line with phases 10, 11 and 12's, one ``{"training": {...}}``
+   line with phase 13's and one ``{"kernels": [...]}`` line with each
+   kernel's launches (by path), error and times beside its bound, then
+   the result line.
 
 ``python3 chip_smoke.py --era-ab PARENT/src`` instead times only the ERA
 path's host cost (one denoiser forward and a drain) with the
@@ -839,17 +864,23 @@ def ptxas_start(build, source: str):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def parse_ptxas(text: str, kernel: str = "flash_fwd_kernel") -> dict:
+def parse_ptxas(text: str, kernel: str = "flash_fwd_kernel",
+                lse: bool = False) -> dict:
     """{hd: {registers, spill_stores, spill_loads}} of each instance of
-    ``kernel`` in ``nvcc -Xptxas -v`` output."""
+    ``kernel`` in ``nvcc -Xptxas -v`` output; of the flash forward, the
+    serving instances, or with ``lse`` the training ones (the template's
+    bool, mangled ``Lb0E`` / ``Lb1E``)."""
     import re
 
     report, hd = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            hd = re.search(rf"{kernel}ILi(\d+)E", m.group(1))
+            name = m.group(1)
+            hd = re.search(rf"{kernel}ILi(\d+)E", name)
             hd = int(hd.group(1)) if hd else None
+            if hd is not None and "Lb" in name and ("Lb1E" in name) != lse:
+                hd = None
             continue
         if hd is None:
             continue
@@ -897,6 +928,16 @@ def ptxas_report(started, kf) -> dict:
             f"{r['blocks_per_sm_s256']} blocks an SM")
     check(report[128]["spill_stores"] == 0 and report[128]["spill_loads"] == 0,
           "flash_attention (128, 128) spills registers")
+    # the training instances, which also write the log-sum-exp
+    out["lse"] = parse_ptxas(text, lse=True)
+    for d, r in sorted(out["lse"].items()):
+        log(f"flash_attention training instance ({d}, {d}): {r['registers']} "
+            f"registers, spill stores {r['spill_stores']} B, loads "
+            f"{r['spill_loads']} B")
+    check(sorted(out["lse"]) == [32, 64, 128],
+          f"training instances of flash: {sorted(out['lse'])}")
+    check(out["lse"][128]["spill_stores"] == 0 and out["lse"][128]["spill_loads"] == 0,
+          "flash_attention's (128, 128) training instance spills registers")
     return out
 
 
@@ -3008,6 +3049,451 @@ def phase_audio_vlm(ku, kf, kd):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training (the flash backward kernel, full-width qwen2-1.5b)
+# ---------------------------------------------------------------------------
+
+# |kernel - plain| <= BWD_RTOL * max|plain|, per gradient: the kernel rounds
+# P and dS to bf16 before their products (2^-9 relative a term) and its
+# gradients to bf16 (2^-9), against the plain version's float32; measured
+# 2^-8.2 to 2^-7.5 of the largest gradient on the H100, so 2^-6 leaves a
+# margin of 3 or more
+BWD_RTOL = 2 ** -6
+# |lse - plain| <= LSE_ATOL (base 2): the kernel's m * mul + log2(l), l a
+# float32 sum of at most 1280 terms here (at most 1280 * 2^-24 = 7.6e-5
+# relative, 1.1e-4 in log2), against float32 logsumexp of the same scores
+LSE_ATOL = 2 ** -10
+LOG2E = 1.4426950408889634
+# training: batch x sequence of both objectives, and the steps of each
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_STEPS = {"diffusion": 10, "lm": 5}
+# the checkpoint round trip's model: qwen2-1.5b's widths, 2 of 28 layers
+CKPT_LAYERS = 2
+
+
+def lse_plain(kf, q, k, q_pos, kv_pos, *, kv_mask, window, causal, softcap,
+              protected) -> torch.Tensor:
+    """Each row's log-sum-exp as the forward's training instances write it:
+    base 2, of the scaled (and softcapped) scores the masks keep, (B, H, Sq)
+    float32 in float32 math, +inf for a row with no valid key."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qf = q.float().reshape(b, sq, kvh, h // kvh, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * hd**-0.5
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    valid = kf._valid(q, k, q_pos, kv_pos, kv_mask, window, causal, protected)
+    lse = torch.logsumexp(s.masked_fill(~valid, float("-inf")), -1) * LOG2E
+    lse = torch.where(valid.any(-1), lse, torch.full_like(lse, float("inf")))
+    return lse.reshape(b, h, sq)
+
+
+def bwd_case(kf, name, b, sq, sk, h, kvh, hd, *, causal, window=0,
+             protected=0, lengths=None, softcap=0.0, empty_row=False,
+             q_pos=None) -> float:
+    """The backward kernel through autograd of ``flash_attention``: its
+    forward (the training instance) against ``flash_attention_plain`` at
+    phase 3's tolerance and its lse against :func:`lse_plain`; its dq, dk,
+    dv against ``flash_attention_bwd_plain`` given the plain output; two
+    backward runs bitwise equal; returns the largest gradient error over
+    max|plain|."""
+    gen = torch.Generator(device="cuda").manual_seed(b * 131 + sq)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16) for s, n in ((sq, h), (sk, kvh), (sk, kvh)))
+    q_pos = (torch.arange(sq, dtype=torch.int32, device="cuda")
+             if q_pos is None else q_pos)
+    kv_pos = torch.arange(sk, dtype=torch.int32, device="cuda")
+    kv_mask = None
+    if lengths is not None:
+        kv_mask = (torch.arange(sk, device="cuda")[None]
+                   < torch.tensor(lengths, device="cuda")[:, None]).to(torch.int32)
+    if empty_row:
+        kv_mask = torch.ones(b, sk, dtype=torch.int32, device="cuda")
+        kv_mask[0] = 0
+    opts = dict(kv_mask=kv_mask, window=window, causal=causal,
+                softcap=softcap, protected=protected)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = kf.flash_attention(*leaves, q_pos, kv_pos, **opts)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    want = kf.flash_attention_plain(q, k, v, q_pos, kv_pos, **opts)
+    excess = float(((out.detach().float() - want.float()).abs()
+                    - FLASH_RTOL * want.float().abs()).max())
+    check(excess <= FLASH_ATOL, f"flash backward {name}: the training forward "
+          f"is {excess:.3e} beyond {FLASH_ATOL} + {FLASH_RTOL}*|o| of its plain version")
+    out2, lse = kf._forward(q, k, v, q_pos, kv_pos, **opts, with_lse=True)
+    check(torch.equal(out2, out.detach()), f"flash backward {name}: the LSE "
+          "launch's output differs from the autograd forward's")
+    lse_want = lse_plain(kf, q, k, q_pos, kv_pos, **opts)
+    empty = torch.isinf(lse_want)
+    check(torch.equal(torch.isinf(lse), empty) and bool((lse[empty] > 0).all()),
+          f"flash backward {name}: lse is not +inf exactly on the empty rows")
+    lse_err = float((lse[~empty] - lse_want[~empty]).abs().max()) if bool(
+        (~empty).any()) else 0.0
+    check(lse_err <= LSE_ATOL, f"flash backward {name}: lse error {lse_err:.3e} "
+          f"over {LSE_ATOL}")
+    plain = kf.flash_attention_bwd_plain(q, k, v, want, dout, q_pos, kv_pos,
+                                         **opts)
+    worst = 0.0
+    for gname, leaf, p in zip(("dq", "dk", "dv"), leaves, plain):
+        got = leaf.grad
+        check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
+              f"flash backward {name}: {gname} not finite bf16")
+        scale = float(p.abs().max())
+        err = float((got.float() - p).abs().max()) / max(scale, 1e-30)
+        check(err <= BWD_RTOL, f"flash backward {name}: {gname} error {err:.3e} "
+              f"of max|plain| {scale:.3e} over {BWD_RTOL}")
+        worst = max(worst, err)
+        # batch 0 has every key masked: its queries see none and its keys
+        # are seen by none
+        check(not empty_row or bool((got[0] == 0).all()),
+              f"flash backward {name}: {gname} of a fully masked row is not 0")
+    runs = [kf.flash_attention_bwd(q, k, v, out.detach(), dout, q_pos, kv_pos,
+                                   lse=lse, **opts) for _ in range(2)]
+    check(all(torch.equal(a, c) for a, c in zip(*runs)),
+          f"flash backward {name}: two runs differ")
+    log(f"flash backward {name}: forward within tolerance, lse error "
+        f"{lse_err:.3e} (tolerance {LSE_ATOL:.3e}), gradients' max error "
+        f"{worst:.3e} of max|plain| (tolerance {BWD_RTOL:.3e}), two runs "
+        "bitwise equal")
+    return worst
+
+
+def bwd_cases(kf) -> dict:
+    """The backward kernel's cases: qwen2-1.5b's 8x256 diffusion batch with
+    per-row lengths, its causal 8x512 (the AR prefill's shape), hymba-1.5b's
+    hd 64 at G = 5 with window 1024 and 128 protected keys past the window,
+    a ragged S, a fully masked row, queries offset from keys, softcap at hd
+    32; then a CUDA call at (192, 128) and (256, 256) must raise."""
+    errs = {
+        "qwen2 8x256 lengths": bwd_case(
+            kf, "qwen2 8x256 lengths", 8, 256, 256, 12, 2, 128, causal=False,
+            lengths=[256, 200] * 4),
+        "qwen2 8x512 causal": bwd_case(
+            kf, "qwen2 8x512 causal", 8, 512, 512, 12, 2, 128, causal=True),
+        "hymba hd64 G5 window": bwd_case(
+            kf, "hymba hd64 G5 window", 2, 1280, 1280, HY_H, HY_KV, HY_HD,
+            causal=True, window=HY_WINDOW, protected=HY_META),
+        "ragged S 200": bwd_case(kf, "ragged S 200", 2, 200, 200, 12, 2, 128,
+                                 causal=True),
+        "fully masked row": bwd_case(kf, "fully masked row", 2, 64, 96, 4, 2,
+                                     64, causal=False, empty_row=True),
+        "queries offset, window": bwd_case(
+            kf, "queries offset, window", 2, 70, 300, 6, 6, 128, causal=True,
+            window=64, protected=3,
+            q_pos=torch.arange(230, 300, dtype=torch.int32, device="cuda")),
+        "softcap hd32": bwd_case(kf, "softcap hd32", 2, 100, 130, 6, 1, 32,
+                                 causal=False, softcap=5.0),
+    }
+    for hd, hd_v in ((192, 128), (256, 256)):
+        q = torch.zeros(1, 8, 2, hd, device="cuda", dtype=torch.bfloat16,
+                        requires_grad=True)
+        v = torch.zeros(1, 8, 2, hd_v, device="cuda", dtype=torch.bfloat16,
+                        requires_grad=True)
+        pos = torch.arange(8, dtype=torch.int32, device="cuda")
+        before = kf.flash_attention.launches
+        try:
+            kf.flash_attention(q, q, v, pos, pos)
+        except ValueError as e:
+            check("Flash backward at head dims 192 and 256" in str(e),
+                  f"the ({hd}, {hd_v}) refusal names no ROADMAP item: {e}")
+        else:
+            check(False, f"flash_attention under grad at ({hd}, {hd_v}) did not raise")
+        check(kf.flash_attention.launches == before,
+              f"the refused ({hd}, {hd_v}) call launched")
+    return errs
+
+
+def is_bwd_kernel(name: str) -> bool:
+    return "bwd_delta_kernel" in name or "bwd_dkdv_kernel" in name or (
+        "bwd_dq_kernel" in name)
+
+
+def bwd_timings(kf) -> dict:
+    """Device time of the backward (its three launches), L2-warm and
+    L2-cold, beside its plain version and one autograd backward of SDPA on
+    the same tensors, at qwen2-1.5b's diffusion shape (B=8, S=256, H=12,
+    KV=2, hd=128, non-causal) and its causal 8x512."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h, kvh, hd = 12, 2, 128
+
+    def timed(bb, ss, causal):
+        q, k, v = (torch.randn(bb, ss, n, hd, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (h, kvh, kvh))
+        pos = torch.arange(ss, dtype=torch.int32, device="cuda")
+        opts = dict(kv_mask=None, window=0, causal=causal, softcap=0.0,
+                    protected=0)
+        out, lse = kf._forward(q, k, v, pos, pos, **opts, with_lse=True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        call = lambda: kf.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, dout, pos, pos, lse=lse, **opts)
+        ms = device_ms(call, pick=is_bwd_kernel, kernels=3)
+        ms_cold = device_ms(call, cold=True, pick=is_bwd_kernel, kernels=3)
+        plain_ms = device_ms(lambda: kf.flash_attention_bwd_plain(
+            q, k, v, out, dout, pos, pos, **opts), iters=5)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        library_ms = device_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        library_cold = device_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), cold=True)
+        # the five S x S x hd products the gradient needs (Q K^T, dO V^T,
+        # P^T dO, dS^T Q, dS K; this design's recompute of P in both kernels
+        # is its own cost, not the bound's), causal keeping (S + 1) / 2S of
+        # them; bytes: q, o, dO read and dq written at H heads, k, v read
+        # and dk, dv written at KV heads, lse read
+        frac = (ss + 1) / (2 * ss) if causal else 1.0
+        flops = 2.5 * 4.0 * bb * h * ss * ss * hd * frac
+        nbytes = 2.0 * 4 * bb * ss * (h + kvh) * hd + 4.0 * bb * h * ss
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        t = dict(
+            ms=ms, ms_l2_cold=ms_cold, plain_ms=plain_ms,
+            library_ms=library_ms, library_ms_l2_cold=library_cold,
+            kernel_over_library=ms / library_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            flops=flops, bytes=nbytes,
+            shape=f"B={bb} S={ss} H={h} KV={kvh} hd={hd} bf16"
+                  + (" causal" if causal else ""),
+        )
+        log(f"flash backward timing {t['shape']}: kernel {ms:.5f} ms warm, "
+            f"{ms_cold:.5f} ms cold, plain {plain_ms:.4f} ms, SDPA backward "
+            f"{library_ms:.5f} / {library_cold:.5f} ms, kernel_over_library "
+            f"{t['kernel_over_library']:.3f}, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+        return t
+
+    timing = timed(8, 256, causal=False)
+    timing["lm_causal_512"] = timed(8, 512, causal=True)
+    return timing
+
+
+def bwd_ptxas_report(text: str) -> dict:
+    """Registers and spills of each backward kernel's instances (none may
+    spill at hd 128) and of the forward's training (LSE) instances."""
+    out = {}
+    for kernel in ("bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_delta_kernel"):
+        report = parse_ptxas(text, kernel)
+        for d in (32, 64, 128):
+            check(d in report and "registers" in report[d],
+                  f"no ptxas report for {kernel} hd={d}:\n{text}")
+            r = report[d]
+            log(f"{kernel} hd={d}: {r['registers']} registers, spill stores "
+                f"{r['spill_stores']} B, loads {r['spill_loads']} B")
+        check(report[128]["spill_stores"] == 0 and report[128]["spill_loads"] == 0,
+              f"{kernel} (128, 128) spills registers")
+        out[kernel] = {str(k): v for k, v in sorted(report.items())}
+    return out
+
+
+def train_shares(rows, busy_ms: float) -> dict:
+    """Shares of a train step's device time: GEMMs, the flash forward and
+    backward kernels, the rest (elementwise, reductions, AdamW)."""
+    gemm = sum(ms for ms, _, n in rows if any(g in n for g in GEMM_NAMES))
+    fwd = sum(ms for ms, _, n in rows if is_flash_kernel(n))
+    bwd = sum(ms for ms, _, n in rows if is_bwd_kernel(n))
+    out = dict(gemm=gemm / busy_ms, flash_fwd=fwd / busy_ms,
+               flash_bwd=bwd / busy_ms,
+               rest=(busy_ms - gemm - fwd - bwd) / busy_ms)
+    log("  train step shares: " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def attn_grad_norms(params: dict, layers: int) -> dict:
+    """The gradient norm of every attention weight of every layer."""
+    return {f"{i}.{w}": float(params[f"backbone.layers.{i}.attn.{w}.w"].grad.norm())
+            for i in range(layers) for w in ("wq", "wk", "wv", "wo")}
+
+
+def train_objective(kf, cfg, objective: str) -> dict:
+    """``launch/train.py``'s setup on full-width ``cfg``, ``TRAIN_STEPS``
+    steps of batch 8 x 256: per step its loss (finite) and wall, exactly one
+    flash forward and one backward launch per layer; the first loss equal
+    to the same loss computed under ``no_grad`` on the same batch and
+    draws; after the last step, a non-zero gradient on every attention
+    weight (a flash call invisible to autograd leaves wq, wk, wv without
+    one; the denoiser's first step gives the backbone none at all, its
+    ``eps_head`` starting at zero as the reference's does).  Reports steps/s
+    and tokens/s (steps after the first) and peak memory."""
+    from repro_torch.core import linear_schedule
+    from repro_torch.launch import train as lt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import batch_to_device
+
+    diffusion = objective == "diffusion"
+    steps = TRAIN_STEPS[objective]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step, batches = lt.setup(cfg, diffusion=diffusion, steps=steps,
+                             batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    module, params = step.module, step.params
+    n_params = sum(p.numel() for p in params.values())
+    check(all(p.dtype == torch.float32 and p.requires_grad for p in params.values()),
+          f"{objective}: parameters not float32 with gradients on")
+    state = opt.init_state(params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layers = cfg.num_layers
+    losses, walls, norms = [], [], {}
+    # the flash launches of every step, read from the counters after it
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+    def count_step(what):
+        check(kf.flash_attention.launches == layers
+              and kf.flash_attention_bwd.launches == layers,
+              f"{objective} {what}: {kf.flash_attention.launches} flash "
+              f"forward / {kf.flash_attention_bwd.launches} backward launches, "
+              f"not {layers} each")
+        launches["flash_attention"] += kf.flash_attention.launches
+        launches["flash_attention_bwd"] += kf.flash_attention_bwd.launches
+
+    for i in range(steps):
+        batch = batch_to_device(next(batches), "cuda")
+        if i == 0:
+            draws = torch.Generator(device="cuda")
+            draws.set_state(gen.get_state())
+            with torch.no_grad():
+                if diffusion:
+                    x0 = batch["latents"]
+                    u0 = torch.rand((), generator=draws, device="cuda")
+                    noise = torch.randn(x0.shape, generator=draws, device="cuda")
+                    ref_loss = float(module.loss_at(x0, u0, noise,
+                                                    linear_schedule())[0])
+                else:
+                    ref_loss = float(module.loss(batch)[0])
+        reset_counts(kf.flash_attention, kf.flash_attention_bwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        count_step(f"step {i}")
+        loss = float(metrics["loss"])
+        check(loss == loss and abs(loss) < 1e6, f"{objective} step {i}: loss {loss}")
+        losses.append(loss)
+        if i == 0:
+            check(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
+                  f"{objective}: first loss {loss} != no_grad loss {ref_loss}")
+            first_diff = abs(loss - ref_loss)
+        log(f"train {objective} step {i}: loss {loss:.6f}, grad norm "
+            f"{float(metrics['grad_norm']):.4f}, lr {float(metrics['lr']):.3e}, "
+            f"{walls[-1] * 1e3:.1f} ms")
+    norms = attn_grad_norms(params, layers)
+    zero = [k for k, v in norms.items() if not v > 0]
+    check(not zero, f"{objective}: attention weights with no gradient: {zero[:6]}")
+    peak = torch.cuda.max_memory_allocated() - base
+    per_step = sum(walls[1:]) / (steps - 1)
+    # one more step under the profiler: where a step's device time goes
+    batch = batch_to_device(next(batches), "cuda")
+    reset_counts(kf.flash_attention, kf.flash_attention_bwd)
+    idle, ops, rows, busy = profile_device(
+        lambda: step(state, batch, gen), f"{objective} train step",
+        per_step * 1e3, 1, "step")
+    count_step("profiled step")
+    shares = train_shares(rows, busy)
+    # AdamW alone (one more update from the last step's gradients): its
+    # device time beside the step's busy time, its device ops and its wall
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in params.items()}
+    adam = lambda: opt.apply_updates(step.opt_cfg, params, grads,  # noqa: E731
+                                     state)
+    adam()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adam()
+    torch.cuda.synchronize()
+    adam_wall = (time.perf_counter() - t0) * 1e3
+    adam_rows, _, _ = device_events(adam)
+    adamw = dict(busy_ms=sum(r[0] for r in adam_rows),
+                 device_ops=sum(r[1] for r in adam_rows), wall_ms=adam_wall)
+    adamw["share_of_step_busy"] = adamw["busy_ms"] / busy
+    log(f"  AdamW alone: device busy {adamw['busy_ms']:.2f} ms "
+        f"({adamw['share_of_step_busy']:.3f} of the step's), "
+        f"{adamw['device_ops']} device ops, wall {adam_wall:.1f} ms")
+    out = dict(
+        params=n_params, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        losses=losses, step_ms=[w * 1e3 for w in walls],
+        steps_per_s=1.0 / per_step,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / per_step,
+        peak_mb=peak / 2**20, first_loss_vs_no_grad=first_diff,
+        busy_ms=busy, idle_share=idle, device_ops=ops, shares=shares,
+        adamw=adamw, attn_grad_norm_min=min(norms.values()),
+        flash_launches=launches,
+    )
+    log(f"train {objective}: {n_params / 1e9:.3f} B params, {out['steps_per_s']:.3f} "
+        f"steps/s, {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"{out['peak_mb']:.0f} MiB, first step {walls[0] * 1e3:.0f} ms, "
+        f"smallest attention grad norm {out['attn_grad_norm_min']:.3e}")
+    del step, module, params, state, batch, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_round_trip(kf, cfg) -> dict:
+    """``train`` at qwen2-1.5b's widths cut to ``CKPT_LAYERS`` layers (a
+    full archive is 21 GB: a disk test, not a port test): 2 steps with a
+    checkpoint, restored into a fresh denoiser whose ``eps`` must equal the
+    trained one's bitwise."""
+    import shutil
+
+    from repro_torch.interop import params_from_jax
+    from repro_torch.launch import train as lt
+    from repro_torch.models import DiffusionLM
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_loop import train
+
+    small = cfg.with_(num_layers=CKPT_LAYERS)
+    ckpt_dir = ROOT / "build" / f"train_ckpt.{os.getpid()}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    step, batches = lt.setup(small, diffusion=True, steps=2, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, seed=0)
+    t0 = time.perf_counter()
+    reset_counts(kf.flash_attention, kf.flash_attention_bwd)
+    train(step, batches, 2, ckpt_dir=str(ckpt_dir), print_fn=log)
+    launches = {"flash_attention": kf.flash_attention.launches,
+                "flash_attention_bwd": kf.flash_attention_bwd.launches}
+    check(all(n == 2 * CKPT_LAYERS for n in launches.values()),
+          f"checkpoint round trip's 2 steps: flash launches {launches}, not "
+          f"{2 * CKPT_LAYERS} each")
+    path = ckpt.latest(str(ckpt_dir))
+    tree, st = ckpt.restore(path)
+    check(st == 2 and int(tree["opt"]["step"]) == 2, f"checkpoint step {st}")
+    fresh = DiffusionLM(lt.train_config(small), device="cuda", seed=1)
+    fresh.load_state_dict(params_from_jax(tree["params"], small))
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, small.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    a = step.module.eps(x.to(small.dtype), 0.5)
+    b = fresh.eps(x.to(small.dtype), 0.5)
+    check(torch.equal(a, b), "restored denoiser's eps differs from the saved one's")
+    size = os.path.getsize(path)
+    shutil.rmtree(ckpt_dir)
+    log(f"checkpoint round trip ({CKPT_LAYERS} layers, {size / 2**20:.0f} MiB "
+        f"archive): eps bitwise equal, {time.perf_counter() - t0:.1f}s")
+    return dict(layers=CKPT_LAYERS, archive_mb=size / 2**20, eps_bitwise=True,
+                flash_launches=launches)
+
+
+def phase_training(kf) -> tuple[dict, dict]:
+    """Phase 13: full-width qwen2-1.5b trained with the diffusion objective,
+    then the LM objective (float32 parameters, bf16 compute), then the
+    checkpoint round trip.  Returns the flash launches of every training
+    step (each read from the counters after its step) and the figures."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-1.5b")
+    figures = {obj: train_objective(kf, cfg, obj) for obj in TRAIN_STEPS}
+    figures["checkpoint"] = checkpoint_round_trip(kf, cfg)
+    launches = {name: sum(f["flash_launches"][name] for f in figures.values())
+                for name in ("flash_attention", "flash_attention_bwd")}
+    return {**launches, "era_update": 0, "decode_attention": 0}, figures
+
+
+# ---------------------------------------------------------------------------
 # timing and tracing
 # ---------------------------------------------------------------------------
 
@@ -3416,13 +3902,20 @@ def main() -> None:
     t0 = time.perf_counter()
     ptxas = ptxas_start(build, kf.SOURCE)
     dptxas_out, dptxas = ptxas_start(build, kd.SOURCE)
-    libs = build.build_all([kf.SOURCE, kd.SOURCE])
+    bptxas_out, bptxas = ptxas_start(build, kf.BWD_SOURCE)
+    libs = build.build_all([kf.SOURCE, kd.SOURCE, kf.BWD_SOURCE])
     log(f"built {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f}s")
     flash_ptxas = ptxas_report(ptxas, kf)
     text, _ = dptxas.communicate()
     dptxas_out.unlink(missing_ok=True)
     check(dptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
     decode_ptxas = decode_ptxas_report(text, kd)
+    text, _ = bptxas.communicate()
+    bptxas_out.unlink(missing_ok=True)
+    check(bptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+    bwd_ptxas = bwd_ptxas_report(text)
+    bwd_ptxas["flash_fwd_kernel_lse"] = {
+        str(k): v for k, v in sorted(flash_ptxas.pop("lse").items())}
 
     def done(phase):
         log(f"phase {phase} done at {time.perf_counter() - t0:.1f}s")
@@ -3455,6 +3948,9 @@ def main() -> None:
     audio_vlm_launches, audio_vlm = phase_audio_vlm(ku, kf, kd)
     done(12)
     families.update(audio_vlm)
+    bwd_errs, bwd_t = bwd_cases(kf), bwd_timings(kf)
+    training_launches, training = phase_training(kf)
+    done(13)
 
     def counts(name):
         by_path = {"era": era_launches[name], "ar": ar_launches[name],
@@ -3463,7 +3959,8 @@ def main() -> None:
                    "frontdoor": frontdoor_launches[name],
                    "families": families_launches[name],
                    "ssm_hybrid": ssm_launches[name],
-                   "audio_vlm": audio_vlm_launches[name]}
+                   "audio_vlm": audio_vlm_launches[name],
+                   "training": training_launches[name]}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -3509,6 +4006,24 @@ def main() -> None:
              full_cache=decode_t["full"], in_loop=ar["decode_in_loop"],
              hymba=decode_t["hymba"], paligemma=decode_t["paligemma"],
              whisper=decode_t["whisper"], ptxas=decode_ptxas),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="none: the TPU reference differentiates its naive / "
+                      "chunked SDPA with XLA autodiff (src/repro/models/"
+                      "attention.py); the backward of "
+                      "src/repro/kernels/flash_attention.py:34",
+             launches=training_launches["flash_attention_bwd"],
+             launches_by_path={"training": training_launches["flash_attention_bwd"]},
+             max_abs_err=max(bwd_errs.values()), max_abs_err_of="max|plain|",
+             max_abs_err_by_case=bwd_errs,
+             ms=bwd_t["ms"], kernel_ms=bwd_t["ms"],
+             ms_l2_cold=bwd_t["ms_l2_cold"], plain_ms=bwd_t["plain_ms"],
+             bound_ms=bwd_t["bound_ms"], bound_by=bwd_t["bound_by"],
+             library_ms=bwd_t["library_ms"],
+             library_ms_l2_cold=bwd_t["library_ms_l2_cold"],
+             kernel_over_library=bwd_t["kernel_over_library"],
+             shape=bwd_t["shape"], lm_causal_512=bwd_t["lm_causal_512"],
+             ptxas=bwd_ptxas),
     ]
     log(f"ERA path: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
     log(f"bucketed ERA drain: {bucketed['drain_ms']:.1f} ms, device busy "
@@ -3527,6 +4042,12 @@ def main() -> None:
     log(json.dumps({"solvers": solvers}))
     log(json.dumps({"frontdoor": frontdoor}))
     log(json.dumps({"families": families}))
+    for obj in TRAIN_STEPS:
+        t = training[obj]
+        log(f"training {obj}: {t['steps_per_s']:.3f} steps/s, "
+            f"{t['tokens_per_s']:.0f} tokens/s, peak {t['peak_mb']:.0f} MiB, "
+            f"losses {[round(x, 5) for x in t['losses']]}")
+    log(json.dumps({"training": training}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -100,6 +100,11 @@ class ModelConfig:
     num_encoder_layers: int = 0    # Whisper
     # ---- numerics / system ----
     dtype: Any = torch.bfloat16    # compute dtype of the block stack
+    # storage dtype of the weights the block stack casts to ``dtype`` at
+    # use; None stores them in ``dtype`` (serving).  Training passes
+    # float32, the reference's default: AdamW's steps of ~lr relative are
+    # below bf16's resolution and would not move bf16 weights.
+    param_dtype: Any = None
     vocab_pad_multiple: int = 2048  # the embedding's rows are padded to it
     kv_quant: str = "none"         # none | int8 (decode cache quantization)
     attention_impl: str = "auto"   # auto | naive | chunked | flash
@@ -110,6 +115,11 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def storage_dtype(self):
+        """The dtype the weights cast at use are stored in."""
+        return self.param_dtype or self.dtype
 
     @property
     def padded_vocab(self) -> int:

@@ -88,19 +88,25 @@
 //     4.3 GFLOP against 18.9 MB, 0.0056 ms at 3.35 TB/s against 0.0043 ms
 //     at the bf16 peak: bytes bound it, as at hd 128.
 //
+//  8. For training, a non-null `lse` takes each row's m * mul + log2(l)
+//     (base 2, the units the kernel's exp2 works in), or +inf for a row
+//     with no valid key, written once after the loop; the backward
+//     recomputes P from it.  It is a separate instance (LSE true) of the
+//     pairs the backward has, (32,32), (64,64) and (128,128): serving calls
+//     pass null and launch the instances as they were, register for
+//     register.
+//
 // Numbers.  Scores are accumulated in f32; the softmax uses exp2f with the
 // scale folded in by log2(e) (CUDA's exp2f: at most 2 ulp, far inside the
 // 2^-7 relative tolerance the output is held to); the softcap uses the
 // full-precision tanhf.  P is rounded to bf16 before P.V, as before; the
 // row sum l adds the unrounded p.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 32;          // keys per kv tile
@@ -111,9 +117,6 @@ constexpr int MIN_BLOCKS = 3;   // blocks an SM must hold: <= 168 registers
 // than (128,128), and (256,256) 64 more accumulators: two blocks an SM
 // (<= 255 registers) keep them from spilling
 constexpr int MIN_BLOCKS_WIDE = 2;
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr int Q_PAD_POS = -1000000000;  // position of a query row past Sq
 static_assert(2 * BK <= NTHREADS, "one thread a kv_pos and a kv_mask entry");
 
 struct Params {
@@ -124,6 +127,7 @@ struct Params {
   const int* q_pos;    // (Sq,)
   const int* kv_pos;   // (Sk,), < 0 = invalid slot
   const int* kv_mask;  // (B, Sk), 0 = masked key; may be null
+  float* lse;          // (B, H, Sq) log2-sum-exp2 of each row; may be null
   int B, H, KV, Sq, Sk;
   float scale, softcap;
   int window, causal, protected_;
@@ -157,83 +161,14 @@ struct Smem {
   static size_t bytes(int nk) { return bits_off + 2 * size_t((nk + 31) / 32) * 4; }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// d += a * b, m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ bool key_valid(int kp, int qp, const Params& p) {
-  bool ok = kp >= 0;
-  if (p.causal) ok = ok && kp <= qp;
-  if (p.window > 0) ok = ok && (kp > qp - p.window || kp < p.protected_);
-  return ok;
-}
-
-// first tile >= t whose bit is set, or nk
-__device__ __forceinline__ int next_tile(const uint32_t* bits, int t, int nk) {
-  while (t < nk) {
-    const uint32_t w = bits[t >> 5] >> (t & 31);
-    if (w) return t + __ffs(w) - 1;
-    t = (t | 31) + 1;
-  }
-  return nk;
-}
-
-template <int HD, int HDV>
-__global__ void __launch_bounds__(NTHREADS, HD > 128 ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
+// LSE: also write each row's log-sum-exp for the backward (training); the
+// serving instances (LSE false) compile exactly as without it.  At hd 128
+// the LSE instance keeps m past the loop, one value more than 168
+// registers hold: it takes the wide budget (two blocks an SM) rather than
+// spill
+template <int HD, int HDV, bool LSE>
+__global__ void __launch_bounds__(
+    NTHREADS, HD > 128 || (LSE && HD == 128) ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
     flash_fwd_kernel(const Params p) {
   using L = Smem<HD, HDV>;
   constexpr bool QSMEM = L::QSMEM;
@@ -518,12 +453,22 @@ __global__ void __launch_bounds__(NTHREADS, HD > 128 ? MIN_BLOCKS_WIDE : MIN_BLO
   }
 
   // O / l as bf16, staged in the first stage's buffers (free after the
-  // loop's last barrier), then written in 16-byte rows
+  // loop's last barrier), then written in 16-byte rows; for the backward,
+  // each row's m * mul + log2(l) (so p = exp2(x * mul - lse)), +inf for a
+  // row with no valid key (every p of the row is then 0)
   bf16* Os = k_tile(0) + row0 * LDV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float l = quad_sum(l_run[r]);
     const float inv = l > 0.f ? 1.f / l : 0.f;
+    if constexpr (LSE) {
+      // indices and mul re-derived here, not kept live through the loop
+      const int qi = (gridDim.x - 1 - blockIdx.x) * BQ + row0 + g + 8 * r;
+      const float mul_l = p.softcap > 0.f ? LOG2E : p.scale * LOG2E;
+      if (t4 == 0 && qi < p.Sq)
+        p.lse[long(blockIdx.y) * p.Sq + qi] =
+            l > 0.f ? fmaf(m_run[r], mul_l, log2f(l)) : pos_inf();
+    }
 #pragma unroll
     for (int n = 0; n < HDV / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8 * r) * LDV + 8 * n + 2 * t4) =
@@ -544,7 +489,7 @@ constexpr int MAX_DEVICES = 64;
 
 // Raise the instance's dynamic shared-memory cap to the card's opt-in
 // maximum, once per card (a launch still asks only for what its Sk needs).
-template <int HD, int HDV>
+template <int HD, int HDV, bool LSE>
 cudaError_t allow_smem() {
   static int done[MAX_DEVICES] = {0};
   int dev = 0;
@@ -555,46 +500,50 @@ cudaError_t allow_smem() {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<HD, HDV>,
+  err = cudaFuncSetAttribute(flash_fwd_kernel<HD, HDV, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done[dev] = 1;
   return err;
 }
 
-template <int HD, int HDV>
+template <int HD, int HDV, bool LSE>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  cudaError_t err = allow_smem<HD, HDV>();
+  cudaError_t err = allow_smem<HD, HDV, LSE>();
   if (err != cudaSuccess) return err;
   const int nk = (p.Sk + BK - 1) / BK;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  flash_fwd_kernel<HD, HDV><<<grid, NTHREADS, Smem<HD, HDV>::bytes(nk), stream>>>(p);
+  flash_fwd_kernel<HD, HDV, LSE><<<grid, NTHREADS, Smem<HD, HDV>::bytes(nk), stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int HD, int HDV>
 int blocks_per_sm(int Sk) {
   int blocks = -1;
-  if (allow_smem<HD, HDV>() != cudaSuccess) return -1;
+  if (allow_smem<HD, HDV, false>() != cudaSuccess) return -1;
   const size_t bytes = Smem<HD, HDV>::bytes((Sk + BK - 1) / BK);
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_kernel<HD, HDV>,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_kernel<HD, HDV, false>,
                                                     NTHREADS, bytes) != cudaSuccess)
     return -1;
   return blocks;
 }
 
-// the head-dim pairs (q/k, v) with an instance
+// the head-dim pairs (q/k, v) with an instance; those with a backward
+// (flash_attention_bwd.cu) also have an LSE instance
 #define FLASH_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128) X(192, 128) X(256, 256)
+#define FLASH_LSE_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128)
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Returns a cudaError_t: 0 on a
-// successful launch.  The launch is asynchronous on `stream`.
+// successful launch.  The launch is asynchronous on `stream`.  `lse` (B, H,
+// Sq) float32 takes each row's log-sum-exp for the backward
+// (flash_attention_bwd.cu); serving calls pass null.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     const int* q_pos, const int* kv_pos, const int* kv_mask,
     int B, int H, int KV, int Sq, int Sk, int hd, int hd_v,
     float scale, float softcap, int window, int causal, int protected_,
-    void* stream) {
+    float* lse, void* stream) {
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -603,6 +552,7 @@ extern "C" int repro_flash_attention_fwd(
   p.q_pos = q_pos;
   p.kv_pos = kv_pos;
   p.kv_mask = kv_mask;
+  p.lse = lse;
   p.B = B;
   p.H = H;
   p.KV = KV;
@@ -614,10 +564,17 @@ extern "C" int repro_flash_attention_fwd(
   p.causal = causal;
   p.protected_ = protected_;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse == nullptr) {
 #define FLASH_LAUNCH(D, DV) \
-  if (hd == D && hd_v == DV) return int(launch<D, DV>(p, s));
-  FLASH_INSTANCES(FLASH_LAUNCH)
+  if (hd == D && hd_v == DV) return int(launch<D, DV, false>(p, s));
+    FLASH_INSTANCES(FLASH_LAUNCH)
 #undef FLASH_LAUNCH
+  } else {
+#define FLASH_LAUNCH_LSE(D, DV) \
+  if (hd == D && hd_v == DV) return int(launch<D, DV, true>(p, s));
+    FLASH_LSE_INSTANCES(FLASH_LAUNCH_LSE)
+#undef FLASH_LAUNCH_LSE
+  }
   return int(cudaErrorInvalidValue);
 }
 

@@ -1,1 +1,7 @@
-from repro_torch.data.synthetic import frontend_features
+from repro_torch.data.synthetic import (
+    DataConfig,
+    GaussianMixtureLatents,
+    TokenStream,
+    frontend_features,
+    make_loader,
+)

@@ -1,7 +1,13 @@
-"""Weight interop: the reference's parameter trees -> the port's modules.
+"""Weight interop between the reference's parameter trees and the port's
+modules, both ways.
 
-Each function takes a reference parameter tree with every leaf converted
-to a numpy array and returns a state dict for ``load_state_dict``:
+Each ``*_from_jax`` function takes a reference parameter tree with every
+leaf converted to a numpy array and returns a state dict for
+``load_state_dict``; each ``*_to_jax`` function is its inverse, from a
+state dict (tensors) to a nested dict of numpy float32 arrays keyed as the
+reference's tree, each segment's layers stacked again on a leading axis.
+The training checkpoints (:mod:`repro_torch.training.checkpoint`) are
+written through them, so they load in the reference's ``restore``:
 
 * ``params_from_jax(tree, cfg)``: the tree of
   ``repro.models.diffusion.DiffusionLM.init``, for
@@ -37,6 +43,18 @@ its ``encoder.norm`` the port's), ``ln1``, ``self_attn``, ``ln_x``,
 weight is ``(d_in, d_out)`` in both packages, so nothing is transposed.  qwen2 has biases on wq/wk/wv, llama has none.
 Loading casts each tensor to the dtype of the module parameter it fills
 (the MoE router, ``A_log``, ``D`` and ``r{z,i,f,o}`` stay float32).
+
+A denoiser's round trip: the reference's DiffusionLM tree carries the
+token model's leaves under ``backbone`` (``embed``, and ``lm_head``,
+``meta``, ``pos_embed`` or ``encoder`` where the config has them), which
+its ``eps`` never reads.  ``params_from_jax`` drops them and
+``params_to_jax`` writes a tree without them: the reference's ``restore``
+loads it and its ``eps`` runs on it, but a reference tree that went
+through the port has lost those leaves.
+
+The AdamW state maps the same way (:func:`opt_state_to_jax`,
+:func:`opt_state_from_jax`): ``m`` and ``v`` keyed as the parameters, and
+``step``.
 """
 
 from __future__ import annotations
@@ -115,3 +133,97 @@ def model_params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
         for key, leaf in _leaves(enc["norm"]):
             sd[f"encoder.norm.{key}"] = _t(leaf)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the port -> the reference's trees
+# ---------------------------------------------------------------------------
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _put(tree: dict, dotted: str, value) -> None:
+    parts = dotted.split(".")
+    cur = tree
+    for part in parts[:-1]:
+        cur = cur.setdefault(part, {})
+    cur[parts[-1]] = value
+
+
+def _stack_layers(sd: dict, prefix: str, count: int, layer0: int = 0) -> dict:
+    """The nested segment tree of ``<prefix>.layers.<layer0 + j>.*`` for j
+    < count, each leaf the stack of its layers' tensors on axis 0."""
+    first = f"{prefix}.layers.{layer0}."
+    keys = [k[len(first):] for k in sd if k.startswith(first)]
+    seg: dict = {}
+    for key in keys:
+        _put(seg, key, np.stack(
+            [_np(sd[f"{prefix}.layers.{layer0 + j}.{key}"]) for j in range(count)]))
+    return seg
+
+
+def _backbone_to_jax(sd: dict, cfg: ModelConfig) -> tuple[dict, dict]:
+    """(segs, final_norm) of the reference from the port's ``backbone.*``."""
+    segs, layer0 = {}, 0
+    for seg_i, (kind, count) in enumerate(cfg.blocks):
+        segs[f"{seg_i}_{kind}"] = _stack_layers(sd, "backbone", count, layer0)
+        layer0 += count
+    final_norm: dict = {}
+    for key, t in sd.items():
+        if key.startswith("backbone.final_norm."):
+            _put(final_norm, key[len("backbone.final_norm."):], _np(t))
+    return segs, final_norm
+
+
+def params_to_jax(state_dict: dict, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`params_from_jax`: a denoiser's state dict (or
+    any dict of its named tensors) as the reference's DiffusionLM tree,
+    without the token model's leaves (see the module docstring)."""
+    segs, final_norm = _backbone_to_jax(state_dict, cfg)
+    tree: dict = {"backbone": {"segs": segs, "final_norm": final_norm}}
+    for key, t in state_dict.items():
+        if key.split(".")[0] in ("time_mlp", "in_proj", "eps_head"):
+            _put(tree, key, _np(t))
+    return tree
+
+
+def model_params_to_jax(state_dict: dict, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`model_params_from_jax`: a token model's state
+    dict as the reference's ``Model`` tree."""
+    segs, final_norm = _backbone_to_jax(state_dict, cfg)
+    tree: dict = {"segs": segs, "final_norm": final_norm,
+                  "embed": _np(state_dict["embed"])}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = _np(state_dict["lm_head.w"])
+    if cfg.num_meta_tokens:
+        tree["meta"] = _np(state_dict["meta"])
+    if cfg.family == "audio":
+        tree["pos_embed"] = _np(state_dict["pos_embed"])
+        norm: dict = {}
+        for key, t in state_dict.items():
+            if key.startswith("encoder.norm."):
+                _put(norm, key[len("encoder.norm."):], _np(t))
+        tree["encoder"] = {
+            "segs": {"0_enc": _stack_layers(state_dict, "encoder",
+                                            cfg.num_encoder_layers)},
+            "norm": norm,
+        }
+    return tree
+
+
+def opt_state_to_jax(state: dict, cfg: ModelConfig, denoiser: bool) -> dict:
+    """The port's AdamW state ({"m", "v": {name: tensor}, "step"}) as the
+    reference's ({"m", "v": trees keyed as the parameters, "step": int32})."""
+    to = params_to_jax if denoiser else model_params_to_jax
+    return {"m": to(state["m"], cfg), "v": to(state["v"], cfg),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}
+
+
+def opt_state_from_jax(tree: dict, cfg: ModelConfig, denoiser: bool) -> dict:
+    """The inverse of :func:`opt_state_to_jax`, on the CPU: the moments as
+    float32 tensors keyed by parameter name, ``step`` a 0-d int32 tensor."""
+    frm = params_from_jax if denoiser else model_params_from_jax
+    return {"m": frm(tree["m"], cfg), "v": frm(tree["v"], cfg),
+            "step": torch.tensor(int(tree["step"]), dtype=torch.int32)}

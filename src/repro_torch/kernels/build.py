@@ -25,6 +25,7 @@ BUILD_DIR = PACKAGE_DIR.parent.parent / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-I", str(CSRC_DIR),
 )
 
 _lock = threading.Lock()
@@ -39,9 +40,12 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the shared library of ``csrc/<source>`` is built."""
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    """Where the shared library of ``csrc/<source>`` is built: named by the
+    hash of the source and of every header in ``csrc/``."""
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def compile_command(source: str, out: Path) -> list[str]:

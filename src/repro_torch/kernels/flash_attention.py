@@ -21,6 +21,15 @@ another pair raises.  It is built with
 ``cudaGetLastError()`` after the launch and the wrapper raises if it is
 not 0.
 
+Training: on CUDA tensors under autograd (grad enabled and q, k or v
+requiring grad) the wrapper is a ``torch.autograd.Function``: its forward
+is the same kernel, also writing each row's log-sum-exp, and its backward
+is the hand-written kernel of ``csrc/flash_attention_bwd.cu`` (see
+:func:`flash_attention_bwd`), for the head-dim pairs of
+:data:`BWD_HEAD_DIM_PAIRS`.  A call under ``no_grad`` is the serving
+launch, with no log-sum-exp.  CPU tensors take the plain versions, which
+autograd differentiates.
+
 Semantics (shared with :func:`flash_attention_plain`): keys with
 ``kv_pos < 0`` or a zero ``kv_mask`` entry are invalid; causal, window and
 protected-sink predicates apply on positions; an optional tanh softcap
@@ -40,8 +49,13 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 NEG_INF = -1e30
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 #: (query/key head dim, value head dim) of each kernel instance
 HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
+#: the pairs the backward kernel has an instance of; the others wait for
+#: their own register plans (ROADMAP, queue 1b, item 'Flash backward at
+#: head dims 192 and 256')
+BWD_HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128))
 MAX_GRID_Y = 65535
 
 
@@ -66,6 +80,19 @@ def flash_attention_plain(
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32)) * hd**-0.5
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
+    valid = _valid(q, k, q_pos, kv_pos, kv_mask, window, causal, protected)
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=s.device))
+    w = torch.softmax(s, dim=-1)
+    any_valid = torch.amax(s, dim=-1, keepdim=True) > NEG_INF / 2
+    w = torch.where(any_valid, w, torch.zeros((), device=w.device))
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def _valid(q, k, q_pos, kv_pos, kv_mask, window, causal, protected):
+    """(B, KV, G, Sq, Sk) bool: which (query, key) pairs the masks keep."""
+    b, sq, h, _ = q.shape
+    kvh = k.shape[2]
     qp = q_pos.to(torch.int64)[:, None]
     kp = kv_pos.to(torch.int64)[None, :]
     valid = kp >= 0
@@ -79,12 +106,48 @@ def flash_attention_plain(
     valid = valid[None, None, None]                        # (1,1,1,Sq,Sk)
     if kv_mask is not None:
         valid = valid & (kv_mask != 0)[:, None, None, None, :]
-    s = torch.where(valid, s, torch.full((), NEG_INF, device=s.device))
-    w = torch.softmax(s, dim=-1)
-    any_valid = torch.amax(s, dim=-1, keepdim=True) > NEG_INF / 2
-    w = torch.where(any_valid, w, torch.zeros((), device=w.device))
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
-    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    return valid.expand(b, kvh, h // kvh, sq, k.shape[1])
+
+
+def flash_attention_bwd_plain(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, dout: Tensor,
+    q_pos: Tensor, kv_pos: Tensor, *, kv_mask: Tensor | None = None,
+    window: int = 0, causal: bool = True, softcap: float = 0.0,
+    protected: int = 0,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """The backward kernel's function by explicit formulas, all in float32:
+    P recomputed from q and k, ``D = rowsum(dout * out)`` (``out`` is the
+    forward's output), ``dS = P * (dout v^T - D)`` times the softcap's
+    ``1 - tanh^2`` and the scale, then ``dq = dS k``, ``dk = dS^T q`` and
+    ``dv = P^T dout`` summed over each kv head's group.  Returns float32
+    (dq, dk, dv) shaped like q, k, v; a row with no valid key gets zeros."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, sq, kvh, g, hd)
+    kf, vf = k.to(f32), v.to(f32)
+    dof = dout.to(f32).reshape(b, sq, kvh, g, v.shape[-1])
+    z = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * hd**-0.5
+    if softcap > 0.0:
+        tn = torch.tanh(z / softcap)
+        z = softcap * tn
+    valid = _valid(q, k, q_pos, kv_pos, kv_mask, window, causal, protected)
+    z = torch.where(valid, z, torch.full((), NEG_INF, device=z.device))
+    p = torch.softmax(z, dim=-1)
+    p = torch.where(valid.any(dim=-1, keepdim=True), p,
+                    torch.zeros((), device=p.device))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    delta = (dout.to(f32) * out.to(f32)).sum(-1)           # (B, Sq, H)
+    delta = delta.reshape(b, sq, kvh, g).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - delta)
+    if softcap > 0.0:
+        ds = ds * (1.0 - tn * tn)
+    ds = ds * hd**-0.5
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(b, sq, h, hd)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    return dq, dk, dv
 
 
 def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
@@ -131,9 +194,23 @@ def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
         raise ValueError(f"flash_attention: B*H = {b * h} exceeds {MAX_GRID_Y}")
 
 
+def _check_bwd(q, v) -> None:
+    if (q.shape[-1], v.shape[-1]) not in BWD_HEAD_DIM_PAIRS:
+        raise ValueError(
+            f"flash_attention backward: head dims (q/k {q.shape[-1]}, v "
+            f"{v.shape[-1]}) have no backward instance (only "
+            f"{BWD_HEAD_DIM_PAIRS}); ROADMAP, queue 1b, item 'Flash backward "
+            f"at head dims 192 and 256' ports them")
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     return bind(build.load(SOURCE))
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    return bind_bwd(build.load(BWD_SOURCE))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -143,6 +220,20 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = (
         [ctypes.c_void_p] * 7
         + [ctypes.c_int] * 7
+        + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 2
+    )
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The backward library's entry point, bound like :func:`bind`."""
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 13
+        + [ctypes.c_int] * 6
         + [ctypes.c_float] * 2
         + [ctypes.c_int] * 3
         + [ctypes.c_void_p]
@@ -166,31 +257,116 @@ def flash_attention(
 ) -> Tensor:
     """GQA flash attention in the model layout; returns (B, Sq, H, hd_v).
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (bf16, a head-dim pair of :data:`HEAD_DIM_PAIRS`) or raise."""
+    kernel (bf16, a head-dim pair of :data:`HEAD_DIM_PAIRS`) or raise.
+    Under autograd a CUDA call is differentiable through the backward
+    kernel (:class:`_FlashAttention`)."""
+    opts = dict(kv_mask=kv_mask, window=window, causal=causal,
+                softcap=softcap, protected=protected)
     if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, q_pos, kv_pos, kv_mask=kv_mask, window=window,
-            causal=causal, softcap=softcap, protected=protected,
-        )
+        return flash_attention_plain(q, k, v, q_pos, kv_pos, **opts)
     if kv_mask is not None and kv_mask.dtype != torch.int32:
-        kv_mask = kv_mask.to(torch.int32)
+        opts["kv_mask"] = kv_mask.to(torch.int32)
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, q_pos, kv_pos, opts)
+    return _forward(q, k, v, q_pos, kv_pos, **opts)[0]
+
+
+flash_attention.launches = 0
+
+
+def _forward(q, k, v, q_pos, kv_pos, *, kv_mask, window, causal, softcap,
+             protected, with_lse: bool = False):
+    """One launch of the forward kernel: (out, lse or None); ``lse`` (B, H,
+    Sq) float32 is written only for the backward."""
     _check(q, k, v, q_pos, kv_pos, kv_mask)
     b, sq, h, hd = q.shape
     sk, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty(b, sq, h, hd_v)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     err = _library().repro_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_pos.data_ptr(), kv_pos.data_ptr(),
         None if kv_mask is None else kv_mask.data_ptr(),
         b, h, kvh, sq, sk, hd, hd_v,
         hd**-0.5, float(softcap), int(window), int(causal), int(protected),
+        None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
-flash_attention.launches = 0
+class _FlashAttention(torch.autograd.Function):
+    """The kernel under autograd: the forward launch also writes the
+    log-sum-exp of each row, which the backward kernel reads with q, k, v,
+    the output, the positions and the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, opts):
+        _check_bwd(q, v)
+        out, lse = _forward(q, k, v, q_pos, kv_pos, **opts, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos,
+                              opts["kv_mask"])
+        ctx.opts = {name: val for name, val in opts.items() if name != "kv_mask"}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_pos, kv_pos, kv_mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), q_pos, kv_pos, lse=lse,
+            kv_mask=kv_mask, **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, dout: Tensor,
+    q_pos: Tensor, kv_pos: Tensor, *, lse: Tensor | None = None,
+    kv_mask: Tensor | None = None, window: int = 0, causal: bool = True,
+    softcap: float = 0.0, protected: int = 0,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Gradients (dq, dk, dv) of :func:`flash_attention` for the output
+    gradient ``dout``.  CPU tensors take :func:`flash_attention_bwd_plain`
+    (float32).  CUDA tensors launch the backward kernel, which needs the
+    forward's ``lse`` (B, H, Sq) and returns bf16 grads, or raise; one call
+    counts one launch (the kernel's three launches: D, dK/dV, dQ)."""
+    opts = dict(kv_mask=kv_mask, window=window, causal=causal,
+                softcap=softcap, protected=protected)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, q_pos, kv_pos,
+                                         **opts)
+    _check_bwd(q, v)
+    _check(q, k, v, q_pos, kv_pos, kv_mask)
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be a contiguous "
+                             f"bf16 tensor shaped like q")
+    if (lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention_bwd: lse must be the forward's "
+                         f"({b}, {h}, {sq}) float32 on the card")
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _bwd_library().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+        None if kv_mask is None else kv_mask.data_ptr(),
+        b, h, kvh, sq, sk, hd,
+        hd**-0.5, float(softcap), int(window), int(causal), int(protected),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 

@@ -7,8 +7,10 @@ MoE FFN), ``mlstm`` and ``slstm`` (xlstm-350m, from
 outputs averaged, then the MLP), and whisper-base's ``enc`` (bidirectional
 self-attention, layernorms, the plain GELU MLP) and ``xdec`` (causal
 self-attention, cross-attention over the encoder's states where there are
-any, the plain GELU MLP).  The MoE FFN's aux losses are dropped here; only
-training reads them.
+any, the plain GELU MLP).  The blocks with a MoE FFN (``MOE = True``:
+``moe``, ``mla_moe``) also take ``aux``, a list they append their layer's
+aux losses ``{"moe_aux", "moe_z"}`` to; only training passes one
+(:meth:`repro_torch.models.model.Backbone.forward`).
 
 Every block takes ``(x, mode=, cache=, layer=, pos=, window_override=,
 causal=, lengths=, protected=)``; ``cache`` is its segment's cache, with a
@@ -63,14 +65,14 @@ class DenseBlock(nn.Module):
     def _build_ffn(self, cfg, kw) -> None:
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, **kw)
 
-    def _ffn(self, h: Tensor) -> Tensor:
+    def _ffn(self, h: Tensor, aux: list | None = None) -> Tensor:
         return self.mlp(h)
 
     def forward(
         self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
         layer: int = 0, pos: int | None = None, window_override: int = -1,
         causal: bool = True, lengths: Tensor | None = None,
-        protected: int = 0,
+        protected: int = 0, aux: list | None = None,
     ) -> Tensor:
         """``window_override`` < 0 keeps the block's own window (the
         reference's ``_window``); 0 is full attention, > 0 a window."""
@@ -82,22 +84,29 @@ class DenseBlock(nn.Module):
             h, mode=mode, cache=cache, layer=layer, pos=pos, window=window,
             causal=causal, lengths=lengths, protected=protected,
         )
-        return x + self._ffn(self.ln2(x))
+        return x + self._ffn(self.ln2(x), aux)
 
 
 class MoEBlock(DenseBlock):
     """The dense block with the MoE FFN in place of the MLP (mixtral)."""
 
+    MOE = True
+
     def _build_ffn(self, cfg, kw) -> None:
         self.moe = MoE(cfg, **kw)
 
-    def _ffn(self, h: Tensor) -> Tensor:
-        return self.moe(h)[0]
+    def _ffn(self, h: Tensor, aux: list | None = None) -> Tensor:
+        out, losses = self.moe(h)
+        if aux is not None:
+            aux.append(losses)
+        return out
 
 
 class MLAMoEBlock(nn.Module):
     """MLA + MoE FFN (deepseek-v2-lite).  MLA ignores ``window_override``
     and ``causal``, as the reference's ``mla_moe_apply`` does."""
+
+    MOE = True
 
     def __init__(self, cfg, *, generator, device, dtype):
         super().__init__()
@@ -121,11 +130,14 @@ class MLAMoEBlock(nn.Module):
         self, x: Tensor, *, mode: str = "train", cache: dict | None = None,
         layer: int = 0, pos: int | None = None, window_override: int = -1,
         causal: bool = True, lengths: Tensor | None = None,
-        protected: int = 0,
+        protected: int = 0, aux: list | None = None,
     ) -> Tensor:
         x = x + self.mla(self.ln1(x), mode=mode, cache=cache, layer=layer,
                          pos=pos, lengths=lengths)
-        return x + self.moe(self.ln2(x))[0]
+        out, losses = self.moe(self.ln2(x))
+        if aux is not None:
+            aux.append(losses)
+        return x + out
 
 
 class HymbaBlock(nn.Module):

@@ -66,10 +66,11 @@ class DiffusionLM(nn.Module):
         self.causal = causal  # attention families denoise bidirectionally
         self.backbone = Backbone(cfg, generator=gen, device=dev)
         self.time_mlp = L.TimeMLP(d, generator=gen, device=dev)
-        self.in_proj = L.Linear(d, d, generator=gen, device=dev, dtype=cfg.dtype)
+        self.in_proj = L.Linear(d, d, generator=gen, device=dev,
+                                dtype=cfg.storage_dtype)
         self.eps_head = L.Linear(
             d, d, bias=True, init="zeros", generator=gen, device=dev,
-            dtype=cfg.dtype,
+            dtype=cfg.storage_dtype,
         )
 
     @property
@@ -90,6 +91,12 @@ class DiffusionLM(nn.Module):
         ``eps + x_t`` in x_t's dtype, computed in float32.  ``lengths``
         ((B,) int) masks pad keys out of every softmax and zeroes eps at
         pad positions, so a padded row's tail stays inert."""
+        return self.eps_grad(x_t, t, lengths)
+
+    def eps_grad(
+        self, x_t: Tensor, t, lengths: Tensor | None = None
+    ) -> Tensor:
+        """:meth:`eps` under autograd (no ``no_grad``), for training."""
         cfg = self.config
         t = torch.as_tensor(t, dtype=torch.float32, device=x_t.device)
         tcond = self.time_mlp(t.reshape(-1))                   # (1|B, d)
@@ -109,3 +116,34 @@ class DiffusionLM(nn.Module):
     def eps_fn(self, lengths: Tensor | None = None):
         """Closure matching the solver API: ``eps_fn(x, t) -> eps``."""
         return lambda x, t: self.eps(x, t, lengths=lengths)
+
+    def loss_at(self, x0: Tensor, u0, noise: Tensor, schedule) -> tuple[Tensor, dict]:
+        """The reference's eps-matching loss (Eq. 5 of the paper) on clean
+        latents ``x0`` (B, S, d), given its draws: ``u0`` in [0, 1) (a
+        0-d tensor) and ``noise`` (B, S, d).  Times are low-discrepancy
+        across the batch, ``u = (u0 + arange(B) / B) % 1`` and ``t = t_end
+        + (t_begin - t_end) u``; ``x_t = alpha(t) x0 + sigma(t) noise`` in
+        float32, denoised at its row's own ``t`` in the compute dtype.
+        Returns (mse, {"diffusion_mse": mse})."""
+        x0 = x0.to(torch.float32)
+        b = x0.shape[0]
+        u0 = torch.as_tensor(u0, dtype=torch.float32, device=x0.device)
+        u = torch.remainder(
+            u0 + torch.arange(b, device=x0.device, dtype=torch.float32) / b, 1.0)
+        t = schedule.t_end + (schedule.t_begin - schedule.t_end) * u
+        a = schedule.alpha(t)[:, None, None]
+        s = schedule.sigma(t)[:, None, None]
+        x_t = a * x0 + s * noise
+        pred = self.eps_grad(x_t.to(self.config.dtype), t)
+        mse = torch.mean((pred.to(torch.float32) - noise) ** 2)
+        return mse, {"diffusion_mse": mse}
+
+    def loss(self, batch: dict, generator: torch.Generator,
+             schedule) -> tuple[Tensor, dict]:
+        """:meth:`loss_at` on ``batch["latents"]``, with ``u0`` and the
+        noise drawn from ``generator`` (the reference draws them from a
+        ``jax.random`` key, which a torch generator cannot reproduce)."""
+        x0 = batch["latents"].to(torch.float32)
+        u0 = torch.rand((), generator=generator, device=x0.device)
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device)
+        return self.loss_at(x0, u0, noise, schedule)

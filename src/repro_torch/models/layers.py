@@ -2,11 +2,14 @@
 
 Parameters live in ``nn.Module``s.  The reference keeps float32 parameters
 and casts them to the activation dtype at every use (``x @ w.astype(
-x.dtype)``); the port casts each weight once, when it is created or
-loaded, to the dtype the reference would use it in — which gives the same
-numbers.  So linear weights of the block stack are stored in the compute
-dtype (bf16 at full width), while the norm scales and the time-embedding
-MLP, which the reference runs in float32, stay float32.
+x.dtype)``).  The port casts at every use too, from the config's
+``storage_dtype``: for serving (``param_dtype`` None) each weight is stored
+in the dtype the reference would use it in, cast once when it is created
+or loaded, which gives the same numbers; for training (``param_dtype``
+float32, as in the reference) it is stored in float32 and cast at use, so
+AdamW's small steps move it.  The norm scales and the time-embedding MLP,
+which the reference runs in float32, are float32 either way.  Parameters
+are built with ``requires_grad=False``; a trainer turns gradients on.
 """
 
 from __future__ import annotations

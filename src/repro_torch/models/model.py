@@ -49,7 +49,7 @@ class Backbone(nn.Module):
             self.segments.append((f"{i}_{kind}", len(layers), count))
             layers += [
                 BLOCKS[kind](cfg, generator=generator, device=device,
-                             dtype=cfg.dtype)
+                             dtype=cfg.storage_dtype)
                 for _ in range(count)
             ]
         self.layers = nn.ModuleList(layers)
@@ -60,6 +60,7 @@ class Backbone(nn.Module):
         *, mode: str = "train", cache: dict | None = None,
         pos: int | None = None, window_override: int = -1,
         protected: int = 0, enc_out: Tensor | None = None,
+        aux: dict | None = None,
     ) -> Tensor:
         """Run the stack on embedded states (B, S, d); ``lengths`` (B,)
         masks right-padding keys out of every attention softmax (the scans
@@ -67,17 +68,37 @@ class Backbone(nn.Module):
         the prefill and decode modes, layer ``j`` of a segment reads and
         writes layer ``j`` of the segment's cache; ``protected`` prefix
         slots are never evicted from a ring.  ``enc_out`` (whisper's
-        encoder states, train and prefill) goes to the ``xdec`` blocks."""
+        encoder states, train and prefill) goes to the ``xdec`` blocks.
+        With ``aux`` (a dict of float32 scalars ``moe_aux`` and ``moe_z``,
+        training) the MoE blocks' aux losses are added into it: summed over
+        each segment's layers, then over the segments, as the reference's
+        ``_stack`` sums them."""
         extra = {} if enc_out is None else {"enc_out": enc_out}
         for key, first, count in self.segments:
             seg = None if cache is None else cache[key]
+            seg_aux = []
             for j in range(count):
-                h = self.layers[first + j](
+                layer = self.layers[first + j]
+                more = ({"aux": seg_aux}
+                        if aux is not None and getattr(layer, "MOE", False)
+                        else {})
+                h = layer(
                     h, mode=mode, cache=seg, layer=j, pos=pos,
                     window_override=window_override, causal=causal,
-                    lengths=lengths, protected=protected, **extra,
+                    lengths=lengths, protected=protected, **extra, **more,
                 )
+            if seg_aux:
+                for name in aux:
+                    aux[name] = aux[name] + torch.stack(
+                        [a[name] for a in seg_aux]).sum()
         return self.final_norm(h)
+
+
+def zero_aux(device) -> dict:
+    """The aux losses of a stack with no MoE block: float32 zeros (the
+    reference's fixed schema)."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"moe_aux": zero, "moe_z": zero}
 
 
 def _norm(cfg: ModelConfig, device) -> nn.Module:
@@ -97,7 +118,7 @@ class Encoder(nn.Module):
         self.config = cfg
         self.layers = nn.ModuleList(
             BLOCKS["enc"](cfg, generator=generator, device=device,
-                          dtype=cfg.dtype)
+                          dtype=cfg.storage_dtype)
             for _ in range(cfg.num_encoder_layers)
         )
         self.norm = L.LayerNorm(cfg.d_model, cfg.norm_eps, device=device)
@@ -121,10 +142,11 @@ class Model(nn.Module):
 
     Built on the card unless the caller passes ``device="cpu"``, with the
     reference's init rules drawn from a seeded ``torch.Generator``.  Weights
-    are stored in the compute dtype, except those the reference computes
-    with in float32 (norm scales and biases, the MoE router, Mamba's
-    ``A_log`` and ``D``, the sLSTM's recurrent weights); reference weights
-    map in through
+    are stored in the config's ``storage_dtype`` (the compute dtype unless
+    ``param_dtype`` is set, as training sets it to float32), except those
+    the reference computes with in float32 (norm scales and biases, the
+    MoE router, Mamba's ``A_log`` and ``D``, the sLSTM's recurrent
+    weights); reference weights map in through
     :func:`repro_torch.interop.model_params_from_jax` and
     ``load_state_dict``.
     """
@@ -145,13 +167,14 @@ class Model(nn.Module):
         d = cfg.d_model
         self.config = cfg
         self.embed = nn.Parameter(
-            L.init_tensor((cfg.padded_vocab, d), "embed", gen, dev, cfg.dtype),
+            L.init_tensor((cfg.padded_vocab, d), "embed", gen, dev,
+                          cfg.storage_dtype),
             requires_grad=False,
         )
         self.meta = (
             nn.Parameter(
                 L.init_tensor((cfg.num_meta_tokens, d), "embed", gen, dev,
-                              cfg.dtype),
+                              cfg.storage_dtype),
                 requires_grad=False,
             )
             if cfg.num_meta_tokens else None
@@ -160,14 +183,14 @@ class Model(nn.Module):
         self.lm_head = (
             None if cfg.tie_embeddings
             else L.Linear(d, cfg.padded_vocab, generator=gen, device=dev,
-                          dtype=cfg.dtype)
+                          dtype=cfg.storage_dtype)
         )
         audio = cfg.family == "audio"
         # whisper: learned decoder positions and the encoder
         self.pos_embed = (
             nn.Parameter(
                 L.init_tensor((cfg.max_position, d), "embed", gen, dev,
-                              cfg.dtype),
+                              cfg.storage_dtype),
                 requires_grad=False,
             )
             if audio else None
@@ -221,7 +244,7 @@ class Model(nn.Module):
         The audio family adds its learned positions: ``[:S]``, or ``[pos]``
         in decode."""
         cfg = self.config
-        h = F.embedding(tokens, self.embed)
+        h = F.embedding(tokens, self.embed).to(cfg.dtype)
         if self.embed_scale is not None:
             h = h * self.embed_scale
         if pos is None:
@@ -257,10 +280,48 @@ class Model(nn.Module):
         sequence, prefix positions (meta tokens, patches) included (the
         reference's ``forward``).  The audio family takes ``frames`` (B, F,
         d), the vlm family ``patches`` (B, P, d)."""
+        return self.logits(tokens, frames=frames, patches=patches)
+
+    def logits(self, tokens: Tensor, *, frames: Tensor | None = None,
+               patches: Tensor | None = None,
+               aux: dict | None = None) -> Tensor:
+        """:meth:`forward` under autograd (no ``no_grad``); ``aux`` takes the
+        MoE aux losses (:meth:`Backbone.forward`)."""
         h = self.backbone(self._embed(tokens, patches=patches), mode="train",
                           protected=self.config.num_meta_tokens,
-                          enc_out=self._encode(frames))
+                          enc_out=self._encode(frames), aux=aux)
         return self._logits(h)
+
+    def loss(self, batch: dict) -> tuple[Tensor, dict]:
+        """The reference's ``Model.loss``: teacher-forced cross-entropy of
+        ``batch["tokens"]`` (B, S) after the prefix (meta tokens, the vlm
+        family's ``patches``), each position predicting the next, in
+        float32, averaged over the optional ``loss_mask`` (B, S); plus, with
+        a MoE config, ``aux_loss_weight * moe_aux + router_z_loss * moe_z``.
+        The audio family takes ``batch["frames"]``.  Returns (loss, {"xent",
+        "moe_aux", "moe_z"})."""
+        cfg = self.config
+        tokens = batch["tokens"]
+        patches = batch.get("patches")
+        aux = zero_aux(tokens.device)
+        logits = self.logits(tokens, frames=batch.get("frames"),
+                             patches=patches, aux=aux)
+        off = cfg.num_meta_tokens
+        if cfg.family == "vlm":
+            off += patches.shape[1]
+        lg = logits[:, off:][:, :-1].to(torch.float32)
+        tgt = tokens[:, 1:].to(torch.int64)
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones_like(logz) if mask is None
+                else mask[:, 1:].to(torch.float32))
+        xent = torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+        total = xent
+        if cfg.moe is not None:
+            total = (total + cfg.moe.aux_loss_weight * aux["moe_aux"]
+                     + cfg.moe.router_z_loss * aux["moe_z"])
+        return total, {"xent": xent, **aux}
 
     @torch.no_grad()
     def prefill(

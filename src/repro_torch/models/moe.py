@@ -71,8 +71,9 @@ class Experts(nn.Module):
 
     def forward(self, xs: Tensor) -> Tensor:
         """xs: (E, C, d) -> (E, C, d), one batched product per weight."""
-        h = F.silu(torch.bmm(xs, self.wg)) * torch.bmm(xs, self.wi)
-        return torch.bmm(h, self.wo)
+        h = (F.silu(torch.bmm(xs, self.wg.to(xs.dtype)))
+             * torch.bmm(xs, self.wi.to(xs.dtype)))
+        return torch.bmm(h, self.wo.to(xs.dtype))
 
 
 class MoE(nn.Module):

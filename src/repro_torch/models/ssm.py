@@ -7,7 +7,8 @@ reference's names and its chunking:
 
 * :func:`chunked_linear_scan` and :func:`chunked_ssm_outputs` run a Python
   loop over the chunks of the sequence and, inside a chunk, a blocked scan
-  of ``h_t = a_t h_{t-1} + b_t`` (:func:`_scan_`): every block of
+  of ``h_t = a_t h_{t-1} + b_t`` (:func:`_scan_`, differentiable under
+  autograd): every block of
   :data:`BLOCK` positions scans from zero, all blocks at once, one
   position a step; the carries then cross the blocks one by one, and one
   pass adds each block's carry to its positions.  That is a few passes
@@ -53,11 +54,11 @@ def _pad_time(t: Tensor, pad: int, value: float = 0.0) -> Tensor:
     return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad), value=value)
 
 
-#: positions of one block of :func:`_scan_`
+#: positions of one block of :func:`_scan_inplace`
 BLOCK = 16
 
 
-def _scan_(a: Tensor, b: Tensor) -> Tensor:
+def _scan_inplace(a: Tensor, b: Tensor) -> Tensor:
     """Inclusive scan of ``h_p = a_p h_{p-1} + b_p`` over axis 1 (with
     ``h_{-1} = 0``), in place over ``a`` and ``b`` (contiguous); returns
     every ``h_p``.  ``a`` may broadcast against ``b`` on its trailing dims.
@@ -85,6 +86,50 @@ def _scan_(a: Tensor, b: Tensor) -> Tensor:
         carry = bb[:, :-1, t - 1 :].clone()
         bb[:, 1:, : t - 1].addcmul_(ab[:, 1:, : t - 1], carry)
     return b[:, :n]
+
+
+class _LinearScan(torch.autograd.Function):
+    """:func:`_scan_inplace` under autograd.  The forward runs it on copies
+    of ``a`` and ``b`` (the same arithmetic, so bitwise the same ``h``).
+    The adjoint of ``h_p = a_p h_{p-1} + b_p`` is the same recurrence run
+    backward, ``g_p = dh_p + a_{p+1} g_{p+1}``, which the forward scan
+    computes on the flipped sequence; then ``db_p = g_p`` and ``da_p = g_p
+    h_{p-1}`` (summed over the dims ``a`` broadcasts on)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _scan_inplace(a.clone(), b.clone())
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        n = h.shape[1]
+        # the flipped gates: a_{p+1} at flipped position n-1-p (position 0
+        # of the flipped scan starts from zero, its gate is never read)
+        gate = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+        g = _scan_inplace(torch.flip(gate, [1]).contiguous(),
+                          torch.flip(dh, [1]).contiguous())
+        g = torch.flip(g, [1])
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, : n - 1]], dim=1)
+        da = g * h_prev
+        dims = [i for i in range(2, a.dim()) if a.shape[i] == 1 and da.shape[i] != 1]
+        if dims:
+            da = da.sum(dim=dims, keepdim=True)
+        return da, g
+
+
+def _scan_(a: Tensor, b: Tensor) -> Tensor:
+    """Inclusive scan of ``h_p = a_p h_{p-1} + b_p`` over axis 1 (``h_{-1} =
+    0``); ``a`` may broadcast against ``b`` on its trailing dims.  Without
+    autograd it runs in place over ``a`` and ``b`` (contiguous, both
+    clobbered); under autograd (grad enabled and ``a`` or ``b`` requiring
+    grad) it is differentiable through :class:`_LinearScan`, with the same
+    result bitwise."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _LinearScan.apply(a, b)
+    return _scan_inplace(a, b)
 
 
 def _chunking(s: int, chunk: int) -> tuple[int, int, int]:

@@ -76,6 +76,9 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     assert "repro_torch.serving.frontdoor" in out["imported"]
     assert "repro_torch.models.moe" in out["imported"]
     assert "repro_torch.models.mla" in out["imported"]
+    for name in ("training.optimizer", "training.train_loop",
+                 "training.checkpoint", "data.synthetic", "launch.train"):
+        assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["loaded"] if _forbidden(m)]
     assert not bad, bad
 
@@ -105,7 +108,11 @@ GRAPH_PATH = ("run_chunk", "_run_chunk_locked", "_on_card", "_run_program",
         sorted((PKG / "kernels").glob("*.py"))
         + sorted((PKG / "core").glob("*.py"))
         + [PKG / "serving" / "engine.py", PKG / "models" / "attention.py",
-           PKG / "models" / "moe.py", PKG / "models" / "mla.py"])]
+           PKG / "models" / "moe.py", PKG / "models" / "mla.py",
+           PKG / "models" / "ssm.py", PKG / "launch" / "train.py"]
+        # checkpoint.py's one try/finally only removes a temporary file
+        + [PKG / "training" / "optimizer.py", PKG / "training" / "train_loop.py"]
+        + sorted((PKG / "data").glob("*.py")))]
     + [pytest.param(EXECUTOR, m, id=f"{EXECUTOR.relative_to(ROOT)}::{m}")
        for m in GRAPH_PATH],
 )
@@ -295,6 +302,39 @@ def test_cuda_decode_takes_the_decode_kernel(impl, ok):
     for dev in (cuda, cpu):
         with pytest.raises(ValueError, match="softcap"):
             check_decode(impl if ok else "auto", dev, 30.0)
+
+
+def test_training_raises_without_a_card(no_card):
+    """The training launcher and the trainer's models need the card unless
+    the CPU is asked for."""
+    from repro_torch.launch import train as launch_train
+
+    for flag in ([], ["--diffusion"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_train.main(["--smoke", "--steps", "1", *flag])
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    for diffusion in (True, False):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_train.setup(cfg, diffusion=diffusion, steps=1, batch=1, seq=4)
+        step, _ = launch_train.setup(cfg, diffusion=diffusion, steps=1,
+                                     batch=1, seq=4, device="cpu")
+        assert step.module.device.type == "cpu"
+
+
+def test_flash_backward_launch_has_no_fallback():
+    """The backward's launch path (the autograd Function and its wrapper)
+    holds no ``try``, and a CUDA call at a pair without a backward instance
+    raises before any launch."""
+    from repro_torch.kernels import flash_attention as kf
+
+    tree = ast.parse((PKG / "kernels" / "flash_attention.py").read_text())
+    fns = [n for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+           and n.name in ("_FlashAttention", "flash_attention_bwd", "_forward")]
+    assert len(fns) == 3
+    for fn in fns:
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(fn)), fn.name
+    with pytest.raises(ValueError, match="no backward instance"):
+        kf._check_bwd(torch.zeros(1, 2, 1, 256), torch.zeros(1, 2, 1, 256))
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -12,6 +12,7 @@ atol 2e-5 in float32, and 3e-2 in bfloat16, where both outputs are
 rounded to bf16 (one ulp of |o| < 4 is 2^-6).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -443,3 +444,122 @@ def test_decode_cuda_checks_reject_bad_input():
     pos = torch.arange(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="not cuda"):
         kd._check(q, k, k, pos[:1], pos)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward's plain version, and the differentiable scan
+# ---------------------------------------------------------------------------
+
+# (b, s, sk, h, kvh, hd, options, lengths, q_pos, kv_pos): GQA at G = 6, 5
+# and 1, every mask, softcap, and a row with no valid key
+BWD_CASES = {
+    "G6 non-causal kv_mask, empty row": (
+        3, 24, 24, 12, 2, 32, dict(causal=False), (24, 9, 0), None, None),
+    "G5 causal window protected": (
+        2, 40, 40, 10, 2, 16, dict(causal=True, window=8, protected=3),
+        None, None, None),
+    "G1 causal softcap": (2, 20, 20, 4, 4, 32,
+                          dict(causal=True, softcap=2.0), None, None, None),
+    "wrapped ring, queries offset, window": (
+        2, 10, 48, 4, 2, 32, dict(causal=True, window=12, protected=3),
+        None, np.arange(38, 48, dtype=np.int32), _ring(48, 17, (8, 16))),
+}
+BWD_TOL = 2e-5
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_plain_matches_autograd_and_reference(case):
+    """``flash_attention_bwd_plain`` (explicit formulas, what the CUDA
+    backward is held to on the card) equals autograd of
+    ``flash_attention_plain`` and ``jax.vjp`` of the reference's
+    ``flash_attention_ref``, in float32 (summation-order rounding of
+    O(1) gradients: atol 2e-5); a row with no valid key gets zeros."""
+    b, s, sk, h, kvh, hd, kw, lengths, q_pos, kv_pos = BWD_CASES[case]
+    q, k, v = _attn_case(b, s, h, kvh, hd, sk=sk, seed=3)
+    q_pos = np.arange(s, dtype=np.int32) if q_pos is None else q_pos
+    kv_pos = np.arange(sk, dtype=np.int32) if kv_pos is None else kv_pos
+    mask = None
+    if lengths is not None:
+        mask = (np.arange(sk)[None] < np.asarray(lengths)[:, None]).astype(np.int32)
+    dout = np.random.default_rng(4).standard_normal((b, s, h, hd)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    pos = dict(q_pos=torch.from_numpy(q_pos), kv_pos=torch.from_numpy(kv_pos))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    out = kf.flash_attention(tq, tk, tv, **pos, kv_mask=tmask, **kw)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    plain = kf.flash_attention_bwd(
+        tq.detach(), tk.detach(), tv.detach(), out.detach(),
+        torch.from_numpy(dout), **pos, kv_mask=tmask, **kw)
+    assert kf.flash_attention.launches == 0
+    assert kf.flash_attention_bwd.launches == 0
+    jm = None if mask is None else jnp.asarray(mask)
+    t = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))  # noqa: E731
+    _, vjp = jax.vjp(
+        lambda a, c, e: ref.flash_attention_ref(
+            a, c, e, jnp.asarray(q_pos), jnp.asarray(kv_pos), kv_mask=jm, **kw),
+        t(q), t(k), t(v))
+    want = [np.asarray(g).transpose(0, 2, 1, 3) for g in vjp(t(dout))]
+    for name, a, p, w in zip(("dq", "dk", "dv"), grads, plain, want):
+        assert p.dtype == torch.float32
+        np.testing.assert_allclose(p.numpy(), a.numpy(), atol=BWD_TOL, err_msg=name)
+        np.testing.assert_allclose(p.numpy(), w, atol=BWD_TOL, err_msg=name)
+    if lengths is not None:
+        assert np.all(plain[0].numpy()[2] == 0.0)  # no valid key: zero dq
+        assert np.all(plain[1].numpy()[2] == 0.0) and np.all(plain[2].numpy()[2] == 0.0)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(192, 128), (256, 256)])
+def test_flash_bwd_refuses_pairs_without_an_instance(hd, hd_v):
+    q = torch.zeros(1, 4, 2, hd)
+    v = torch.zeros(1, 4, 2, hd_v)
+    with pytest.raises(ValueError, match="Flash backward at head dims 192 and 256"):
+        kf._check_bwd(q, v)
+    for d in (32, 64, 128):
+        kf._check_bwd(torch.zeros(1, 4, 2, d), torch.zeros(1, 4, 2, d))
+
+
+@pytest.mark.parametrize("n,bshape", [(37, (2, 37, 3, 4)), (5, (1, 5, 2)),
+                                      (64, (2, 64, 6))])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_scan_grads_match_a_naive_loop(n, bshape, broadcast):
+    """``ssm._scan_`` under autograd (the reverse scan on flipped gates)
+    gives the gradients of a plain loop ``h = a h + b``, in float64 to
+    1e-12; ``a`` broadcasting on the trailing dims gets its summed
+    gradient."""
+    from repro_torch.models import ssm
+
+    rng = np.random.default_rng(n)
+    ashape = bshape[:2] + (1,) * (len(bshape) - 2) if broadcast else bshape
+    a0 = torch.from_numpy(rng.uniform(0.5, 1.0, ashape))
+    b0 = torch.from_numpy(rng.standard_normal(bshape))
+    dh = torch.from_numpy(rng.standard_normal(bshape))
+    a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+    h = ssm._scan_(a * 1.0, b * 1.0)
+    ga, gb = torch.autograd.grad(h, (a, b), dh)
+    a2, b2 = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+    state, hs = torch.zeros_like(b0[:, 0]), []
+    for p in range(n):
+        state = a2[:, p] * state + b2[:, p]
+        hs.append(state)
+    ref_h = torch.stack(hs, dim=1)
+    ra, rb = torch.autograd.grad(ref_h, (a2, b2), dh)
+    torch.testing.assert_close(h.detach(), ref_h.detach(), rtol=0, atol=1e-12)
+    torch.testing.assert_close(ga, ra, rtol=0, atol=1e-12)
+    torch.testing.assert_close(gb, rb, rtol=0, atol=1e-12)
+
+
+def test_scan_forward_under_grad_is_bitwise_the_in_place_scan():
+    """The differentiable scan's forward is the serving path's in-place
+    scan, bitwise, in float32; without grad ``_scan_`` is that scan."""
+    from repro_torch.models import ssm
+
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.uniform(0.3, 1.0, (2, 50, 8, 4)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 50, 8, 4)).astype(np.float32))
+    old = ssm._scan_inplace(a.clone(), b.clone())
+    with torch.no_grad():
+        assert torch.equal(ssm._scan_(a.clone(), b.clone()), old)
+    ag = a.clone().requires_grad_(True)
+    h = ssm._scan_(ag, b.clone())
+    assert h.requires_grad and torch.equal(h.detach(), old)
+    assert torch.equal(ag.detach(), a)  # the inputs are not clobbered
