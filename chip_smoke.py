@@ -165,7 +165,10 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    after the prefill; paligemma: the patch slots' K overwritten in every
    layer);
 13. training: holds the CUDA flash backward kernel (``flash_attention``
-   under autograd) against ``flash_attention_bwd_plain`` (all-float32
+   under autograd: a row-preparation launch, then dK/dV and dQ on
+   ``wgmma``, fed by TMA through an ``mbarrier`` ring, dK/dV split over a
+   thread-block cluster and summed through distributed shared memory, no
+   atomics) against ``flash_attention_bwd_plain`` (all-float32
    formulas, given the plain forward's output) on dq, dk and dv, and the
    forward's training instance against ``flash_attention_plain`` on its
    output and its log-sum-exp, at qwen2-1.5b's 8x256 diffusion batch with
@@ -173,9 +176,10 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    window 1024 and 128 protected keys (S = 1280), a ragged S, a fully
    masked row (zero grads), queries offset from keys and softcap at hd 32,
    two runs bitwise equal; a call at (192, 128) or (256, 256) must raise;
-   its registers and spills (none at hd 128); its device time L2-warm and
-   L2-cold beside its bound (the five products the gradient needs, or
-   its bytes) and one autograd backward of SDPA.  Then
+   its registers and spills (none at any instance); its device time,
+   and each launch's, L2-warm and L2-cold beside its bound (the five
+   products the gradient needs, or its bytes) and one autograd backward
+   of SDPA, at qwen2's 8x256 and causal 8x512 and hymba's 2x1280.  Then
    full-width qwen2-1.5b (float32 parameters, bf16 compute) trains through
    ``launch/train.py``'s ``setup``: 10 steps of the diffusion objective,
    then 5 of the LM objective, batch 8 x 256, each step with exactly 28
@@ -206,6 +210,11 @@ one process the same way: the one under ``PARENT/src`` (through its own
 wrapper), this checkout's and its cluster and warp variants, each checked
 in every phase-5 case, then timed L2-warm and L2-cold at the half-full and
 full cache, in turns.
+``python3 chip_smoke.py --bwd-ab PARENT/src`` compares flash backward
+kernels in one process: the one under ``PARENT/src`` (through its own
+wrapper) and this checkout's, each checked in every phase-13 case, then
+timed at qwen2's 8x256 and causal 8x512 and hymba's 2x1280 in the order
+parent, this, this, parent.
 
 It imports nothing of the JAX package.  Any failed check raises, so the
 script exits non-zero and prints no result line; it also fails when no
@@ -3204,80 +3213,136 @@ def bwd_cases(kf) -> dict:
     return errs
 
 
+# the backward's launches, by kernel name: this design's (first) and PR
+# 21's mma.sync design's, which ``--bwd-ab`` times beside it
+BWD_LAUNCHES = {
+    "prep": ("bwd_prep_kernel", "bwd_delta_kernel"),
+    "dkdv": ("bwd_dkdv_wgmma_kernel", "bwd_dkdv_kernel"),
+    "dq": ("bwd_dq_wgmma_kernel", "bwd_dq_kernel"),
+}
+
+
+def bwd_launch(name: str) -> str | None:
+    """Which launch of the backward a kernel name is, or None."""
+    for key, names in BWD_LAUNCHES.items():
+        if any(n in name for n in names):
+            return key
+    return None
+
+
 def is_bwd_kernel(name: str) -> bool:
-    return "bwd_delta_kernel" in name or "bwd_dkdv_kernel" in name or (
-        "bwd_dq_kernel" in name)
+    return bwd_launch(name) is not None
+
+
+def bwd_pairs(sq: int, causal: bool, window: int, protected: int) -> float:
+    """(query, key) pairs a head's masks keep, queries and keys at 0..S-1."""
+    pos = torch.arange(sq, device="cuda")
+    qp, kp = pos[:, None], pos[None, :]
+    valid = torch.ones(sq, sq, dtype=torch.bool, device="cuda")
+    if causal:
+        valid &= kp <= qp
+    if window > 0:
+        valid &= (kp > qp - window) | (kp < protected)
+    return float(valid.sum())
 
 
 def bwd_timings(kf) -> dict:
-    """Device time of the backward (its three launches), L2-warm and
-    L2-cold, beside its plain version and one autograd backward of SDPA on
-    the same tensors, at qwen2-1.5b's diffusion shape (B=8, S=256, H=12,
-    KV=2, hd=128, non-causal) and its causal 8x512."""
+    """Device time of the backward, L2-warm and L2-cold, and of each of its
+    launches (the row preparation, dK/dV, dQ), beside its plain version and
+    one autograd backward of SDPA on the same tensors, at qwen2-1.5b's
+    diffusion shape (B=8, S=256, H=12, KV=2, hd=128, non-causal), its causal
+    8x512 and hymba-1.5b's (B=2, S=1280, H=25, KV=5, hd 64, causal, window
+    1024, 128 protected; SDPA given the mask as a boolean (S, S) tensor);
+    and the host time of one wrapper call (its enqueue: the tensor maps
+    are encoded in each call)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    h, kvh, hd = 12, 2, 128
 
-    def timed(bb, ss, causal):
+    def timed(bb, ss, h, kvh, hd, causal, window=0, protected=0):
         q, k, v = (torch.randn(bb, ss, n, hd, generator=gen, device="cuda")
                    .to(torch.bfloat16) for n in (h, kvh, kvh))
         pos = torch.arange(ss, dtype=torch.int32, device="cuda")
-        opts = dict(kv_mask=None, window=0, causal=causal, softcap=0.0,
-                    protected=0)
+        opts = dict(kv_mask=None, window=window, causal=causal, softcap=0.0,
+                    protected=protected)
         out, lse = kf._forward(q, k, v, pos, pos, **opts, with_lse=True)
         dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
         call = lambda: kf.flash_attention_bwd(  # noqa: E731
             q, k, v, out, dout, pos, pos, lse=lse, **opts)
-        ms = device_ms(call, pick=is_bwd_kernel, kernels=3)
-        ms_cold = device_ms(call, cold=True, pick=is_bwd_kernel, kernels=3)
+        split = device_ms(call, pick=is_bwd_kernel, kernels=3, by=bwd_launch)
+        split_cold = device_ms(call, cold=True, pick=is_bwd_kernel, kernels=3,
+                               by=bwd_launch)
+        ms, ms_cold = sum(split.values()), sum(split_cold.values())
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
         plain_ms = device_ms(lambda: kf.flash_attention_bwd_plain(
             q, k, v, out, dout, pos, pos, **opts), iters=5)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                            enable_gqa=True)
+        if window > 0:
+            qp, kp = pos[:, None], pos[None, :]
+            mask = (kp <= qp) & ((kp > qp - window) | (kp < protected))
+            sdpa = dict(attn_mask=mask)
+        else:
+            sdpa = dict(is_causal=causal)
+        ot = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa)
         dot = dout.transpose(1, 2)
         library_ms = device_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True))
         library_cold = device_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), cold=True)
-        # the five S x S x hd products the gradient needs (Q K^T, dO V^T,
-        # P^T dO, dS^T Q, dS K; this design's recompute of P in both kernels
-        # is its own cost, not the bound's), causal keeping (S + 1) / 2S of
-        # them; bytes: q, o, dO read and dq written at H heads, k, v read
-        # and dk, dv written at KV heads, lse read
-        frac = (ss + 1) / (2 * ss) if causal else 1.0
-        flops = 2.5 * 4.0 * bb * h * ss * ss * hd * frac
+        # the five products the gradient needs over the pairs the masks
+        # keep (Q K^T, dO V^T, P^T dO, dS^T Q, dS K; a design's recompute of
+        # P is its own cost, not the bound's); bytes: q, o, dO read and dq
+        # written at H heads, k, v read and dk, dv written at KV heads, lse
+        # read
+        flops = 2.5 * 4.0 * bb * h * hd * bwd_pairs(ss, causal, window, protected)
         nbytes = 2.0 * 4 * bb * ss * (h + kvh) * hd + 4.0 * bb * h * ss
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
         t = dict(
-            ms=ms, ms_l2_cold=ms_cold, plain_ms=plain_ms,
+            ms=ms, ms_l2_cold=ms_cold, launch_ms=split,
+            launch_ms_l2_cold=split_cold, wrapper_host_ms=host_ms,
+            plain_ms=plain_ms,
             library_ms=library_ms, library_ms_l2_cold=library_cold,
             kernel_over_library=ms / library_ms,
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             flops=flops, bytes=nbytes,
             shape=f"B={bb} S={ss} H={h} KV={kvh} hd={hd} bf16"
-                  + (" causal" if causal else ""),
+                  + (" causal" if causal else "")
+                  + (f" window={window} protected={protected}" if window else ""),
         )
-        log(f"flash backward timing {t['shape']}: kernel {ms:.5f} ms warm, "
-            f"{ms_cold:.5f} ms cold, plain {plain_ms:.4f} ms, SDPA backward "
-            f"{library_ms:.5f} / {library_cold:.5f} ms, kernel_over_library "
-            f"{t['kernel_over_library']:.3f}, bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']})")
+        log(f"flash backward timing {t['shape']}: kernel {ms:.5f} ms warm "
+            f"({', '.join(f'{k} {v:.5f}' for k, v in split.items())}), "
+            f"{ms_cold:.5f} ms cold "
+            f"({', '.join(f'{k} {v:.5f}' for k, v in split_cold.items())}), "
+            f"host {host_ms:.4f} ms a call, plain {plain_ms:.4f} ms, SDPA "
+            f"backward {library_ms:.5f} / {library_cold:.5f} ms, "
+            f"kernel_over_library {t['kernel_over_library']:.3f}, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
         return t
 
-    timing = timed(8, 256, causal=False)
-    timing["lm_causal_512"] = timed(8, 512, causal=True)
+    timing = timed(8, 256, 12, 2, 128, causal=False)
+    timing["lm_causal_512"] = timed(8, 512, 12, 2, 128, causal=True)
+    timing["hymba"] = timed(2, 1280, HY_H, HY_KV, HY_HD, causal=True,
+                            window=HY_WINDOW, protected=HY_META)
     return timing
 
 
-def bwd_ptxas_report(text: str) -> dict:
+# the backward's kernels, as ``-Xptxas -v`` names them
+BWD_KERNELS = tuple(names[0] for names in BWD_LAUNCHES.values())
+
+
+def bwd_ptxas_report(text: str, kernels=BWD_KERNELS) -> dict:
     """Registers and spills of each backward kernel's instances (none may
-    spill at hd 128) and of the forward's training (LSE) instances."""
+    spill, at any head dim)."""
     out = {}
-    for kernel in ("bwd_dkdv_kernel", "bwd_dq_kernel", "bwd_delta_kernel"):
+    for kernel in kernels:
         report = parse_ptxas(text, kernel)
         for d in (32, 64, 128):
             check(d in report and "registers" in report[d],
@@ -3285,8 +3350,8 @@ def bwd_ptxas_report(text: str) -> dict:
             r = report[d]
             log(f"{kernel} hd={d}: {r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, loads {r['spill_loads']} B")
-        check(report[128]["spill_stores"] == 0 and report[128]["spill_loads"] == 0,
-              f"{kernel} (128, 128) spills registers")
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                  f"{kernel} ({d}, {d}) spills registers")
         out[kernel] = {str(k): v for k, v in sorted(report.items())}
     return out
 
@@ -3499,7 +3564,7 @@ def phase_training(kf) -> tuple[dict, dict]:
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
-              pick=None, kernels: int = 0) -> float:
+              pick=None, kernels: int = 0, by=None):
     """Mean device time of one call: the profiler's device time of every
     kernel ``iters`` calls launch, over ``iters``.  Unlike :func:`time_ms`
     it leaves out the host time of a wrapper whose kernels are shorter than
@@ -3511,7 +3576,11 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
     the profiler drops a record or two of a short run now and then (18 or
     19 of 20 seen), which the mean over ``iters`` would count as no time.
     A trace that holds fewer than half of them is taken again, up to three
-    times."""
+    times, each time over half as many calls (late in a long run a trace
+    has held 23 or 27 of 60 launches, the same count three times in a
+    row).  With ``by`` (a kernel name to a key), a dict instead: each key's
+    mean device time a launch, from a trace that holds ``kernels`` keys,
+    each with a quarter of its launches or more."""
     flush = l2_flush() if cold else None
     skip = set()
     if flush is not None:
@@ -3521,26 +3590,43 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
             flush()
         fn()
 
-    def run():
-        for _ in range(iters):
+    def run(n):
+        for _ in range(n):
             if flush is not None:
                 flush()
             fn()
 
+    n = iters
     for attempt in range(3):
-        rows = [r for r in traced(run)
+        rows = [r for r in traced(lambda: run(n))
                 if r[2] not in skip and (pick is None or pick(r[2]))]
         held = sum(r[1] for r in rows)
-        if not kernels or 2 * held >= iters * kernels:
+        counts = {}
+        for _, count, name in rows:
+            key = by(name) if by is not None else None
+            counts[key] = counts.get(key, 0) + count
+        if by is not None:
+            ok = len(counts) >= kernels and min(counts.values(), default=0) * 4 >= n
+        else:
+            ok = not kernels or 2 * held >= n * kernels
+        if ok:
             break
-        log(f"device_ms: trace {attempt} holds {held} of the "
-            f"{iters * kernels} kernels timed; traced again")
+        log(f"device_ms: trace {attempt} holds {held} of the {n * kernels} "
+            f"kernels timed ({counts}); traced again over {max(5, n // 2)} calls")
+        n = max(5, n // 2)
     else:
         raise RuntimeError("chip_smoke: FAILED: no trace holds the timed kernels")
     check(bool(rows), "no device time for the timed call")
+    if by is not None:
+        split = {}
+        for ms, count, name in rows:
+            key = by(name)
+            tot, c = split.get(key, (0.0, 0))
+            split[key] = (tot + ms, c + count)
+        return {key: tot / c for key, (tot, c) in split.items()}
     if kernels:
         return sum(r[0] for r in rows) / held * kernels
-    return sum(r[0] for r in rows) / iters
+    return sum(r[0] for r in rows) / n
 
 
 def traced(fn) -> list:
@@ -3763,6 +3849,59 @@ def flash_ab(parent_src: str) -> None:
             log(json.dumps(row))
 
 
+def bwd_ab(parent_src: str) -> None:
+    """Build the flash backward of ``parent_src`` and this checkout's, each
+    with ``-Xptxas -v``; hold each against the plain version in every
+    phase-13 case (through its own wrapper, the forward this checkout's),
+    then time each at qwen2's 8x256 and causal 8x512 and hymba's 2x1280,
+    parent, this, this, parent.  Prints one JSON line per kernel and
+    round."""
+    import ctypes
+    import importlib.util
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kf
+
+    parent_dir = Path(parent_src) / "repro_torch"
+    vdir = build.BUILD_DIR / f"bwd_ab.{os.getpid()}"
+    vdir.mkdir(parents=True, exist_ok=True)
+    build.build(kf.SOURCE)
+    procs = {}
+    for name, csrc in (("parent", parent_dir / "csrc"), ("this", build.CSRC_DIR)):
+        so = vdir / f"{name}.so"
+        cmd = [build.nvcc_path(), "-I", str(csrc), *build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-o", str(so), str(csrc / kf.BWD_SOURCE)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    spec = importlib.util.spec_from_file_location(
+        "parent_flash_attention", parent_dir / "kernels" / "flash_attention.py")
+    parent = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent)
+    mods, regs = {"parent": parent, "this": kf}, {}
+    for name, (so, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on the {name} backward:\n{text}")
+        names = [n[0 if name == "this" else 1] for n in BWD_LAUNCHES.values()]
+        regs[name] = {n: parse_ptxas(text, n) for n in names}
+        lib = mods[name].bind_bwd(ctypes.CDLL(str(so)))
+        mods[name]._bwd_library = lambda lib=lib: lib
+        mods[name]._library = kf._library
+    for name, mod in mods.items():
+        errs = bwd_cases(mod)
+        log(f"flash backward {name}: ptxas {regs[name]}, worst gradient error "
+            f"{max(errs.values()):.3e} of max|plain|")
+    for rnd, name in enumerate(("parent", "this", "this", "parent")):
+        t = bwd_timings(mods[name])
+        row = dict(kernel=name, round=rnd)
+        for key, shape in (("qwen2_8x256", t), ("causal_8x512", t["lm_causal_512"]),
+                           ("hymba_2x1280", t["hymba"])):
+            row[key] = {k: shape[k] for k in (
+                "ms", "ms_l2_cold", "launch_ms", "launch_ms_l2_cold",
+                "wrapper_host_ms", "library_ms", "kernel_over_library",
+                "bound_ms")}
+        log(json.dumps(row))
+
+
 # variants of the shipped decode kernel that --decode-ab times beside it:
 # name -> (blocks a cluster, or None for the plan's own; warps a block)
 DECODE_VARIANTS = {
@@ -3874,6 +4013,9 @@ def main() -> None:
     ap.add_argument("--decode-ab", metavar="PARENT_SRC",
                     help="only compare decode kernels: the one under "
                          "PARENT_SRC, this one and its variants")
+    ap.add_argument("--bwd-ab", metavar="PARENT_SRC",
+                    help="only compare flash backward kernels: the one under "
+                         "PARENT_SRC and this one")
     ap.add_argument("--era-host", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3890,6 +4032,8 @@ def main() -> None:
         return flash_ab(args.flash_ab)
     if args.decode_ab:
         return decode_ab(args.decode_ab)
+    if args.bwd_ab:
+        return bwd_ab(args.bwd_ab)
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -4022,8 +4166,11 @@ def main() -> None:
              library_ms=bwd_t["library_ms"],
              library_ms_l2_cold=bwd_t["library_ms_l2_cold"],
              kernel_over_library=bwd_t["kernel_over_library"],
+             launch_ms=bwd_t["launch_ms"],
+             launch_ms_l2_cold=bwd_t["launch_ms_l2_cold"],
+             wrapper_host_ms=bwd_t["wrapper_host_ms"],
              shape=bwd_t["shape"], lm_causal_512=bwd_t["lm_causal_512"],
-             ptxas=bwd_ptxas),
+             hymba=bwd_t["hymba"], ptxas=bwd_ptxas),
     ]
     log(f"ERA path: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
     log(f"bucketed ERA drain: {bucketed['drain_ms']:.1f} ms, device busy "

@@ -1,10 +1,13 @@
 // Flash attention backward for Hopper (sm_90a): bf16 inputs, f32 math.
 //
 // The gradient of flash_attention.cu's function with respect to q, k and v.
-// The TPU reference has no backward kernel: it differentiates its naive or
-// chunked SDPA with XLA autodiff (src/repro/models/attention.py).  The port
-// sends every attention of the card to the forward kernel, so training
-// needs this one (FlashAttention-2's backward, arXiv:2307.08691 alg. 2).
+// That forward replaces the TPU kernel repro.kernels.flash_attention.
+// _flash_kernel (src/repro/kernels/flash_attention.py:34); the TPU reference
+// has no backward kernel: it differentiates its naive or chunked SDPA with
+// XLA autodiff (src/repro/models/attention.py).  The port sends every
+// attention of the card to the forward kernel, so training needs this one
+// (FlashAttention-2's backward, arXiv:2307.08691 alg. 2, laid out for Hopper
+// as FlashAttention-3's, arXiv:2407.08608).
 //
 // With z = scale * q.k (or softcap * tanh(scale * q.k / softcap)), P =
 // softmax over the valid keys, O = P V and dO the output's gradient:
@@ -15,105 +18,345 @@
 //   dQ_q = sum_k dS[q,k] dz K[k],  dK_k = sum_q dS[q,k] dz Q[q]
 // P is recomputed from Q, K and the forward's per-row lse (base 2: p =
 // exp2(x * mul - lse), +inf for a row with no valid key), never stored.
-//
-// Three launches, no atomics, so two runs are bitwise equal:
-//  1. bwd_delta_kernel: D (B, H, Sq) float32, one warp a row of O.
-//  2. bwd_dkdv_kernel: one block per (batch, kv head, 32-key tile).  Its K
-//     and V tiles stay in shared memory; it walks the G query heads of the
-//     group and their live 32-query tiles, so GQA's sum over the group is
-//     a sum in registers.  The block's 4 warps are 2 key warps (16 keys
-//     each) times 2 query splits (alternate (head, tile) items); the two
-//     splits' partial dK / dV are added through shared memory at the end,
-//     in a fixed order.  Each warp computes S^T = K Q^T and dP^T = V dO^T
-//     (16 keys x 32 queries) with mma.sync m16n8k16, so P^T and dS^T come
-//     out in the accumulator layout that is the A operand of dV += P^T dO
-//     and dK += dS^T Q: no transpose through shared memory.
-//  3. bwd_dq_kernel: one block per (batch * head, 64-query tile), 4 warps of
-//     16 rows, walking 32-key tiles through a 2-stage cp.async ring like
-//     the forward: S = Q K^T, dP = dO V^T, dS, dQ += dS K.
-// Both main kernels skip tiles from positions (kv_pos, q_pos, kv_mask), as
-// the forward does (its item 5): a tile no (query, key) pair can use is
-// never loaded.  Masks are the forward's: kv_pos < 0, kv_mask, causal,
-// window with protected sinks; keys past Sk and rows past Sq are zero.
+// Masks are the forward's: kv_pos < 0, kv_mask, causal, window with
+// protected sinks; keys past Sk and rows past Sq are zero.
 //
 // Bound.  At qwen2-1.5b's diffusion shape (B=8, S=256, H=12, KV=2, hd=128,
 // non-causal) the gradient needs five S x S x hd products (Q K^T, dO V^T,
 // P^T dO, dS^T Q, dS K): 2.5 * 4 * B*H*S*S*hd = 8.05e9 FLOP, 0.0081 ms at
 // the bf16 tensor peak, against 29.5 MB of inputs and outputs (q, k, v, o,
-// dO, lse, dq, dk, dv), 0.0088 ms at 3.35 TB/s: bytes bound it.  This
-// design recomputes P in both kernels (seven products, 1.13e10 FLOP): a
-// cost of the design, not of the bound.
+// dO, lse, dq, dk, dv), 0.0088 ms at 3.35 TB/s: bytes bound it.  At its
+// causal 8x512 (the AR prefill's shape): 58.9 MB, 0.0176 ms.  This design
+// recomputes S and dP in the dQ kernel (seven products, 1.13e10 FLOP at
+// 8x256): the price of no atomics, not part of the bound.
 //
-// Instances: head dims (32, 32), (64, 64) and (128, 128).  A simple kernel
-// first: mma.sync with operands from shared memory by ldmatrix, no wgmma
-// or TMA yet.
+// Three launches, no atomics, so two runs are bitwise equal:
+//  1. bwd_prep_kernel: HD/8 lanes a query row (16-byte loads of O and dO):
+//     D, and each row's {lse, D} into a (B, H, Sq_pad) float2 array padded
+//     to whole 64-row tiles (pad rows {+inf, 0}: P = 0); q_pos padded the
+//     same way; and each batch row's key positions with kv_mask and Sk
+//     folded in (-1 = no key), (B, Sk_pad).  The main kernels copy 64-row
+//     slices of these by bulk TMA: aligned, nothing to mask at an edge.
+//  2. bwd_dkdv_wgmma_kernel: dK, dV.
+//  3. bwd_dq_wgmma_kernel: dQ.
+// The previous design (mma.sync) ran at 5.6% of the bound: at 8x256 its
+// dK/dV took 0.093 ms and its dQ 0.059 of 0.159 (PERF.md).  What held it back,
+// and what this design does (numbers: NVIDIA H100 80GB HBM3, PERF.md):
+//
+//  a. Too little parallelism in dK/dV (one 4-warp block per 32 keys, one
+//     block an SM).  A block now owns 64 keys with two consumer warpgroups,
+//     each taking every other item of the block, so two warpgroups share
+//     an SM and one's score math runs beside the other's products; their
+//     partial dK / dV are added in shared memory, warpgroup 1's then 0's.
+//     A thread block cluster of C blocks shares one key tile: block r takes
+//     the tile's (head, query-tile) items r, r + C, ...  C is the host's
+//     rule (kernels/flash_attention.py, bwd_cluster_size): the largest of
+//     1, 2, 4, 8 that keeps the launch to one wave (a block's registers
+//     fill its SM): 2 at 8x256 (128 blocks), 2 at causal 8x512, 1 at
+//     hymba's 2x1280.  The smallest C that reaches 132 blocks took two
+//     waves at 8x256: 0.0458 ms against 0.0243 for dK/dV.  Under a causal
+//     mask a row's first key tile sees every query tile and its last one
+//     only the last, so there a block takes key tiles j and nk - 1 - j in
+//     two passes (`pair`), the ring and its barriers' phases running on:
+//     at causal 8x512 the heaviest block went from 48 items to 27, and
+//     dK/dV from 0.071 ms to 0.053.
+//     At the end the C partial tiles are summed in rank order through
+//     distributed shared memory (block r sums rows [r*64/C, (r+1)*64/C) of
+//     every rank's partial and writes them), as decode_attention.cu merges
+//     its cluster: no workspace in device memory, no atomics, one result
+//     whatever order blocks run in.
+//  b. No overlap of loads and products.  Tiles come by TMA into 128-byte
+//     swizzled shared memory (64-byte at hd 32), one full and one empty
+//     mbarrier a stage.  dK/dV: K and V once; a ring of four stages of Q,
+//     dO, {lse, D} and q_pos, two a warpgroup, each refilled by its
+//     warpgroup's first thread as soon as the warpgroup is done with it,
+//     so an item's copies land while the one before it is computed.  (A
+//     separate producer warp cost more than it gave: ptxas allots a block's
+//     registers by whole warpgroups, so 288 threads ran at 168 registers a
+//     thread and spilled, and setmaxnreg did not raise the consumers'
+//     compiled budget.)  dQ: a producer warp loads Q and dO once, then
+//     keeps the next live kv tiles' K, V and key positions in flight (two
+//     stages at hd 128, three below) for one consumer warpgroup, two blocks
+//     an SM.  Tensor maps are 4-D over (B, S, heads, hd), so a ragged S
+//     zero-fills inside its own batch row; they are encoded on the host in
+//     every call (cuTensorMapEncodeTiled, reached through
+//     cudaGetDriverEntryPoint: no -lcuda) and passed as __grid_constant__
+//     parameters.
+//  c. Warp-level products.  Every product is a warpgroup wgmma with f32
+//     accumulators.  dK/dV: S^T = K Q^T and dP^T = V dO^T with both
+//     operands in shared memory (64 keys x 64 queries; at hd 128 two steps
+//     of 32 queries, which keeps dK, dV, S^T and dP^T inside 255 registers
+//     a thread); P^T and dS^T are formed in the accumulator registers,
+//     whose layout is that of wgmma's register A operand, and dV += P^T dO,
+//     dK += dS^T Q take A from registers and B (dO or Q, rows = queries)
+//     transposed from the same swizzled tile (an MN-major descriptor).  dQ:
+//     S = Q K^T and dP = dO V^T (64 queries x 64 keys), dS in registers,
+//     dQ += dS K (K transposed).  The score math was the bottleneck once
+//     the products were wgmma (5,600 of 6,900 cycles an item, measured
+//     with clock64 in a copy of the kernel): it is branch-free (the mask's
+//     flags are uniform and the softcap and full-tile cases are template
+//     instances picked outside the element loops) and takes exp2 from the
+//     SFU alone (ex2.approx; P is rounded to bf16 for the products anyway).
+//  d. Seven products where the gradient needs five: kept.  dQ recomputes S
+//     and dP, which is what no atomics costs; at 8x256 that is 1.13e10
+//     FLOP, 0.0114 ms at peak.
+// Both main kernels skip tiles from positions, as the forward does: dK/dV
+// lists the query tiles some (query, key) pair of its keys can use (from
+// each tile's q_pos range and its keys' position range) and marks those
+// where every pair is valid; dQ marks its kv tiles live and full per key
+// as the forward does.  Dead tiles are never loaded; masked pairs inside a
+// live tile are masked one by one, and a full tile skips the mask.
+//
+// Instances: head dims (32, 32), (64, 64) and (128, 128), all of this
+// design: 64-row tiles; 128-byte swizzle and 64-column TMA boxes at hd 64
+// and 128 (two boxes a tile at 128), 64-byte swizzle at hd 32.
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace flash::sm90;
 
-constexpr int KW = 2;            // dK/dV kernel: warps along the keys
-constexpr int QW = 2;            // dK/dV kernel: query splits
-constexpr int BKV = KW * 16;     // keys of a dK/dV block
-constexpr int BQT = 32;          // queries of a dK/dV item (one warp wide)
-constexpr int NT_KV = KW * QW * 32;
-constexpr int BQ = 64;           // dQ kernel: query rows of a block
-constexpr int BK = 32;           // dQ kernel: keys of a kv tile
-constexpr int NWARPS = BQ / 16;
-constexpr int NT_Q = NWARPS * 32;
-static_assert(BQT == 32, "one lane a query row of an item");
-static_assert(2 * BK <= NT_Q, "one thread a kv_pos and a kv_mask entry");
-static_assert(BKV <= NT_KV, "one thread a key position");
+constexpr int TILE = 64;           // rows of every tile: keys or queries
+constexpr int WG = 128;            // threads of a warpgroup
+constexpr int KV_WGS = 2;          // consumer warpgroups of a dK/dV block
+constexpr int NT_KV = KV_WGS * WG;
+constexpr int NT_Q = WG + 32;      // a dQ block: a consumer warpgroup, a producer warp
+constexpr int MAX_CLUSTER = 8;     // portable cluster size
 
 struct Params {
-  const bf16* q;       // (B, Sq, H, hd)
-  const bf16* k;       // (B, Sk, KV, hd)
-  const bf16* v;       // (B, Sk, KV, hd)
-  const bf16* o;       // (B, Sq, H, hd), the forward's output
-  const bf16* dout;    // (B, Sq, H, hd)
-  const float* lse;    // (B, H, Sq), the forward's, base 2
-  float* delta;        // (B, H, Sq), written by bwd_delta_kernel
-  bf16* dq;            // (B, Sq, H, hd)
-  bf16* dk;            // (B, Sk, KV, hd)
-  bf16* dv;            // (B, Sk, KV, hd)
-  const int* q_pos;    // (Sq,)
-  const int* kv_pos;   // (Sk,), < 0 = invalid slot
-  const int* kv_mask;  // (B, Sk), 0 = masked key; may be null
-  int B, H, KV, Sq, Sk;
+  CUtensorMap tq, tk, tv, tdo;  // (B, S, heads, hd) bf16, box (CB, 1, 64, 1)
+  const bf16* o;                // (B, Sq, H, hd), the forward's output
+  const bf16* dout;             // (B, Sq, H, hd)
+  const float* lse;             // (B, H, Sq), the forward's, base 2
+  float2* rows;                 // (B, H, Sq_pad): {lse, D}
+  int* qp;                      // (Sq_pad,): q_pos, Q_PAD_POS past Sq
+  int* kp;                      // (B, Sk_pad): key position, -1 = no key
+  bf16* dq;                     // (B, Sq, H, hd)
+  bf16* dk;                     // (B, Sk, KV, hd)
+  bf16* dv;                     // (B, Sk, KV, hd)
+  const int* q_pos;             // (Sq,)
+  const int* kv_pos;            // (Sk,), < 0 = invalid slot
+  const int* kv_mask;           // (B, Sk), 0 = masked key; may be null
+  int B, H, KV, Sq, Sk, Sq_pad, Sk_pad;
   float scale, softcap;
   int window, causal, protected_;
+  int cluster;                  // blocks of a dK/dV cluster (1, 2, 4, 8)
+  int pair;                     // a dK/dV block takes key tiles j and nk - 1 - j
 };
 
-__device__ __forceinline__ void split_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+// A 64-row bf16 tile of head dim HD as TMA writes it: column blocks of CB
+// columns (one box each), each 64 rows of SW bytes, swizzled in 8-row
+// groups of 8 * SW bytes.
+template <int HD>
+struct Tile {
+  static constexpr int SW = HD >= 64 ? 128 : 64;
+  static constexpr int CB = SW / 2;
+  static constexpr int NCB = HD / CB;
+  static constexpr int BLOCK_BYTES = TILE * SW;
+  static constexpr int BYTES = TILE * HD * 2;
+  static_assert(HD % CB == 0, "whole column blocks");
+};
+
+// descriptor of k-step kk (16 columns) of a tile read K-major: rows are the
+// product's M or N, columns its K (A of S^T = K Q^T, B of it, ...)
+template <int HD>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using T = Tile<HD>;
+  const int col = kk * 16;
+  return smem_desc<T::SW>(tile + (col / T::CB) * T::BLOCK_BYTES + (col % T::CB) * 2, 16,
+                          8 * T::SW);
+}
+
+// descriptor of k-step kk (16 rows) of a tile read MN-major: rows are the
+// product's K, columns its N (B of dV += P^T dO, dK += dS^T Q, dQ += dS K);
+// leading offset: the next column block, stride offset: the next 8 rows
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  using T = Tile<HD>;
+  return smem_desc<T::SW>(tile + kk * 16 * T::SW, T::BLOCK_BYTES, 8 * T::SW);
+}
+
+// the whole tile by TMA: one box a column block
+template <int HD>
+__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int head, int row0, int b) {
+  using T = Tile<HD>;
+#pragma unroll
+  for (int c = 0; c < T::NCB; ++c)
+    tma_load_4d(static_cast<unsigned char*>(dst) + c * T::BLOCK_BYTES, map, bar, c * T::CB,
+                head, row0, b);
+}
+
+// `a` as a value the compiler cannot see through: the descriptors of a
+// fixed tile are then rebuilt in each loop trip (a few integer operations
+// a product) instead of being hoisted out of the loop, where at hd 128
+// sixteen 64-bit descriptors would hold 32 registers for the whole loop
+__device__ __forceinline__ uint32_t opaque(uint32_t a) {
+  asm volatile("" : "+r"(a));
+  return a;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// The scale and masks of the scores: x = scale * q.k, or softcap *
+// tanh(scale * q.k / softcap); p = exp2(x * mul - lse).  Only `mul` is
+// held in a register across the loops; the masks' parameters are read
+// where they are used, and the softcap's factors only by the capped code.
+struct Scores {
+  const Params& p;
+  float mul;
+  __device__ explicit Scores(const Params& p_)
+      : p(p_), mul(p_.softcap > 0.f ? LOG2E : p_.scale * LOG2E) {}
+  // key_valid without branches, so that an unrolled tile of elements is
+  // one straight run of code the compiler can interleave
+  __device__ __forceinline__ bool valid(int kp, int qp) const {
+    return (kp >= 0) & ((p.causal == 0) | (kp <= qp)) &
+           ((p.window <= 0) | (kp > qp - p.window) | (kp < p.protected_));
+  }
+};
+
+// the softcap's factors: x = softcap * tanh(raw * cap_in), tanh = x * inv
+struct Cap {
+  float softcap, cap_in, inv;
+  __device__ explicit Cap(const Params& p)
+      : softcap(p.softcap), cap_in(p.scale / p.softcap), inv(1.f / p.softcap) {}
+};
+
+// P (in place of the raw score x) and dS (in place of dP) of one element,
+// `lse` and `d` its query row's; dS leaves out dz/draw's `scale`
+template <bool CAPPED>
+__device__ __forceinline__ void grad_score(float& x, float& dp, bool ok, float lse, float d,
+                                           const Scores& sc, const Cap& cap) {
+  if constexpr (CAPPED) x = cap.softcap * tanhf(x * cap.cap_in);
+  const float pr = ok ? ex2_approx(fmaf(x, sc.mul, -lse)) : 0.f;
+  float ds = pr * (dp - d);
+  if constexpr (CAPPED) {
+    const float tn = x * cap.inv;
+    ds *= 1.f - tn * tn;
+  }
+  x = pr;
+  dp = ds;
+}
+
+// P^T and dS^T of 2N queries of a dK/dV item in place of S^T and dP^T
+// (64 keys x 2N queries): this thread's key rows have positions kp_lo and
+// kp_hi, and R and Qp hold the queries' {lse, D} and q_pos; MASKED: some
+// pair of the item may be invalid
+template <bool CAPPED, bool MASKED, int N>
+__device__ __forceinline__ void item_scores(float (&st)[N], float (&dp)[N], int kp_lo,
+                                            int kp_hi, const float2* R, const int* Qp,
+                                            int t4, const Scores& sc) {
+  const Cap cap(sc.p);
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = 8 * j + 2 * t4 + c;
+      const float2 r = R[col];
+      const int qp = MASKED ? Qp[col] : 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        grad_score<CAPPED>(st[4 * j + 2 * h + c], dp[4 * j + 2 * h + c],
+                           !MASKED || sc.valid(h ? kp_hi : kp_lo, qp), r.x, r.y, sc, cap);
+    }
+}
+
+// P and dS of a dQ kv tile in place of S and dP (64 queries x 64 keys):
+// this thread's query rows have {lse, D} rr and positions qp, and Kp holds
+// the tile's key positions
+template <bool CAPPED, bool MASKED>
+__device__ __forceinline__ void tile_scores(float (&score)[32], float (&dp)[32],
+                                            const float2 (&rr)[2], const int (&qp)[2],
+                                            const int* Kp, int t4, const Scores& sc) {
+  const Cap cap(sc.p);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int2 kp =
+        MASKED ? *reinterpret_cast<const int2*>(Kp + 8 * j + 2 * t4) : make_int2(0, 0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const bool ok = !MASKED || sc.valid((e & 1) ? kp.y : kp.x, qp[r]);
+      grad_score<CAPPED>(score[4 * j + e], dp[4 * j + e], ok, rr[r].x, rr[r].y, sc, cap);
+    }
+  }
+}
+
+// the four instances of a scores function, picked by two uniform flags
+#define BWD_SCORES(fn, capped, masked, ...)                \
+  do {                                                     \
+    if (capped) {                                          \
+      if (masked) fn<true, true>(__VA_ARGS__);             \
+      else fn<true, false>(__VA_ARGS__);                   \
+    } else {                                               \
+      if (masked) fn<false, true>(__VA_ARGS__);            \
+      else fn<false, false>(__VA_ARGS__);                  \
+    }                                                      \
+  } while (0)
+
+// the bf16 A fragment of k-step kk (16 columns) from a 64-row
+// accumulator: n8 blocks 2kk and 2kk + 1
+template <int R>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&acc)[R], int kk) {
+  a[0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
+  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
 // ---------------------------------------------------------------------------
-// 1. D = rowsum(dO * O)
+// 1. D, the padded rows and the positions
 // ---------------------------------------------------------------------------
 
 template <int HD>
-__global__ void __launch_bounds__(128) bwd_delta_kernel(const Params p) {
-  const long row = long(blockIdx.x) * 4 + threadIdx.x / 32;  // (b, q, h) order
-  if (row >= long(p.B) * p.Sq * p.H) return;
+__global__ void __launch_bounds__(128) bwd_prep_kernel(const __grid_constant__ Params p) {
+  // LPR lanes a row of O and dO, 16 bytes (8 values) each a load
+  constexpr int LPR = HD / 8;
+  constexpr int RPW = 32 / LPR;  // rows a warp
   const int lane = threadIdx.x % 32;
-  const bf16* o = p.o + row * HD;
-  const bf16* d = p.dout + row * HD;
+  const long row = (long(blockIdx.x) * 4 + threadIdx.x / 32) * RPW + lane / LPR;  // (b, h, q)
+  const bool in = row < long(p.B) * p.H * p.Sq_pad;
+  const int qi = in ? int(row % p.Sq_pad) : p.Sq;
+  const long bh = row / p.Sq_pad;
   float acc = 0.f;
-  for (int c = lane * 2; c < HD; c += 64) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + c));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d + c));
-    acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
+  if (qi < p.Sq) {
+    const int h = int(bh % p.H), b = int(bh / p.H);
+    const long off = ((long(b) * p.Sq + qi) * p.H + h) * HD + (lane % LPR) * 8;
+    const uint4 x = *reinterpret_cast<const uint4*>(p.o + off);
+    const uint4 y = *reinterpret_cast<const uint4*>(p.dout + off);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+      const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+      acc = fmaf(a.x, c.x, fmaf(a.y, c.y, acc));
+    }
   }
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const int h = int(row % p.H);
-    const long bq = row / p.H;
-    const int qi = int(bq % p.Sq);
-    const int b = int(bq / p.Sq);
-    p.delta[(long(b) * p.H + h) * p.Sq + qi] = acc;
+  // a row's LPR lanes are adjacent: reduce within them (every lane takes part)
+  for (int o = LPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (in && lane % LPR == 0)
+    p.rows[row] = qi < p.Sq ? make_float2(p.lse[bh * p.Sq + qi], acc)
+                            : make_float2(pos_inf(), 0.f);
+  const long n = p.Sq_pad + long(p.B) * p.Sk_pad;
+  for (long i = long(blockIdx.x) * 128 + threadIdx.x; i < n; i += long(gridDim.x) * 128) {
+    if (i < p.Sq_pad) {
+      p.qp[i] = i < p.Sq ? p.q_pos[i] : Q_PAD_POS;
+    } else {
+      const long j = i - p.Sq_pad;
+      const int b = int(j / p.Sk_pad), key = int(j % p.Sk_pad);
+      int kp = -1;
+      if (key < p.Sk) {
+        kp = p.kv_pos[key];
+        if (p.kv_mask != nullptr && p.kv_mask[long(b) * p.Sk + key] == 0) kp = -1;
+      }
+      p.kp[j] = kp;
+    }
   }
 }
 
@@ -121,270 +364,320 @@ __global__ void __launch_bounds__(128) bwd_delta_kernel(const Params p) {
 // 2. dK, dV
 // ---------------------------------------------------------------------------
 
-// Shared memory of a dK/dV block: the K and V tiles (bf16, pitch LD), each
-// split's Q and dO item (reused for the splits' reduction after the loop),
-// each split's per-row lse, D and q_pos, the block's key positions (-1 =
-// invalid), then a bitmask over the query tiles, sized at launch.
+// Shared memory of a dK/dV block (from a 1024-aligned base): K and V, the
+// ring's Q and dO tiles, each stage's rows ({lse, D}) and q_pos, the
+// block's key positions, the barriers, then the live query tiles' count
+// and list and each query tile's q_pos range, sized at launch.  After the
+// loop the partial dK and dV (float32, rows of HD + 8) overlay K, V and the
+// ring.  Consumer warpgroup w takes the block's items w, w + KV_WGS, ...,
+// so it owns stages w, w + KV_WGS, ... of the ring.
 template <int HD>
 struct KVSmem {
-  static constexpr int LD = HD + 8;
-  static constexpr size_t kv_tile = size_t(BKV) * LD * 2;
-  static constexpr size_t item = size_t(BQT) * LD * 2;      // Q or dO
-  static constexpr size_t q_off = 2 * kv_tile;
-  static constexpr size_t items = size_t(QW) * 2 * item;
-  // the KW warps of one split: dK and dV, HD floats a thread
-  static constexpr size_t red = size_t(KW) * 32 * HD * 4;
-  static constexpr size_t rows_off = q_off + (items > red ? items : red);
-  static constexpr size_t kp_off = rows_off + size_t(QW) * BQT * 12;
-  static constexpr size_t bits_off = kp_off + BKV * 4;
-  static size_t bytes(int nq) { return bits_off + size_t((nq + 31) / 32) * 4; }
+  using T = Tile<HD>;
+  static constexpr int STAGES = 2 * KV_WGS;
+  // queries of a sub-step of an item: at hd 128, 64 would put dK, dV, S^T
+  // and dP^T (192 registers a thread) with the rest past the 255 a thread
+  // has (ptxas spilled 12-16 bytes)
+  static constexpr int NQ = HD == 128 ? 32 : 64;
+  static constexpr int RED_LD = HD + 8;
+  static constexpr size_t k_off = 0;
+  static constexpr size_t v_off = T::BYTES;
+  static constexpr size_t ring_off = 2 * size_t(T::BYTES);  // stage s: Q, then dO
+  static constexpr size_t rows_off = ring_off + size_t(STAGES) * 2 * T::BYTES;
+  static constexpr size_t qp_off = rows_off + size_t(STAGES) * TILE * 8;
+  static constexpr size_t kp_off = qp_off + size_t(STAGES) * TILE * 4;
+  static constexpr size_t bar_off = kp_off + TILE * 4;
+  static constexpr size_t list_off = bar_off + (1 + 2 * STAGES) * 8;
+  static constexpr size_t red_bytes = 2 * size_t(TILE) * RED_LD * 4;
+  static_assert(STAGES % KV_WGS == 0, "each warpgroup keeps to its own stages");
+  static_assert(red_bytes <= rows_off, "the partials fit over K, V and the ring");
+  static size_t bytes(int nq) { return 1024 + list_off + 4 + size_t(nq) * 12; }
 };
 
 template <int HD>
-__global__ void __launch_bounds__(NT_KV, 2) bwd_dkdv_kernel(const Params p) {
+__global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ Params p) {
+  using T = Tile<HD>;
   using L = KVSmem<HD>;
-  constexpr int LD = L::LD;
-  constexpr int VPR = HD / 8;
-  constexpr int SPLIT_T = KW * 32;  // threads of a split
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::kv_tile);
+  constexpr int S = L::STAGES;
+  constexpr int NQ = L::NQ;
+  constexpr int LD = L::RED_LD;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Kt = smem + L::k_off;
+  unsigned char* Vt = smem + L::v_off;
+  auto q_tile = [&](int s) { return smem + L::ring_off + size_t(s) * 2 * T::BYTES; };
+  auto do_tile = [&](int s) { return q_tile(s) + T::BYTES; };
+  float2* rows = reinterpret_cast<float2*>(smem + L::rows_off);
+  int* qps = reinterpret_cast<int*>(smem + L::qp_off);
   int* Kp = reinterpret_cast<int*>(smem + L::kp_off);
-  uint32_t* live = reinterpret_cast<uint32_t*>(smem + L::bits_off);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+  int* nlive_s = reinterpret_cast<int*>(smem + L::list_off);
+  int* tiles = nlive_s + 1;  // live query tiles, as 2 t + (every pair valid)
+  float* red = reinterpret_cast<float*>(smem);  // the partials, after a pass
 
-  const int k0 = blockIdx.x * BKV;
+  const int C = p.cluster;
+  const int rank = cluster_rank();
   const int b = blockIdx.y / p.KV;
   const int kvh = blockIdx.y % p.KV;
   const int G = p.H / p.KV;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int split = warp / KW;
-  const int kw = warp % KW;
-  const int stid = tid % SPLIT_T;
-  const int nq = (p.Sq + BQT - 1) / BQT;
-  const int nwords = (nq + 31) / 32;
-  const long kv_off = (long(b) * p.Sk * p.KV + kvh) * HD;
-  const int kv_stride = p.KV * HD;
-  const bool masked = p.kv_mask != nullptr;
+  const int wg = warp / 4;
+  const bool leader = tid % WG == 0;  // issues its warpgroup's copies
+  const int nq = p.Sq_pad / TILE;
+  int* qlo = tiles + nq;
+  int* qhi = qlo + nq;
+  // the block's key tiles: one, or with `pair` tile j and tile nk - 1 - j
+  // of its batch row (under a causal mask their items add up to about the
+  // same count for every j), one pass each
+  const int nk = p.Sk_pad / TILE;
+  const int kt0 = blockIdx.x / C;
+  const int passes = p.pair && nk - 1 - kt0 != kt0 ? 2 : 1;
 
-  for (int idx = tid; idx < BKV * VPR; idx += NT_KV) {
-    const int r = idx / VPR, c = (idx % VPR) * 8;
-    const bool in = k0 + r < p.Sk;
-    const long off = in ? kv_off + long(k0 + r) * kv_stride + c : 0;
-    cp_async16(Ks + r * LD + c, p.k + off, in);
-    cp_async16(Vs + r * LD + c, p.v + off, in);
-  }
-  cp_async_commit();
-  if (tid < BKV) {
-    const int j = k0 + tid;
-    int kp = -1;
-    if (j < p.Sk) {
-      kp = p.kv_pos[j];
-      if (masked && p.kv_mask[long(b) * p.Sk + j] == 0) kp = -1;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG);
     }
-    Kp[tid] = kp;
+    fence_barrier_init();
   }
-  for (int w = tid; w < nwords; w += NT_KV) live[w] = 0u;
-  __syncthreads();
+  // each query tile's q_pos range over its rows inside Sq, a warp a tile
+  for (int t = warp; t < nq; t += NT_KV / 32) {
+    int lo = INT32_MAX, hi = INT32_MIN;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = t * TILE + 32 * r + lane;
+      if (qi < p.Sq) {
+        const int qp = p.qp[qi];
+        lo = min(lo, qp);
+        hi = max(hi, qp);
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    if (lane == 0) {
+      qlo[t] = lo;
+      qhi[t] = hi;
+    }
+  }
 
-  // the block's valid key positions, then one warp a query tile: live if
-  // some (query, key) pair of the two can be valid (a superset: masked
-  // pairs inside a live tile are masked one by one)
-  int kmin = INT32_MAX, kmax = -1;
-  for (int j = 0; j < BKV; ++j) {
-    const int kp = Kp[j];
-    if (kp >= 0) {
-      kmin = min(kmin, kp);
-      kmax = max(kmax, kp);
-    }
-  }
-  if (kmax >= 0) {
-    for (int t = warp; t < nq; t += NT_KV / 32) {
-      const int qi = t * BQT + lane;
-      const bool in = qi < p.Sq;
-      const int qp = in ? p.q_pos[qi] : 0;
-      int lo = in ? qp : INT32_MAX, hi = in ? qp : INT32_MIN;
+  // r0: the ring position of the pass's first item (the ring and its
+  // barriers' phases carry over from one pass to the next); item r of the
+  // ring goes to stage r % S and warpgroup r % KV_WGS
+  for (int pass = 0, r0 = 0; pass < passes; ++pass) {
+    const int k0 = (pass == 0 ? kt0 : nk - 1 - kt0) * TILE;
+    if (tid < TILE) Kp[tid] = p.kp[long(b) * p.Sk_pad + k0 + tid];
+    __syncthreads();
+    // the live query tiles, in order: some (query, key) pair of the tile
+    // and this block's keys can be valid (a superset: masked pairs inside
+    // a live tile are masked one by one); and whether every pair is
+    if (warp == 0) {
+      int kmin = INT32_MAX, kmax = -1;
+      bool every = true;
+      for (int j = lane; j < TILE; j += 32) {
+        const int kp = Kp[j];
+        every = every && kp >= 0;
+        if (kp >= 0) {
+          kmin = min(kmin, kp);
+          kmax = max(kmax, kp);
+        }
+      }
       for (int o = 16; o > 0; o >>= 1) {
-        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+        kmin = min(kmin, __shfl_xor_sync(0xffffffffu, kmin, o));
+        kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, o));
       }
-      bool lv = hi != INT32_MIN;
-      if (lv && p.causal) lv = kmin <= hi;
-      if (lv && p.window > 0) lv = kmax > lo - p.window || kmin < p.protected_;
-      if (lane == 0 && lv) atomicOr(&live[t >> 5], 1u << (t & 31));
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off + split * 2 * L::item);
-  bf16* dOs = Qs + BQT * LD;
-  float* Ls = reinterpret_cast<float*>(smem + L::rows_off) + split * BQT * 3;
-  float* Ds = Ls + BQT;
-  int* Qp = reinterpret_cast<int*>(Ds + BQT);
-
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int row0 = kw * 16;  // this warp's keys in the block
-  const bool capped = p.softcap > 0.f;
-  const float mul = capped ? LOG2E : p.scale * LOG2E;
-  const float cap_in = capped ? p.scale / p.softcap : 0.f;
-  const int kp_lo = Kp[row0 + g8], kp_hi = Kp[row0 + g8 + 8];
-  const bf16* k_row = Ks + (row0 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const bf16* v_row = Vs + (row0 + (lane & 15)) * LD + (lane >> 4) * 8;
-
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  // items: (head g of the group, live query tile t), t fastest; split s
-  // takes items s, s + QW, ...
-  int g = 0;
-  int t = next_tile(live, 0, nq);
-  if (t >= nq) g = G;
-  auto advance = [&]() {
-    t = next_tile(live, t + 1, nq);
-    if (t >= nq) {
-      ++g;
-      t = next_tile(live, 0, nq);
-    }
-  };
-  for (int i = 0; i < split && g < G; ++i) advance();
-
-  while (g < G) {
-    const int h = kvh * G + g;
-    const int q0 = t * BQT;
-#pragma unroll 1
-    for (int idx = stid; idx < BQT * VPR; idx += SPLIT_T) {
-      const int r = idx / VPR, c = (idx % VPR) * 8;
-      const bool in = q0 + r < p.Sq;
-      const long off = in ? ((long(b) * p.Sq + q0 + r) * p.H + h) * HD + c : 0;
-      cp_async16(Qs + r * LD + c, p.q + off, in);
-      cp_async16(dOs + r * LD + c, p.dout + off, in);
-    }
-    cp_async_commit();
-    if (stid < BQT) {
-      const int qi = q0 + stid;
-      const bool in = qi < p.Sq;
-      const long row = (long(b) * p.H + h) * p.Sq + qi;
-      Ls[stid] = in ? p.lse[row] : pos_inf();
-      Ds[stid] = in ? p.delta[row] : 0.f;
-      Qp[stid] = in ? p.q_pos[qi] : Q_PAD_POS;
-    }
-    cp_async_wait<0>();
-    split_barrier(1 + split, SPLIT_T);
-
-    // S^T = K Q^T and dP^T = V dO^T, 16 keys x BQT queries a warp; element
-    // e of st[j]: key row g8 + 8*(e/2), query 8j + 2*t4 + e%2
-    float st[BQT / 8][4], dp[BQT / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, k_row + kk * 16);
-      ldsm_x4(va, v_row + kk * 16);
-#pragma unroll
-      for (int jp = 0; jp < BQT / 16; ++jp) {
-        const int off = (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
-                        ((lane >> 3) & 1) * 8;
-        uint32_t qb[4], ob[4];
-        ldsm_x4(qb, Qs + off);
-        mma_bf16(st[2 * jp], ka, qb[0], qb[1]);
-        mma_bf16(st[2 * jp + 1], ka, qb[2], qb[3]);
-        ldsm_x4(ob, dOs + off);
-        mma_bf16(dp[2 * jp], va, ob[0], ob[1]);
-        mma_bf16(dp[2 * jp + 1], va, ob[2], ob[3]);
-      }
-    }
-    // P^T into st, dS^T (times dz/draw / scale) into dp
-#pragma unroll
-    for (int j = 0; j < BQT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t4 + (e & 1);
-        float x = st[j][e];
-        if (capped) x = p.softcap * tanhf(x * cap_in);
-        const bool ok = key_valid((e >> 1) ? kp_hi : kp_lo, Qp[col], p);
-        const float pr = ok ? exp2f(fmaf(x, mul, -Ls[col])) : 0.f;
-        float ds = pr * (dp[j][e] - Ds[col]);
-        if (capped) {
-          const float tn = x / p.softcap;
-          ds *= 1.f - tn * tn;
+      every = __all_sync(0xffffffffu, every);
+      int n = 0;
+      for (int base = 0; base < nq; base += 32) {
+        const int t = base + lane;
+        bool lv = t < nq && kmax >= 0, all = false;
+        if (lv) {
+          const int lo = qlo[t], hi = qhi[t];
+          lv = hi != INT32_MIN;
+          if (lv && p.causal) lv = kmin <= hi;
+          if (lv && p.window > 0) lv = kmax > lo - p.window || kmin < p.protected_;
+          all = lv && every && (!p.causal || kmax <= lo) &&
+                (p.window <= 0 || kmin > hi - p.window || kmax < p.protected_);
         }
-        st[j][e] = pr;
-        dp[j][e] = ds;
+        const uint32_t m = __ballot_sync(0xffffffffu, lv);
+        if (lv) tiles[n + __popc(m & ((1u << lane) - 1u))] = 2 * t + (all ? 1 : 0);
+        n += __popc(m);
       }
-    // dV += P^T dO, dK += dS^T Q (the reduction runs over the queries)
+      if (lane == 0) *nlive_s = n;
+    }
+    __syncthreads();
+    const int nlive = *nlive_s;
+    // the key tile's items (i: head i / nlive, query tile tiles[i % nlive]);
+    // this block takes items rank, rank + C, ...: its n-th is rank + n C
+    const int n_items = G * nlive;
+    const int mine = n_items > rank ? (n_items - rank + C - 1) / C : 0;
+    const int r_end = r0 + mine;
+
+    // ring item r (this pass's item r - r0) into stage r % S, by one thread
+    auto issue = [&](int r) {
+      const int i = rank + (r - r0) * C;
+      const int s = r % S;
+      const int h = kvh * G + i / nlive;
+      const int q0 = (tiles[i % nlive] >> 1) * TILE;
+      mbar_expect_tx(&full[s], 2 * T::BYTES + TILE * 12);
+      load_tile<HD>(q_tile(s), &p.tq, &full[s], h, q0, b);
+      load_tile<HD>(do_tile(s), &p.tdo, &full[s], h, q0, b);
+      bulk_load(rows + s * TILE, p.rows + (long(b) * p.H + h) * p.Sq_pad + q0, TILE * 8,
+                &full[s]);
+      bulk_load(qps + s * TILE, p.qp + q0, TILE * 4, &full[s]);
+    };
+    // this warpgroup's first ring item of the pass
+    const int r_first = r0 + ((wg - r0) % KV_WGS + KV_WGS) % KV_WGS;
+    if (tid == 0) {
+      mbar_expect_tx(kv_full, 2 * T::BYTES);
+      load_tile<HD>(Kt, &p.tk, kv_full, kvh, k0, b);
+      load_tile<HD>(Vt, &p.tv, kv_full, kvh, k0, b);
+    }
+    if (leader)
+      for (int r = r_first; r < r_end && r < r0 + S; r += KV_WGS) issue(r);
+
+    const int w = warp % 4;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    const int kp_lo = Kp[16 * w + g8], kp_hi = Kp[16 * w + g8 + 8];
+    const Scores sc(p);
+    const bool capped = p.softcap > 0.f;
+    const uint32_t k_base = smem_addr(Kt), v_base = smem_addr(Vt);
+
+    // 64 keys x HD: element e of n8 block j at [4j + e], key row
+    // 16w + g8 + 8(e/2), column 8j + 2t4 + e%2
+    float dk[HD / 2], dv[HD / 2];
 #pragma unroll
-    for (int kk = 0; kk < BQT / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(st[2 * kk][0], st[2 * kk][1]), pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-          pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-          pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t sa[4] = {
-          pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-          pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-          pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kv_full, pass & 1);
+    for (int r = r_first; r < r_end; r += KV_WGS) {
+      const int s = r % S;
+      mbar_wait(&full[s], (r / S) & 1);
+      const uint32_t q_base = smem_addr(q_tile(s)), do_base = smem_addr(do_tile(s));
+      const bool masked = !(tiles[(rank + (r - r0) * C) % nlive] & 1);
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        const int off = (kk * 16 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8;
-        uint32_t ob[4], qb[4];
-        ldsm_x4_trans(ob, dOs + off);
-        mma_bf16(dv[2 * np], pa, ob[0], ob[1]);
-        mma_bf16(dv[2 * np + 1], pa, ob[2], ob[3]);
-        ldsm_x4_trans(qb, Qs + off);
-        mma_bf16(dk[2 * np], sa, qb[0], qb[1]);
-        mma_bf16(dk[2 * np + 1], sa, qb[2], qb[3]);
+      for (int h = 0; h < TILE / NQ; ++h) {
+        const uint32_t kb = opaque(k_base), vb = opaque(v_base);
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x NQ queries (rows h NQ..
+        // of the Q and dO tiles: a whole number of 8-row swizzle groups)
+        float st[NQ / 2], dp[NQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<NQ>(st, desc_k<HD>(kb, kk), desc_k<HD>(q_base + h * NQ * T::SW, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<NQ>(dp, desc_k<HD>(vb, kk), desc_k<HD>(do_base + h * NQ * T::SW, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dp);
+        // P^T into st, dS^T (times dz/draw / scale) into dp
+        BWD_SCORES(item_scores, capped, masked, st, dp, kp_lo, kp_hi, rows + s * TILE + h * NQ,
+                   qps + s * TILE + h * NQ, t4, sc);
+        // dV += P^T dO, dK += dS^T Q: the reduction runs over the NQ queries
+        uint32_t pa[NQ / 16][4], sa[NQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk) {
+          a_frag(pa[kk], st, kk);
+          a_frag(sa[kk], dp, kk);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk)
+          wgmma_rs<HD>(dv, pa[kk], desc_mn<HD>(do_base, h * NQ / 16 + kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk)
+          wgmma_rs<HD>(dk, sa[kk], desc_mn<HD>(q_base, h * NQ / 16 + kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk) {
+          fence_regs(pa[kk]);
+          fence_regs(sa[kk]);
+        }
+      }
+      mbar_arrive(&empty[s]);
+      // the stage's next item, once the warpgroup is done with this one
+      if (leader && r + S < r_end) {
+        mbar_wait(&empty[s], (r / S) & 1);
+        issue(r + S);
       }
     }
-    split_barrier(1 + split, SPLIT_T);  // the next item overwrites Q / dO
-    for (int i = 0; i < QW && g < G; ++i) advance();
-  }
 
-  // the splits' partial sums, added in split order through shared memory
-  // (the item buffers, free now), one float a register, lane-interleaved
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem + L::q_off) + kw * HD * 32 + lane;
-  for (int s = 1; s < QW; ++s) {
-    if (split == s) {
+    // the block's partial, over K, V and the ring once every product and
+    // load of the pass has completed: warpgroup 1's, then warpgroup 0 adds
+    // its own (a fixed order), dK times the scale
+    static_assert(KV_WGS == 2, "the block's partial adds two warpgroups");
+    __syncthreads();
+    // this thread's element (0, 0), from the thread id again: kept live
+    // through the loop, the index would cost a register there
+    const int t_e = int(opaque(uint32_t(tid)));
+    float* mine0 = red + (16 * ((t_e / 32) % 4) + (t_e % 32) / 4) * LD + 2 * (t_e % 4);
+    if (wg == 1) {
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
+      for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          red[(n * 4 + e) * 32] = dk[n][e];
-          red[(HD / 2 + n * 4 + e) * 32] = dv[n][e];
+        for (int h = 0; h < 2; ++h) {
+          float2* k2 = reinterpret_cast<float2*>(mine0 + 8 * h * LD + 8 * j);
+          k2[0] = make_float2(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+          k2[TILE * LD / 2] = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
         }
     }
     __syncthreads();
-    if (split == 0) {
+    if (wg == 0) {
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
+      for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dk[n][e] += red[(n * 4 + e) * 32];
-          dv[n][e] += red[(HD / 2 + n * 4 + e) * 32];
+        for (int h = 0; h < 2; ++h) {
+          float2* k2 = reinterpret_cast<float2*>(mine0 + 8 * h * LD + 8 * j);
+          const float2 ko = k2[0], vo = k2[TILE * LD / 2];
+          k2[0] = make_float2((dk[4 * j + 2 * h] + ko.x) * p.scale,
+                              (dk[4 * j + 2 * h + 1] + ko.y) * p.scale);
+          k2[TILE * LD / 2] = make_float2(dv[4 * j + 2 * h] + vo.x, dv[4 * j + 2 * h + 1] + vo.y);
         }
     }
-    __syncthreads();
-  }
-  if (split != 0) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + row0 + g8 + 8 * r;
-    if (key >= p.Sk) continue;
-    const long off = kv_off + long(key) * kv_stride + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(p.dk + off + 8 * n) =
-          __floats2bfloat162_rn(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(p.dv + off + 8 * n) =
-          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+    cluster_sync();
+    // rows [rank * per, (rank + 1) * per) of dK and dV, the cluster's
+    // partials summed in rank order
+    const int per = TILE / C;
+    constexpr int V4 = HD / 4;
+    for (int idx = tid; idx < 2 * per * V4; idx += NT_KV) {
+      const int which = idx / (per * V4);
+      const int row = rank * per + (idx / V4) % per;
+      const int c4 = (idx % V4) * 4;
+      const float* src = red + (which * TILE + row) * LD + c4;
+      float4 acc = ld_cluster_f4(cluster_map(src, 0));
+      for (int c = 1; c < C; ++c) {
+        const float4 x = ld_cluster_f4(cluster_map(src, c));
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
+      }
+      const int key = k0 + row;
+      if (key < p.Sk) {
+        bf16* dst = (which ? p.dv : p.dk) + ((long(b) * p.Sk + key) * p.KV + kvh) * HD + c4;
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+      }
     }
+    // no block leaves, or loads its next pass's tiles over its partial,
+    // while another reads that partial (the fences order the partial's
+    // ordinary loads and stores with the next pass's TMA writes)
+    fence_proxy_async();
+    cluster_sync();
+    fence_proxy_async();
+    r0 = r_end;
   }
 }
 
@@ -392,45 +685,45 @@ __global__ void __launch_bounds__(NT_KV, 2) bwd_dkdv_kernel(const Params p) {
 // 3. dQ
 // ---------------------------------------------------------------------------
 
-// Shared memory of a dQ block: the K0 V0 K1 V1 ring, the block's Q and dO
-// (read by ldmatrix each kv tile), the two tiles' kv_pos and kv_mask
-// entries, the block's q positions and their min / max, then the live and
-// full bitmasks over the kv tiles, sized at launch.
+// Shared memory of a dQ block (from a 1024-aligned base): Q and dO, the
+// ring's K and V tiles, each stage's key positions, the barriers, then the
+// live and full bitmasks over the kv tiles, sized at launch.
 template <int HD>
 struct QSmem {
-  static constexpr int LD = HD + 8;
-  static constexpr size_t ktile = size_t(BK) * LD * 2;
-  static constexpr size_t stage = 2 * ktile;
-  static constexpr size_t q_off = 2 * stage;
-  static constexpr size_t do_off = q_off + size_t(BQ) * LD * 2;
-  static constexpr size_t kp_off = do_off + size_t(BQ) * LD * 2;
-  static constexpr size_t km_off = kp_off + 2 * BK * 4;
-  static constexpr size_t qp_off = km_off + 2 * BK * 4;
-  static constexpr size_t red_off = qp_off + BQ * 4;
-  static constexpr size_t bits_off = red_off + 2 * NWARPS * 4;
-  static size_t bytes(int nk) { return bits_off + 2 * size_t((nk + 31) / 32) * 4; }
+  using T = Tile<HD>;
+  static constexpr int STAGES = HD == 128 ? 2 : 3;
+  static constexpr int MIN_BLOCKS = 2;
+  static constexpr size_t q_off = 0;
+  static constexpr size_t do_off = T::BYTES;
+  static constexpr size_t ring_off = 2 * size_t(T::BYTES);  // stage s: K, then V
+  static constexpr size_t kp_off = ring_off + size_t(STAGES) * 2 * T::BYTES;
+  static constexpr size_t bar_off = kp_off + size_t(STAGES) * TILE * 4;
+  static constexpr size_t red_off = bar_off + (1 + 2 * STAGES) * 8;
+  static constexpr size_t bits_off = red_off + 4 * 4;
+  static size_t bytes(int nk) { return 1024 + bits_off + 2 * size_t((nk + 31) / 32) * 4; }
 };
 
 template <int HD>
-__global__ void __launch_bounds__(NT_Q, 2) bwd_dq_kernel(const Params p) {
+__global__ void __launch_bounds__(NT_Q, QSmem<HD>::MIN_BLOCKS) bwd_dq_wgmma_kernel(
+    const __grid_constant__ Params p) {
+  using T = Tile<HD>;
   using L = QSmem<HD>;
-  constexpr int LD = L::LD;
-  constexpr int VPR = HD / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  auto k_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + s * L::stage); };
-  auto v_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + s * L::stage + L::ktile); };
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
-  int* Kp = reinterpret_cast<int*>(smem + L::kp_off);
-  int* Km = reinterpret_cast<int*>(smem + L::km_off);
-  int* Qp = reinterpret_cast<int*>(smem + L::qp_off);
+  constexpr int S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Qt = smem + L::q_off;
+  unsigned char* dOt = smem + L::do_off;
+  auto k_tile = [&](int s) { return smem + L::ring_off + size_t(s) * 2 * T::BYTES; };
+  auto v_tile = [&](int s) { return k_tile(s) + T::BYTES; };
+  int* kps = reinterpret_cast<int*>(smem + L::kp_off);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
   int* red = reinterpret_cast<int*>(smem + L::red_off);
-  const int nk = (p.Sk + BK - 1) / BK;
-  const int nwords = (nk + 31) / 32;
   uint32_t* live = reinterpret_cast<uint32_t*>(smem + L::bits_off);  // then full
 
   // late query tiles first: under a causal mask they have the most work
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
@@ -438,29 +731,24 @@ __global__ void __launch_bounds__(NT_Q, 2) bwd_dq_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int q_stride = p.H * HD;
-  const int kv_stride = p.KV * HD;
-  const long q_off = (long(b) * p.Sq * p.H + h) * HD;
-  const long kv_off = (long(b) * p.Sk * p.KV + kvh) * HD;
-  const long mask_off = long(b) * p.Sk;
-  const bool masked = p.kv_mask != nullptr;
+  const int nk = p.Sk_pad / TILE;
+  const int nwords = (nk + 31) / 32;
+  const int* kp_b = p.kp + long(b) * p.Sk_pad;
 
-  for (int idx = tid; idx < BQ * VPR; idx += NT_Q) {
-    const int r = idx / VPR, c = (idx % VPR) * 8;
-    const bool in = q0 + r < p.Sq;
-    const long off = in ? q_off + long(q0 + r) * q_stride + c : 0;
-    cp_async16(Qs + r * LD + c, p.q + off, in);
-    cp_async16(dOs + r * LD + c, p.dout + off, in);
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG);
+    }
+    fence_barrier_init();
   }
-  cp_async_commit();
-
-  // the block's q-position range, then the live / full bitmasks of the kv
-  // tiles, as the forward decides them
-  {
+  // the block's q-position range (rows inside Sq), then the live / full
+  // bitmasks of the kv tiles, as the forward decides them
+  if (warp < 2) {
     const int qi = q0 + tid;
-    const bool in = tid < BQ && qi < p.Sq;
-    const int qp = in ? p.q_pos[qi] : Q_PAD_POS;
-    if (tid < BQ) Qp[tid] = qp;
+    const bool in = qi < p.Sq;
+    const int qp = in ? p.qp[qi] : 0;
     int lo = in ? qp : INT32_MAX, hi = in ? qp : INT32_MIN;
     for (int o = 16; o > 0; o >>= 1) {
       lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
@@ -468,32 +756,29 @@ __global__ void __launch_bounds__(NT_Q, 2) bwd_dq_kernel(const Params p) {
     }
     if (lane == 0) {
       red[warp] = lo;
-      red[NWARPS + warp] = hi;
+      red[2 + warp] = hi;
     }
-    for (int w = tid; w < 2 * nwords; w += NT_Q) live[w] = 0u;
   }
+  for (int i = tid; i < 2 * nwords; i += NT_Q) live[i] = 0u;
   __syncthreads();
-  int min_qp = red[0], max_qp = red[NWARPS];
-  for (int w = 1; w < NWARPS; ++w) {
-    min_qp = min(min_qp, red[w]);
-    max_qp = max(max_qp, red[NWARPS + w]);
-  }
-  for (int t = warp; t < nk; t += NWARPS) {
-    const int j = t * BK + lane;
-    int kp = -1;
-    if (j < p.Sk) {
-      kp = p.kv_pos[j];
-      if (masked && p.kv_mask[mask_off + j] == 0) kp = -1;
-    }
-    bool some = kp >= 0, every = kp >= 0;
-    if (p.causal) {
-      some = some && kp <= max_qp;
-      every = every && kp <= min_qp;
-    }
-    if (p.window > 0) {
-      const bool sink = kp < p.protected_;
-      some = some && (kp > min_qp - p.window || sink);
-      every = every && (kp > max_qp - p.window || sink);
+  const int min_qp = min(red[0], red[1]), max_qp = max(red[2], red[3]);
+  for (int t = warp; t < nk; t += NT_Q / 32) {
+    bool some = false, every = true;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kp = kp_b[t * TILE + 32 * r + lane];
+      bool sm = kp >= 0, ev = kp >= 0;
+      if (p.causal) {
+        sm = sm && kp <= max_qp;
+        ev = ev && kp <= min_qp;
+      }
+      if (p.window > 0) {
+        const bool sink = kp < p.protected_;
+        sm = sm && (kp > min_qp - p.window || sink);
+        ev = ev && (kp > max_qp - p.window || sink);
+      }
+      some = some || sm;
+      every = every && ev;
     }
     const bool any = __any_sync(0xffffffffu, some);
     const bool all = __all_sync(0xffffffffu, every);
@@ -504,152 +789,144 @@ __global__ void __launch_bounds__(NT_Q, 2) bwd_dq_kernel(const Params p) {
   }
   __syncthreads();
 
-  auto load_tile = [&](int t, int s) {
-    const int k0 = t * BK;
-#pragma unroll 1
-    for (int idx = tid; idx < BK * VPR; idx += NT_Q) {
-      const int r = idx / VPR, c = (idx % VPR) * 8;
-      const bool in = k0 + r < p.Sk;
-      const long off = in ? kv_off + long(k0 + r) * kv_stride + c : 0;
-      cp_async16(k_tile(s) + r * LD + c, p.k + off, in);
-      cp_async16(v_tile(s) + r * LD + c, p.v + off, in);
-    }
-    const int j = k0 + (tid % BK);
-    const bool in = j < p.Sk;
-    if (tid < BK) cp_async4(Kp + s * BK + tid, p.kv_pos + (in ? j : 0), in);
-    else if (tid < 2 * BK && masked)
-      cp_async4(Km + s * BK + tid - BK, p.kv_mask + (in ? mask_off + j : 0), in);
-  };
-
-  int cur = next_tile(live, 0, nk);
-  if (cur < nk) load_tile(cur, 0);
-  cp_async_commit();
-
-  const int row0 = warp * 16;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bf16* q_row = Qs + (row0 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const bf16* do_row = dOs + (row0 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const bool capped = p.softcap > 0.f;
-  const float mul = capped ? LOG2E : p.scale * LOG2E;
-  const float cap_in = capped ? p.scale / p.softcap : 0.f;
-  // this thread's rows g and g + 8: lse and D
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + g + 8 * r;
-    const bool in = qi < p.Sq;
-    lse_r[r] = in ? p.lse[long(bh) * p.Sq + qi] : pos_inf();
-    d_r[r] = in ? p.delta[long(bh) * p.Sq + qi] : 0.f;
-  }
-
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  int stage = 0;
-  while (cur < nk) {
-    const int nxt = next_tile(live, cur + 1, nk);
-    if (nxt < nk) {
-      load_tile(nxt, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile `cur` (and Q, dO) landed for every thread
-
-    const bf16* Kt = k_tile(stage);
-    const bf16* Vt = v_tile(stage);
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4], oa[4];
-      ldsm_x4(qa, q_row + kk * 16);
-      ldsm_x4(oa, do_row + kk * 16);
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        const int off = (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
-                        ((lane >> 3) & 1) * 8;
-        uint32_t kb[4], vb[4];
-        ldsm_x4(kb, Kt + off);
-        mma_bf16(s[2 * jp], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qa, kb[2], kb[3]);
-        ldsm_x4(vb, Vt + off);
-        mma_bf16(dp[2 * jp], oa, vb[0], vb[1]);
-        mma_bf16(dp[2 * jp + 1], oa, vb[2], vb[3]);
+  if (tid >= WG) {
+    // producer: Q and dO once, then the ring of live kv tiles
+    if (tid == WG) {
+      mbar_expect_tx(q_full, 2 * T::BYTES);
+      load_tile<HD>(Qt, &p.tq, q_full, h, q0, b);
+      load_tile<HD>(dOt, &p.tdo, q_full, h, q0, b);
+      int n = 0;
+      for (int t = next_tile(live, 0, nk); t < nk; t = next_tile(live, t + 1, nk), ++n) {
+        const int s = n % S;
+        if (n >= S) mbar_wait(&empty[s], ((n / S) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * T::BYTES + TILE * 4);
+        load_tile<HD>(k_tile(s), &p.tk, &full[s], kvh, t * TILE, b);
+        load_tile<HD>(v_tile(s), &p.tv, &full[s], kvh, t * TILE, b);
+        bulk_load(kps + s * TILE, kp_b + t * TILE, TILE * 4, &full[s]);
       }
     }
-    // element e of s[j]: row g + 8*(e/2), key 8j + 2*t4 + e%2
-    const bool is_full = (live[nwords + (cur >> 5)] >> (cur & 31)) & 1u;
+  } else {
+    const int w = warp;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    const Scores sc(p);
+    const bool capped = p.softcap > 0.f;
+    const uint32_t q_base = smem_addr(Qt), do_base = smem_addr(dOt);
+    // this thread's rows 16w + g8 and 16w + g8 + 8: {lse, D} and q_pos
+    float2 rr[2];
+    int qp_r[2];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const int col = 8 * j + 2 * t4;
-      int2 kp = *reinterpret_cast<const int2*>(Kp + stage * BK + col);
-      if (masked) {
-        const int2 km = *reinterpret_cast<const int2*>(Km + stage * BK + col);
-        if (km.x == 0) kp.x = -1;
-        if (km.y == 0) kp.y = -1;
-      }
-      if (cur * BK + col >= p.Sk) kp.x = -1;
-      if (cur * BK + col + 1 >= p.Sk) kp.y = -1;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e];
-        if (capped) x = p.softcap * tanhf(x * cap_in);
-        const bool ok =
-            is_full || key_valid((e & 1) ? kp.y : kp.x, Qp[row0 + g + 8 * (e >> 1)], p);
-        const float pr = ok ? exp2f(fmaf(x, mul, -lse_r[e >> 1])) : 0.f;
-        float ds = pr * (dp[j][e] - d_r[e >> 1]);
-        if (capped) {
-          const float tn = x / p.softcap;
-          ds *= 1.f - tn * tn;
-        }
-        s[j][e] = ds;
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + 16 * w + g8 + 8 * r;
+      rr[r] = p.rows[long(bh) * p.Sq_pad + qi];
+      qp_r[r] = p.qp[qi];
     }
-    // dQ += dS K (the reduction runs over the keys)
+    float dq[HD / 2];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t sa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    int n = 0;
+    for (int t = next_tile(live, 0, nk); t < nk; t = next_tile(live, t + 1, nk), ++n) {
+      const int s = n % S;
+      mbar_wait(&full[s], (n / S) & 1);
+      const uint32_t k_base = smem_addr(k_tile(s)), v_base = smem_addr(v_tile(s));
+      const uint32_t qb = opaque(q_base), dob = opaque(do_base);
+      // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+      float score[32], dp[32];
+      wgmma_fence();
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        uint32_t kb[4];
-        ldsm_x4_trans(kb, Kt + (kk * 16 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8);
-        mma_bf16(dq[2 * np], sa, kb[0], kb[1]);
-        mma_bf16(dq[2 * np + 1], sa, kb[2], kb[3]);
-      }
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(score, desc_k<HD>(qb, kk), desc_k<HD>(k_base, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<HD>(dob, kk), desc_k<HD>(v_base, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(score);
+      fence_regs(dp);
+      const bool masked = !((live[nwords + (t >> 5)] >> (t & 31)) & 1u);
+      BWD_SCORES(tile_scores, capped, masked, score, dp, rr, qp_r, kps + s * TILE, t4, sc);
+      // dQ += dS K: the reduction runs over the 64 keys
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_frag(sa[kk], dp, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dq, sa[kk], desc_mn<HD>(k_base, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(sa[kk]);
+      mbar_arrive(&empty[s]);
     }
-    __syncthreads();  // the next iteration's prefetch overwrites this stage
-    cur = nxt;
-    stage ^= 1;
-  }
-  cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + g + 8 * r;
-    if (qi >= p.Sq) continue;
-    const long off = q_off + long(qi) * q_stride + 2 * t4;
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + 16 * w + g8 + 8 * r;
+      if (qi >= p.Sq) continue;
+      bf16* dst = p.dq + ((long(b) * p.Sq + qi) * p.H + h) * HD + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(p.dq + off + 8 * n) =
-          __floats2bfloat162_rn(dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+            dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
+    }
   }
 }
 
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
 constexpr int MAX_DEVICES = 64;
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the 4-D map of a (B, S, heads, HD) bf16 tensor, box (CB, 1, 64, 1): rows
+// past S read as zeros inside their own batch row
+template <int HD>
+bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
+  using T = Tile<HD>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(heads), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(HD) * 2, cuuint64_t(heads) * HD * 2,
+                                 cuuint64_t(S) * heads * HD * 2};
+  const cuuint32_t box[4] = {cuuint32_t(T::CB), 1, cuuint32_t(TILE), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // Raise both main kernels' dynamic shared-memory cap to the card's opt-in
 // maximum, once per instance and card.
 template <int HD>
-cudaError_t allow_smem() {
+cudaError_t prepare() {
   static int done[MAX_DEVICES] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -659,29 +936,50 @@ cudaError_t allow_smem() {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkdv_kernel<HD>,
+  err = cudaFuncSetAttribute(bwd_dkdv_wgmma_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq_kernel<HD>,
+  err = cudaFuncSetAttribute(bwd_dq_wgmma_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done[dev] = 1;
   return err;
 }
 
 template <int HD>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  cudaError_t err = allow_smem<HD>();
+cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
+                   cudaStream_t stream) {
+  cudaError_t err = prepare<HD>();
   if (err != cudaSuccess) return err;
-  const long rows = long(p.B) * p.Sq * p.H;
-  bwd_delta_kernel<HD><<<unsigned((rows + 3) / 4), 128, 0, stream>>>(p);
+  const long rows = long(p.B) * p.H * p.Sq_pad;
+  const long per_block = 4 * (32 / (HD / 8));  // rows a block of the preparation
+  bwd_prep_kernel<HD><<<unsigned((rows + per_block - 1) / per_block), 128, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int nq = (p.Sq + BQT - 1) / BQT;
-  const dim3 grid_kv((p.Sk + BKV - 1) / BKV, p.B * p.KV);
-  bwd_dkdv_kernel<HD><<<grid_kv, NT_KV, KVSmem<HD>::bytes(nq), stream>>>(p);
+  // the maps after a runtime launch: the driver's encoder needs the
+  // device's context current in this thread, which a thread that has made
+  // no runtime call yet (autograd's backward thread) does not have
+  if (!encode_map<HD>(&p.tq, q, p.B, p.Sq, p.H) || !encode_map<HD>(&p.tdo, p.dout, p.B, p.Sq, p.H) ||
+      !encode_map<HD>(&p.tk, k, p.B, p.Sk, p.KV) || !encode_map<HD>(&p.tv, v, p.B, p.Sk, p.KV))
+    return cudaErrorInvalidValue;
+
+  cudaLaunchConfig_t cfg = {};
+  const int nk = p.Sk_pad / TILE;
+  cfg.gridDim = dim3((p.pair ? (nk + 1) / 2 : nk) * p.cluster, p.B * p.KV);
+  cfg.blockDim = dim3(NT_KV);
+  cfg.dynamicSmemBytes = KVSmem<HD>::bytes(p.Sq_pad / TILE);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bwd_dkdv_wgmma_kernel<HD>, p);
+  if (err != cudaSuccess) return err;
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int nk = (p.Sk + BK - 1) / BK;
-  const dim3 grid_q((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  bwd_dq_kernel<HD><<<grid_q, NT_Q, QSmem<HD>::bytes(nk), stream>>>(p);
+
+  const dim3 grid_q(p.Sq_pad / TILE, p.B * p.H);
+  bwd_dq_wgmma_kernel<HD><<<grid_q, NT_Q, QSmem<HD>::bytes(p.Sk_pad / TILE), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -691,22 +989,27 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // Plain C entry point (bound with ctypes): the three launches on `stream`,
 // asynchronous.  Returns a cudaError_t: 0 when every launch was accepted.
-// `delta` is (B, H, Sq) float32 scratch; dq, dk and dv are written whole.
+// Scratch, written whole by the first launch: `rows` (B, H, Sq_pad) float2,
+// `qp` (Sq_pad,) int32, `kp` (B, Sk_pad) int32, with Sq_pad and Sk_pad Sq
+// and Sk rounded up to 64.  `cluster` (1, 2, 4 or 8) blocks of the dK/dV
+// launch share a key tile; with `pair` a block takes two key tiles, j and
+// nk - 1 - j.  dq, dk and dv are written whole.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const float* lse, float* delta, void* dq, void* dk, void* dv,
+    const float* lse, void* rows, int* qp, int* kp, void* dq, void* dk, void* dv,
     const int* q_pos, const int* kv_pos, const int* kv_mask,
     int B, int H, int KV, int Sq, int Sk, int hd,
-    float scale, float softcap, int window, int causal, int protected_,
-    void* stream) {
+    float scale, float softcap, int window, int causal, int protected_, int cluster,
+    int pair, void* stream) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) != 0)
+    return int(cudaErrorInvalidValue);
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.o = static_cast<const bf16*>(o);
   p.dout = static_cast<const bf16*>(dout);
   p.lse = lse;
-  p.delta = delta;
+  p.rows = static_cast<float2*>(rows);
+  p.qp = qp;
+  p.kp = kp;
   p.dq = static_cast<bf16*>(dq);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
@@ -718,14 +1021,18 @@ extern "C" int repro_flash_attention_bwd(
   p.KV = KV;
   p.Sq = Sq;
   p.Sk = Sk;
+  p.Sq_pad = (Sq + TILE - 1) / TILE * TILE;
+  p.Sk_pad = (Sk + TILE - 1) / TILE * TILE;
   p.scale = scale;
   p.softcap = softcap;
   p.window = window;
   p.causal = causal;
   p.protected_ = protected_;
+  p.cluster = cluster;
+  p.pair = pair != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_BWD_LAUNCH(D) \
-  if (hd == D) return int(launch<D>(p, s));
+  if (hd == D) return int(launch<D>(p, q, k, v, s));
   FLASH_BWD_INSTANCES(FLASH_BWD_LAUNCH)
 #undef FLASH_BWD_LAUNCH
   return int(cudaErrorInvalidValue);

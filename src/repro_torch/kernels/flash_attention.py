@@ -57,6 +57,10 @@ HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 #: head dims 192 and 256')
 BWD_HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128))
 MAX_GRID_Y = 65535
+#: rows of the backward's tiles: keys of a dK/dV block, queries of an item
+BWD_TILE = 64
+#: most blocks of a dK/dV thread-block cluster (the portable limit)
+BWD_MAX_CLUSTER = 8
 
 
 def flash_attention_plain(
@@ -150,6 +154,38 @@ def flash_attention_bwd_plain(
     return dq, dk, dv
 
 
+def bwd_cluster_size(b: int, kvh: int, sk: int, g: int, sq: int, hd: int,
+                     sms: int, pair: bool = False) -> int:
+    """Blocks of the dK/dV launch's thread-block cluster, which split each
+    64-key tile's (head of the group, query tile) items among them: the
+    largest of 1, 2, 4, 8 that keeps the launch to one wave of blocks
+    (``blocks * C <= sms``: a dK/dV block's registers fill its SM, so a
+    block past the first wave waits for a whole block to finish), and no
+    more than a tile has items.  ``pair``: a block takes two key tiles (the
+    causal launch's), so there are half as many blocks.  The same 64-key
+    tile at every instance, so ``hd`` only has to be one."""
+    if (hd, hd) not in BWD_HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention backward: no instance at head dim {hd}")
+    nk = -(-sk // BWD_TILE)
+    blocks = b * kvh * (-(-nk // 2) if pair else nk)
+    items = g * -(-sq // BWD_TILE)
+    c = 1
+    while 2 * c <= BWD_MAX_CLUSTER and 2 * c <= items and blocks * 2 * c <= sms:
+        c *= 2
+    return c
+
+
+def bwd_rank_items(rank: int, cluster: int, n_items: int) -> range:
+    """The items of a key tile's list that block ``rank`` of its cluster
+    takes, as the dK/dV kernel deals them."""
+    return range(rank, n_items, cluster)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
     if (q.shape[-1], v.shape[-1]) not in HEAD_DIM_PAIRS:
         raise ValueError(
@@ -232,10 +268,10 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The backward library's entry point, bound like :func:`bind`."""
     fn = lib.repro_flash_attention_bwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 13
+        [ctypes.c_void_p] * 15
         + [ctypes.c_int] * 6
         + [ctypes.c_float] * 2
-        + [ctypes.c_int] * 3
+        + [ctypes.c_int] * 5
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -333,7 +369,11 @@ def flash_attention_bwd(
     gradient ``dout``.  CPU tensors take :func:`flash_attention_bwd_plain`
     (float32).  CUDA tensors launch the backward kernel, which needs the
     forward's ``lse`` (B, H, Sq) and returns bf16 grads, or raise; one call
-    counts one launch (the kernel's three launches: D, dK/dV, dQ)."""
+    counts one launch (the kernel's three launches: the padded rows and
+    positions, dK/dV, dQ).  The dK/dV launch's cluster size comes from
+    :func:`bwd_cluster_size`, and under a causal mask each of its blocks
+    takes two key tiles; the C entry point encodes the TMA tensor maps of
+    q, k, v and dout in every call."""
     opts = dict(kv_mask=kv_mask, window=window, causal=causal,
                 softcap=softcap, protected=protected)
     if q.device.type == "cpu":
@@ -344,23 +384,41 @@ def flash_attention_bwd(
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"flash_attention_bwd: {name} must be a contiguous "
-                             f"bf16 tensor shaped like q")
+        if (t.shape != q.shape or t.dtype != torch.bfloat16
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"flash_attention_bwd: {name} must be a contiguous, "
+                             f"16-byte aligned bf16 tensor shaped like q")
     if (lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("flash_attention_bwd: lse must be the forward's "
                          f"({b}, {h}, {sq}) float32 on the card")
-    delta = torch.empty_like(lse)
+    # TMA reads rows of H * hd and KV * hd bf16: 16-byte strides
+    if (h * hd * 2) % 16 or (kvh * hd * 2) % 16:
+        raise ValueError("flash_attention_bwd: H * hd and KV * hd must be "
+                         "multiples of 8 for the TMA tensor maps")
+    sq_pad = -(-sq // BWD_TILE) * BWD_TILE
+    sk_pad = -(-sk // BWD_TILE) * BWD_TILE
+    dev = q.device
+    rows = torch.empty(b, h, sq_pad, 2, dtype=torch.float32, device=dev)
+    qp = torch.empty(sq_pad, dtype=torch.int32, device=dev)
+    kp = torch.empty(b, sk_pad, dtype=torch.int32, device=dev)
+    # under a causal mask the first key tiles of a row have the most items
+    # and the last the fewest: a dK/dV block then takes tiles j and nk-1-j
+    pair = bool(causal)
+    cluster = bwd_cluster_size(b, kvh, sk, h // kvh, sq, hd,
+                               _sm_count(dev.index if dev.index is not None
+                                         else torch.cuda.current_device()),
+                               pair)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = _bwd_library().repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), rows.data_ptr(), qp.data_ptr(),
+        kp.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        q_pos.data_ptr(), kv_pos.data_ptr(),
         None if kv_mask is None else kv_mask.data_ptr(),
         b, h, kvh, sq, sk, hd,
         hd**-0.5, float(softcap), int(window), int(causal), int(protected),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        cluster, int(pair), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
