@@ -46,7 +46,15 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    earlier result unchanged, that the launch counters (taken from the
    replays) show the path's kernels, and that the same batch run eagerly
    through the program's loop agrees; profiles the replay and the eager
-   run for the device's busy time and idle share;
+   run for the device's busy time (the union of the trace's device
+   intervals) and idle share (over that trace's own span; the share over
+   the unprofiled wall is printed beside it); then the mesh: the 8x256 batch (1 + 3 rows) drained
+   by an engine on ``make_sampler_mesh()`` (dp = the card count) and by
+   one without a mesh, each warmed, bitwise equal at dp = 1 with the same
+   launches (7 ``era_update``, 280 ``flash_attention``); and the dry run's
+   count of that request (``launch/dryrun.py``'s ``run_solver_program`` on
+   a meta denoiser) over the replay's busy time: the achieved TFLOP/s and
+   its share of the bf16 peak, which must lie in (0, 1];
 5. holds the CUDA ``decode_attention`` kernel against its plain version at
    the AR path's shape (half-empty and full cache, the position as a host
    int and as a tensor on the card), wrapped rings with window and
@@ -190,10 +198,24 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    AdamW's update timed alone; and a checkpoint round trip at qwen2's widths cut to 2 layers (a full
    archive is 21 GB), restored into a fresh denoiser whose ``eps`` is
    bitwise the trained one's;
-14. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
+14. the int8 KV cache (after the profiled phases): phase 6's model with
+   ``kv_quant="int8"`` through ``Engine.generate`` (batch 8, prompt 512,
+   32 new tokens, 1024 slots; 28 flash and 28 x 31 decode launches), the
+   prefill's int8 entries the bf16 cache's rounded to nearest, its
+   teacher-forced decode logits within 0.2 of the bf16 cache's scale (the
+   reference's bound), a planted fault (one layer's int8 K zeroed after
+   the prefill) that the cache check must see, its bytes a slot (528
+   against 1,024) and its decode ms a step beside the bf16 cache's; and
+   ``Engine(mesh=make_sampler_mesh())`` generating bitwise the tokens of
+   the engine without a mesh; then each ``examples/torch_*.py`` at its
+   tiny defaults on the card in a subprocess of its own (quickstart,
+   solver comparison, AR serving over the families); a failure fails the
+   phase;
+15. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
    ``{"frontdoor": {...}}`` line with phase 9's, one ``{"families":
    {...}}`` line with phases 10, 11 and 12's, one ``{"training": {...}}``
-   line with phase 13's and one ``{"kernels": [...]}`` line with each
+   line with phase 13's, one line with the mesh, the request's FLOPs, the
+   int8 cache and the examples' walls, and one ``{"kernels": [...]}`` line with each
    kernel's launches (by path), error and times beside its bound, then
    the result line.
 
@@ -215,6 +237,11 @@ kernels in one process: the one under ``PARENT/src`` (through its own
 wrapper) and this checkout's, each checked in every phase-13 case, then
 timed at qwen2's 8x256 and causal 8x512 and hymba's 2x1280 in the order
 parent, this, this, parent.
+``python3 chip_smoke.py --mesh-only`` runs only the mesh checks, data
+parallel over every local card: phase 4's drain (three drains with and
+without the mesh, x0 within ``MESH_X0_ATOL`` of the unsplit drain's) and
+``Engine(mesh=)`` (each block's prefill logits within ``MESH_LOGIT_RTOL``
+of the whole batch's, ``generate`` timed, its launches counted).
 
 It imports nothing of the JAX package.  Any failed check raises, so the
 script exits non-zero and prints no result line; it also fails when no
@@ -238,9 +265,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet), the denominators of bound_ms
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+from repro_torch.launch.mesh import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as PEAK_BF16_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_F32 as PEAK_F32_FLOPS  # noqa: E402
 
 # launches of each kernel per fused batch on the sampling path
 NFE = 10
@@ -1199,7 +1226,7 @@ def phase_slice(ku, kf, kd, dlm):
         f"{e_idle:.3f}; warmup() {warmup_s:.2f}s")
     per_nfe_ms = drain_s / (fused * NFE) * 1e3
     del eng
-    return launches, drain_s, per_nfe_ms
+    return launches, drain_s, per_nfe_ms, g_busy
 
 
 # ---------------------------------------------------------------------------
@@ -1650,7 +1677,7 @@ def phase_ar(ku, kf, kd):
             L.apply_rope(qx, at, cfg.rope_theta)
             L.apply_rope(kx, at, cfg.rope_theta)
 
-    rows, _, _ = device_events(loop_ropes)
+    rows = device_events(loop_ropes)[0]
     rope_ops = sum(r[1] for r in rows)
     per_layer = rope_ops / (PROFILED_STEPS * cfg.num_layers)
     log(f"rope: {per_layer:.2f} device ops a layer (q and k), {rope_ops} "
@@ -1867,8 +1894,7 @@ def phase_solvers(ku, kf, kd, dlm):
         for key, value in out.aux.items():
             check(torch.equal(value, res.aux[key]),
                   f"{name}: aux {key} differs between replay and eager")
-        rows, _, _ = device_events(eager)
-        eager_busy = sum(r[0] for r in rows)
+        _, eager_span, _, eager_busy = device_events(eager)
 
         idle, busy, _ = profile_replays(
             lambda: eng.submit_with_future(req), eng.drain,
@@ -1877,7 +1903,7 @@ def phase_solvers(ku, kf, kd, dlm):
         entry = dict(replay_ms=replay_ms, replay_ms_runs=walls, busy_ms=busy,
                      idle_share=idle,
                      eager_ms=eager_ms, eager_busy_ms=eager_busy,
-                     eager_idle_share=1 - eager_busy / eager_ms,
+                     eager_idle_share=1 - eager_busy / eager_span,
                      warmup_s=warmup_s, reported_nfe=out.nfe)
         log(f"{name}: 8x256 nfe={NFE} replay {replay_ms:.1f} ms (median of "
             f"{[round(w, 1) for w in walls]}; device busy "
@@ -3473,7 +3499,7 @@ def train_objective(kf, cfg, objective: str) -> dict:
     adam()
     torch.cuda.synchronize()
     adam_wall = (time.perf_counter() - t0) * 1e3
-    adam_rows, _, _ = device_events(adam)
+    adam_rows = device_events(adam)[0]
     adamw = dict(busy_ms=sum(r[0] for r in adam_rows),
                  device_ops=sum(r[1] for r in adam_rows), wall_ms=adam_wall)
     adamw["share_of_step_busy"] = adamw["busy_ms"] / busy
@@ -3556,6 +3582,385 @@ def phase_training(kf) -> tuple[dict, dict]:
     launches = {name: sum(f["flash_launches"][name] for f in figures.values())
                 for name in ("flash_attention", "flash_attention_bwd")}
     return {**launches, "era_update": 0, "decode_attention": 0}, figures
+
+
+# ---------------------------------------------------------------------------
+# the mesh, the dry run's count of an ERA request, the int8 KV cache and the
+# examples
+# ---------------------------------------------------------------------------
+
+
+# a split batch against the whole one on the card (dp > 1): each block's
+# GEMMs have other row counts, so cuBLAS may pick other kernels; x0 is held
+# to phase 4's graph-against-eager bound, logits to 1e-2 of their scale
+MESH_X0_ATOL = 1e-2
+MESH_LOGIT_RTOL = 1e-2
+# drains timed with and without the mesh (the first one's results and
+# launches are checked)
+MESH_DRAINS = 3
+
+
+def phase_mesh(ku, kf, kd, dlm) -> tuple[dict, dict]:
+    """Phase 4's 8x256 ERA batch (1 + 3 rows, seeds 11 and 12, padded to
+    8) through an engine on ``make_sampler_mesh()`` (data parallel over the
+    local cards) and through one without a mesh: each warmed (one graph a
+    card), then one drain as graph replays, with dp times the launches of
+    one 8/dp-row block.  With dp = 1 the drains must be bitwise equal (7
+    ``era_update``, 280 ``flash_attention``); with dp > 1 x0 within
+    MESH_X0_ATOL of the unsplit drain's.  MESH_DRAINS drains of each are
+    timed: the first replays a graph for the first time."""
+    from repro_torch.core import linear_schedule
+    from repro_torch.launch.mesh import make_sampler_mesh
+    from repro_torch.serving import BatchedSampler, SampleRequest
+
+    mesh = make_sampler_mesh()
+    dp = mesh.shape["data"]
+    check(dp == torch.cuda.device_count(), f"sampler mesh {mesh.shape}")
+    sched = linear_schedule()
+    reqs = [SampleRequest(batch=1, seq_len=256, nfe=NFE, seed=11),
+            SampleRequest(batch=3, seq_len=256, nfe=NFE, seed=12)]
+    results, launches, walls = {}, {}, {}
+    for label, m in (("plain", None), ("mesh", mesh)):
+        eng = BatchedSampler(dlm, sched, batch_buckets=(8,), mesh=m)
+        report = eng.warmup(seq_lens=(256,))
+        check(report["fresh"] == (dp if m is not None else 1),
+              f"{label}: warmup captured {report['fresh']} graphs")
+        walls[label] = []
+        for run in range(MESH_DRAINS):
+            futs = [eng.submit_with_future(r)[1] for r in reqs]
+            reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+            t0 = time.perf_counter()
+            eng.drain()
+            for dev in (mesh.devices if m is not None else ["cuda"]):
+                torch.cuda.synchronize(dev)
+            walls[label].append((time.perf_counter() - t0) * 1e3)
+            if run == 0:
+                launches[label] = read_counts(ku, kf, kd)
+                results[label] = [f.result() for f in futs]
+        check(eng.compile_stats()["fresh"] == report["fresh"],
+              f"{label}: the drain captured a graph")
+        del eng
+    want = {"era_update": dp * (NFE - K + 1),
+            "flash_attention": dp * dlm.config.num_layers * NFE, "decode_attention": 0}
+    check(launches["mesh"] == want, f"mesh launches {launches['mesh']} != {want}")
+    same = all(
+        torch.equal(a.x0, b.x0) and set(a.aux) == set(b.aux)
+        and all(torch.equal(a.aux[k], b.aux[k]) for k in a.aux)
+        for a, b in zip(results["plain"], results["mesh"]))
+    diff = max(float((a.x0 - b.x0).abs().max())
+               for a, b in zip(results["plain"], results["mesh"]))
+    log(f"mesh (dp={dp}): 8x256 drains {[round(w, 1) for w in walls['mesh']]} "
+        f"ms against {[round(w, 1) for w in walls['plain']]} without a mesh (the "
+        f"first replays of a graph upload it); launches {launches['mesh']} "
+        f"against {launches['plain']}; x0 and aux bitwise equal {same}, x0 "
+        f"max abs diff {diff:.3e}")
+    if dp == 1:
+        check(launches["mesh"] == launches["plain"], "mesh launch counts differ")
+        check(same, "the dp=1 mesh drain differs from the drain without a mesh")
+    check(diff <= MESH_X0_ATOL, f"the mesh drain's x0 is {diff} off")
+    return launches["mesh"], dict(dp=dp, drain_ms=walls["mesh"][0],
+                                  plain_drain_ms=walls["plain"][0],
+                                  drain_ms_runs=walls["mesh"],
+                                  plain_drain_ms_runs=walls["plain"], bitwise=same,
+                                  x0_max_abs_diff=diff)
+
+
+def mesh_engine(ku, kf, kd) -> dict:
+    """``Engine(mesh=make_sampler_mesh())`` on full-width qwen2-1.5b's token
+    model against the engine without a mesh: each mesh block's prefill
+    logits (its rows, on its card's copy of the weights) within
+    MESH_LOGIT_RTOL of the whole batch's, and 16 greedy tokens of batch 8,
+    prompt 512, with dp times a block's launches; the share of tokens equal
+    is reported."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_sampler_mesh
+    from repro_torch.parallel.sharding import device_scope
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_config("qwen2-1.5b")
+    model, _ = token_model(cfg)
+    serve = ServeConfig(max_len=AR_MAX_LEN)
+    mesh = make_sampler_mesh()
+    dp = mesh.shape["data"]
+    eng, meng = Engine(model, serve), Engine(model, serve, mesh=mesh)
+    rng = np.random.default_rng(23)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (AR_BATCH, AR_PROMPT)).astype(np.int32)).cuda()
+    whole, _ = eng.prefill_step(prompts)
+    worst = 0.0
+    for block, rows in meng._blocks(AR_BATCH):
+        with device_scope(block.device):
+            part, _ = block.prefill(prompts[rows].to(block.device), meng.slots)
+        part = part.to(whole.device).float()
+        ref = whole[rows].float()
+        worst = max(worst, float((part - ref).abs().max() / ref.abs().max()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = eng.generate(prompts, 16)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+    t0 = time.perf_counter()
+    meshed = meng.generate(prompts, 16)
+    for i in range(dp):
+        torch.cuda.synchronize(mesh.devices[i])
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(ku, kf, kd)
+    want = {"era_update": 0, "flash_attention": dp * cfg.num_layers,
+            "decode_attention": dp * cfg.num_layers * 15}
+    agree = float((plain == meshed).float().mean())
+    log(f"Engine(mesh={mesh.shape}): prefill logits of each block within "
+        f"{worst:.3e} of the whole batch's (bound {MESH_LOGIT_RTOL}); 16 "
+        f"tokens, {agree:.3f} of them equal to those without a mesh, "
+        f"{mesh_ms:.1f} ms against {plain_ms:.1f}; launches {launches}")
+    check(launches == want, f"mesh generate launches {launches} != {want}")
+    check(worst <= MESH_LOGIT_RTOL, f"mesh prefill logits {worst} off")
+    check(tuple(meshed.shape) == (AR_BATCH, 16), f"tokens {tuple(meshed.shape)}")
+    if dp == 1:
+        check(agree == 1.0, "the dp=1 mesh generated other tokens")
+    del model, eng, meng
+    return dict(dp=dp, prefill_logit_rel_err=worst, tokens_equal=agree,
+                launches=launches, generate_ms=mesh_ms, plain_generate_ms=plain_ms)
+
+
+def mesh_only() -> None:
+    """Only the mesh checks, over every local card: phase 4's drain
+    (:func:`phase_mesh`) and the AR engine (:func:`mesh_engine`); one JSON
+    line.  Run on a machine with several cards for dp > 1."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import era_update as ku
+    from repro_torch.kernels import flash_attention as kf
+
+    t0 = time.perf_counter()
+    build.build_all([kf.SOURCE, kd.SOURCE])
+    log(f"built in {time.perf_counter() - t0:.1f}s; {torch.cuda.device_count()} cards")
+    dlm = build_dlm()
+    launches, drain = phase_mesh(ku, kf, kd, dlm)
+    del dlm
+    engine = mesh_engine(ku, kf, kd)
+    print(json.dumps({"mesh_only": dict(drain=drain, drain_launches=launches,
+                                        engine=engine)}), flush=True)
+
+
+def phase_request_flops(busy_ms: float) -> dict:
+    """The dry run's count of one qwen2-1.5b ERA request (8 x 256, nfe 10,
+    on a meta denoiser) over phase 4's replay busy time of the same
+    request: the achieved rate and its share of the bf16 peak."""
+    from repro_torch.launch.dryrun import run_solver_program
+
+    rec = run_solver_program("qwen2-1.5b", "1x1", out_dir=None, nfe=NFE,
+                             batch=8, seq=256)
+    rate = rec["flops"] / (busy_ms * 1e-3)
+    share = rate / PEAK_BF16_FLOPS
+    log(f"ERA request 8x256 nfe={NFE}: {rec['flops']:.4e} FLOPs counted on "
+        f"meta ({rec['nfe_flops']:.4e} a NFE, counted in {rec['count_s']:.1f}s) "
+        f"over {busy_ms:.1f} ms of replay busy time: {rate / 1e12:.1f} TFLOP/s, "
+        f"{share:.3f} of the {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 peak")
+    check(0 < share <= 1, f"achieved share of peak {share} outside (0, 1]")
+    return dict(flops=rec["flops"], kept_flops=rec["kept_flops"],
+                nfe_flops=rec["nfe_flops"], bytes=rec["bytes"], busy_ms=busy_ms,
+                tflops_per_s=rate / 1e12, share_of_bf16_peak=share)
+
+
+# the int8 phase: new tokens, the layer whose int8 K the planted fault zeroes
+INT8_GEN = 32
+INT8_FAULT_LAYER = 14
+# the reference's own bound on int8 against full-cache decode logits
+# (tests/test_attention.py), max |diff| / max |logit| over the steps.  It
+# is loose: on an H100 80GB HBM3 int8 lands at 0.022-0.026 of the logits'
+# scale and one layer's K zeroed (of 28) at 0.036, so the planted fault is
+# seen by the cache check below, not by this bound.
+INT8_RTOL = 0.2
+# the int8 cache against the bf16 cache it quantizes, element by element,
+# where both caches were written from the same K/V (every layer's prompt
+# slots; layer 0's decode slots under teacher forcing):
+# |q * scale - k| <= scale / 2 (round to nearest), with room for float32
+# rounding
+INT8_CACHE_SLACK = 1.001
+# the second planted fault: layer 0's K scale of this decode step written
+# to the next step's slot as well (a scale written to the wrong slot)
+INT8_FAULT_STEP = 3
+
+
+def cache_bytes(cache: dict, layers: int, batch: int, slots: int) -> float:
+    """Bytes of K/V (and their scales) a slot, layer and batch row."""
+    ring = cache["0_dense"]
+    return sum(t.numel() * t.element_size() for name, t in ring.items()
+               if name != "pos") / (layers * batch * slots)
+
+
+def int8_cache_error(cf: dict, cq: dict, slots: slice,
+                     layers: slice = slice(None)) -> float:
+    """The largest |dequantized int8 - bf16| over half a quantization step,
+    of K and V over ``layers`` and ``slots``: at most 1 when the int8 cache
+    holds the bf16 cache's entries rounded to nearest."""
+    ring, qring = cf["0_dense"], cq["0_dense"]
+    worst = torch.zeros((), device="cuda")
+    for name in ("k", "v"):
+        q = qring[name][layers, :, slots]
+        scale = qring[f"{name}_scale"][layers, :, slots]
+        diff = (q.float() * scale - ring[name][layers, :, slots].float()).abs()
+        worst = torch.maximum(worst, (diff / (0.5 * scale)).max())
+    return float(worst)
+
+
+def phase_int8(ku, kf, kd) -> tuple[dict, dict]:
+    """Full-width qwen2-1.5b with ``kv_quant="int8"`` through
+    ``Engine.generate`` (batch 8, prompt 512, 32 new tokens, 1024 slots),
+    against the same weights with the bf16 cache: the prefill's int8
+    entries (every layer) and the teacher-forced decode's (layer 0, whose
+    K/V the two engines compute from the same token) the bf16 cache's
+    rounded to nearest, teacher-forced decode logits within INT8_RTOL of
+    the bf16 cache's, two planted faults that the cache check must see
+    (one layer's int8 K zeroed after the prefill, whose logits are
+    reported; a decode step's K scale copied into the next step's slot),
+    the cache's bytes, decode ms a step beside bf16's, 28 decode launches a
+    step.  Then ``Engine(mesh=make_sampler_mesh())`` must generate the
+    tokens of the engine without a mesh, bitwise."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_sampler_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_config("qwen2-1.5b")
+    model, _ = token_model(cfg)
+    qmodel = build_model(cfg.with_(kv_quant="int8"), seed=0)
+    qmodel.load_state_dict(model.state_dict())
+    serve = ServeConfig(max_len=AR_MAX_LEN)
+    eng, qeng = Engine(model, serve), Engine(qmodel, serve)
+    rng = np.random.default_rng(23)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (AR_BATCH, AR_PROMPT)).astype(np.int32)).cuda()
+
+    reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+    toks = qeng.generate(prompts, INT8_GEN)
+    torch.cuda.synchronize()
+    launches = read_counts(ku, kf, kd)
+    check(tuple(toks.shape) == (AR_BATCH, INT8_GEN), f"tokens {tuple(toks.shape)}")
+    want = {"era_update": 0, "flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * (INT8_GEN - 1)}
+    check(launches == want, f"int8 generate launches {launches} != {want}")
+
+    prompt_slots = slice(0, AR_PROMPT)
+    decode_slots = slice(AR_PROMPT, AR_PROMPT + INT8_GEN - 1)
+
+    def teacher_forced(plant: bool):
+        lf, cf = eng.prefill_step(prompts)
+        lq, cq = qeng.prefill_step(prompts)
+        same_prefill = bool(torch.equal(lf, lq))
+        if plant:
+            cq["0_dense"]["k"][INT8_FAULT_LAYER].zero_()
+        cache_err = int8_cache_error(cf, cq, prompt_slots)
+        tok = eng.sample_token(lf)
+        errs = []
+        for i in range(INT8_GEN - 1):
+            lf, _ = eng.decode_step(cf, tok[:, None], AR_PROMPT + i)
+            lq, _ = qeng.decode_step(cq, tok[:, None], AR_PROMPT + i)
+            errs.append((lf - lq).abs().max().float() / lf.abs().max().float())
+            tok = eng.sample_token(lf)
+        return torch.stack(errs).cpu(), same_prefill, cache_err, cf, cq
+
+    errs, same_prefill, cache_err, cf, cq = teacher_forced(plant=False)
+    decode_err = int8_cache_error(cf, cq, decode_slots, slice(0, 1))
+    scale = cq["0_dense"]["k_scale"][0]
+    slot = AR_PROMPT + INT8_FAULT_STEP
+    scale[:, slot + 1] = scale[:, slot]
+    decode_fault_err = int8_cache_error(cf, cq, decode_slots, slice(0, 1))
+    del cf, cq, scale
+    fault, _, fault_cache_err, cf, cq = teacher_forced(plant=True)
+    del cf, cq
+    log(f"int8 cache: prefill entries within {cache_err:.4f} half-steps of the "
+        f"bf16 cache's, layer 0's decode entries within {decode_err:.4f} (bound "
+        f"{INT8_CACHE_SLACK}); decode logits against the bf16 cache's, max "
+        f"|diff| / max |logit| {float(errs.max()):.4f} (steps "
+        f"{[round(float(e), 4) for e in errs[:4]]} ...), bound {INT8_RTOL}; with "
+        f"layer {INT8_FAULT_LAYER}'s int8 K zeroed: cache {fault_cache_err:.1f} "
+        f"half-steps, logits {float(fault.max()):.4f}; with decode step "
+        f"{INT8_FAULT_STEP}'s K scale in the next slot too: {decode_fault_err:.1f} "
+        f"half-steps; prefill logits equal {same_prefill}")
+    check(same_prefill, "the int8 prefill's logits differ from bf16's (the "
+                        "prefill attends over its fresh K/V)")
+    check(cache_err <= INT8_CACHE_SLACK, f"int8 cache {cache_err} half-steps off")
+    check(decode_err <= INT8_CACHE_SLACK,
+          f"int8 decode writes {decode_err} half-steps off")
+    check(float(errs.max()) < INT8_RTOL, f"int8 logits {float(errs.max())} off")
+    check(fault_cache_err > INT8_CACHE_SLACK,
+          f"the cache check missed the planted fault ({fault_cache_err})")
+    check(decode_fault_err > INT8_CACHE_SLACK,
+          f"the decode cache check missed the misplaced scale ({decode_fault_err})")
+
+    # bytes a slot, layer and row; decode ms a step (bf16, int8, int8, bf16)
+    _, cf = eng.prefill_step(prompts)
+    _, cq = qeng.prefill_step(prompts)
+    args = (cfg.num_layers, AR_BATCH, AR_MAX_LEN)
+    bf16_b, int8_b = cache_bytes(cf, *args), cache_bytes(cq, *args)
+    del cf, cq
+    check((bf16_b, int8_b) == (1024, 528), f"cache bytes {bf16_b}, {int8_b}")
+    step_ms = {"bf16": [], "int8": []}
+    for label in ("bf16", "int8", "int8", "bf16"):
+        e = eng if label == "bf16" else qeng
+        logits, cache = e.prefill_step(prompts)
+        tok = e.sample_token(logits)
+        torch.cuda.synchronize()
+        reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention)
+        t0 = time.perf_counter()
+        for i in range(INT8_GEN - 1):
+            logits, _ = e.decode_step(cache, tok[:, None], AR_PROMPT + i)
+            tok = e.sample_token(logits)
+        torch.cuda.synchronize()
+        step_ms[label].append((time.perf_counter() - t0) * 1e3 / (INT8_GEN - 1))
+        check(kd.decode_attention.launches == cfg.num_layers * (INT8_GEN - 1),
+              f"{label}: {kd.decode_attention.launches} decode launches")
+        del cache
+    log(f"int8 cache: {int8_b:.0f} B a slot, layer and row against {bf16_b:.0f} "
+        f"({int8_b / bf16_b:.3f}x); decode {step_ms['int8']} ms a step against "
+        f"bf16's {step_ms['bf16']}; {cfg.num_layers} decode launches a step")
+
+    mesh = make_sampler_mesh()
+    plain = eng.generate(prompts, 16)
+    meshed = Engine(model, serve, mesh=mesh).generate(prompts, 16)
+    torch.cuda.synchronize()
+    check(torch.equal(plain, meshed),
+          "Engine(mesh=) generated other tokens than the engine without a mesh")
+    log(f"Engine(mesh={mesh.shape}).generate: 16 tokens bitwise those without a mesh")
+    del model, qmodel, eng, qeng
+    return launches, dict(
+        max_rel_err=float(errs.max()), fault_rel_err=float(fault.max()),
+        bound=INT8_RTOL, cache_half_steps=cache_err,
+        decode_cache_half_steps=decode_err,
+        fault_cache_half_steps=fault_cache_err,
+        decode_fault_cache_half_steps=decode_fault_err, bytes_per_slot_layer_row=int8_b,
+        bf16_bytes_per_slot_layer_row=bf16_b, decode_ms_per_step=step_ms["int8"],
+        bf16_decode_ms_per_step=step_ms["bf16"],
+        decode_launches_per_step=cfg.num_layers, mesh_tokens_bitwise=True)
+
+
+EXAMPLES = ("torch_quickstart", "torch_compare_solvers", "torch_serve_multi_arch")
+
+
+def phase_examples() -> dict:
+    """Each ``examples/torch_*.py`` at its tiny defaults on the card, in a
+    subprocess of its own; a failure fails the phase."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    walls = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py")],
+                              cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=300)
+        walls[name] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"example {name} failed:\n{proc.stdout[-3000:]}"
+                                    f"\n{proc.stderr[-3000:]}")
+        for line in proc.stdout.strip().splitlines()[-3:]:
+            log(f"  {name}: {line}")
+    log(f"examples: {', '.join(f'{k} {v:.1f}s' for k, v in walls.items())}; "
+        f"together {sum(walls.values()):.1f}s")
+    return walls
 
 
 # ---------------------------------------------------------------------------
@@ -3654,11 +4059,16 @@ def l2_flush():
 
 def device_events(fn):
     """Run ``fn`` under torch.profiler; return ((device ms, count, name)
-    rows sorted by time, device span ms, profiled wall ms)."""
+    rows sorted by time, device span ms (first device op to last),
+    profiled wall ms, device busy ms: the union of every device op's
+    interval in this trace, so never more than the span)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a moment for the tracer before the first launch: late in a long
+        # run a trace has come back without its first few dozen records
+        time.sleep(0.01)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3667,6 +4077,14 @@ def device_events(fn):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     check(bool(spans), "profiler traced no device op")
     span_ms = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3
+    busy_us, end = 0.0, None
+    for start, stop in sorted(spans):
+        if end is None or start >= end:
+            busy_us += stop - start
+            end = stop
+        elif stop > end:
+            busy_us += stop - end
+            end = stop
     rows = []
     for evt in prof.key_averages():
         # device-side events only (kernels, memcpy, memset); the CPU-side
@@ -3679,27 +4097,36 @@ def device_events(fn):
         if dev_us > 0:
             rows.append((dev_us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
-    return rows, span_ms, wall_ms
+    return rows, span_ms, wall_ms, busy_us / 1e3
 
 
 def profile_device(fn, what: str, plain_wall_ms: float, per: int,
                    unit: str) -> tuple[float, int, list, float]:
     """Run ``fn`` once under torch.profiler; print the device-time breakdown
-    by kernel and the device's idle share, 1 - busy / wall, and return that
-    share, the number of device ops, the profiler's (ms, count, name) rows
-    and the device busy ms.  The profiler adds host time of its own, so the wall is that of
-    the same work run unprofiled (``plain_wall_ms``); the share over the
-    trace's own device span (first device op to last) is printed beside
-    it."""
-    rows, span_ms, wall_ms = device_events(fn)
-    busy_ms = sum(r[0] for r in rows)
+    by kernel and the device's idle share, and return the idle share, the
+    number of device ops, the profiler's (ms, count, name) rows and the
+    device busy ms.  Busy is the union of the device ops' intervals in this
+    one trace (not the sum of per-name totals, which can count a stretch
+    twice).  The idle share returned is over the same trace's device span
+    (first device op to last), so busy and span come from one run and the
+    share lies in [0, 1].  The share over the wall of the same work run
+    unprofiled (``plain_wall_ms``) is printed beside it, labelled, and not
+    returned: the profiler stretches the traced run (its own host work
+    between launches), so that busy time and that wall come from two runs
+    and the share can read below 0."""
+    rows, span_ms, wall_ms, busy_ms = device_events(fn)
+    check(busy_ms <= span_ms + 1e-6,
+          f"{what}: busy {busy_ms} ms above the trace's span {span_ms} ms")
     launches = sum(r[1] for r in rows)
-    idle = 1 - busy_ms / plain_wall_ms
-    log(f"profile ({what}): device busy {busy_ms:.1f} ms, {launches} device "
-        f"ops ({launches / per:.0f} per {unit})")
-    log(f"  unprofiled wall {plain_wall_ms:.1f} ms: idle share {idle:.3f}; "
-        f"trace device span {span_ms:.1f} ms: idle share "
-        f"{1 - busy_ms / span_ms:.3f}; profiled wall {wall_ms:.1f} ms")
+    idle = 1 - busy_ms / span_ms
+    log(f"profile ({what}): device busy {busy_ms:.1f} ms (union of the "
+        f"trace's device intervals; per-kernel totals sum to "
+        f"{sum(r[0] for r in rows):.1f} ms), {launches} device ops "
+        f"({launches / per:.0f} per {unit})")
+    log(f"  idle share over the trace's device span {span_ms:.1f} ms: "
+        f"{idle:.3f}; side figure, busy over another (unprofiled) run's wall "
+        f"{plain_wall_ms:.1f} ms: {1 - busy_ms / plain_wall_ms:.3f}; profiled "
+        f"wall {wall_ms:.1f} ms")
     for ms, count, name in rows[:12]:
         log(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
     return idle, launches, rows, busy_ms
@@ -3740,7 +4167,7 @@ def era_host(src: str) -> None:
         torch.cuda.synchronize()
         issue.append((t1 - t0) * 1e3)
         wall.append((time.perf_counter() - t0) * 1e3)
-    rows, _, _ = device_events(lambda: dlm.eps(x, 0.5))
+    rows = device_events(lambda: dlm.eps(x, 0.5))[0]
     eng = BatchedSampler(dlm, linear_schedule())
     req = SampleRequest(batch=3, seq_len=256, nfe=NFE, solver="era", seed=12)
     drains = []
@@ -4016,6 +4443,9 @@ def main() -> None:
     ap.add_argument("--bwd-ab", metavar="PARENT_SRC",
                     help="only compare flash backward kernels: the one under "
                          "PARENT_SRC and this one")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only the mesh checks, data parallel over every "
+                         "local card")
     ap.add_argument("--era-host", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4034,6 +4464,8 @@ def main() -> None:
         return decode_ab(args.decode_ab)
     if args.bwd_ab:
         return bwd_ab(args.bwd_ab)
+    if args.mesh_only:
+        return mesh_only()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -4070,7 +4502,9 @@ def main() -> None:
     flash_mla_t = mla_flash_timings(kf)
     done(3)
     dlm = build_dlm()
-    era_launches, drain_s, per_nfe_ms = phase_slice(ku, kf, kd, dlm)
+    era_launches, drain_s, per_nfe_ms, era_busy_ms = phase_slice(ku, kf, kd, dlm)
+    mesh_launches, mesh = phase_mesh(ku, kf, kd, dlm)
+    request_flops = phase_request_flops(era_busy_ms)
     done(4)
     decode_err, decode_t = phase_decode(kd)
     done(5)
@@ -4095,9 +4529,14 @@ def main() -> None:
     bwd_errs, bwd_t = bwd_cases(kf), bwd_timings(kf)
     training_launches, training = phase_training(kf)
     done(13)
+    # after the profiled phases, so that they run as they always have
+    int8_launches, int8 = phase_int8(ku, kf, kd)
+    examples = phase_examples()
+    done(14)
 
     def counts(name):
-        by_path = {"era": era_launches[name], "ar": ar_launches[name],
+        by_path = {"era": era_launches[name], "mesh": mesh_launches[name],
+                   "ar": ar_launches[name], "ar_int8": int8_launches[name],
                    "bucketed": bucketed_launches[name],
                    "solvers": solver_launches[name],
                    "frontdoor": frontdoor_launches[name],
@@ -4195,6 +4634,8 @@ def main() -> None:
             f"{t['tokens_per_s']:.0f} tokens/s, peak {t['peak_mb']:.0f} MiB, "
             f"losses {[round(x, 5) for x in t['losses']]}")
     log(json.dumps({"training": training}))
+    log(json.dumps({"mesh": mesh, "request_flops": request_flops,
+                    "int8_cache": int8, "examples_s": examples}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

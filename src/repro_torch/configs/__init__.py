@@ -7,6 +7,8 @@ from repro_torch.configs.base import (
 )
 from repro_torch.configs.registry import (
     ALIASES,
+    INPUT_SHAPES,
+    InputShape,
     arch_names,
     get_config,
     long_context_policy,

@@ -1,5 +1,6 @@
-"""Architecture registry of the port: ``get_config(name, smoke=...)`` and
-``long_context_policy``.
+"""Architecture registry of the port: ``get_config(name, smoke=...)``,
+``long_context_policy`` and the reference's four input shapes
+(``INPUT_SHAPES``, which the dry run builds a program for).
 
 Every architecture of the reference's registry is ported: dense
 (llama3.2-1b, qwen2-1.5b, minitron-4b, deepseek-67b), MoE (mixtral-8x7b,
@@ -8,6 +9,7 @@ deepseek-v2-lite-16b), SSM (xlstm-350m), hybrid (hymba-1.5b), audio
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.configs.base import ModelConfig
@@ -24,6 +26,22 @@ ALIASES = {
     "hymba-1.5b": "hymba_1_5b",
     "whisper-base": "whisper_base",
     "paligemma-3b": "paligemma_3b",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
 }
 
 

@@ -194,6 +194,10 @@ class AdaptiveDPMProgram(SolverProgram):
     aux_seq_axes = {"trajectory": 2}
     aux_step_axes = {"trajectory": 0}
 
+    def per_sample_state(self, cfg) -> bool:
+        # the lambda position, step size and PID history are all (B,)
+        return True
+
     def supports_steps(self, cfg: AdaptiveDPMConfig) -> bool:
         return True
 

@@ -329,6 +329,9 @@ class ERAProgram(SolverProgram):
     def fusable(self, cfg: ERAConfig) -> bool:
         return cfg.per_sample
 
+    def per_sample_state(self, cfg: ERAConfig) -> bool:
+        return cfg.per_sample
+
     def supports_lengths(self, cfg: ERAConfig) -> bool:
         """The ERS norms are masked and accumulate positions in order, so a
         padded row selects the bases its unpadded run selects; only
@@ -360,6 +363,15 @@ class ERAProgram(SolverProgram):
             eps_fn, x_init, eps_buf, t_buf, schedule, cfg, lengths=lengths,
             steps=steps, ts=ts,
         )
+
+    def merge_aux(self, parts: list[dict]) -> dict:
+        """Row blocks joined; the batch-mean diagnostic taken again over
+        all rows, as one unsplit run computes it."""
+        merged = super().merge_aux(parts)
+        if len(parts) > 1 and "delta_eps_history_per_sample" in merged:
+            merged["delta_eps_history"] = torch.mean(
+                merged["delta_eps_history_per_sample"], dim=-1)
+        return merged
 
     def scope_aux(
         self, aux: dict, off: int, batch: int, seq_len: int | None = None,

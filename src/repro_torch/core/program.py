@@ -6,10 +6,12 @@ request policy (``fusable``, ``validate``), its history buffers
 (``alloc_buffers``), the sampling loop (``sample_scan``), the two mask
 channels of a fused batch (``supports_lengths`` for seq bucketing,
 ``supports_steps`` with :class:`StepMask` for NFE bucketing) and how a
-fused batch's diagnostics are scoped to each request (``scope_aux``).  The
-mesh placement and ahead-of-time compile hooks of the reference have no
-counterpart: the port runs on one card, and the executor captures each
-bucket's loop as a CUDA graph instead of compiling it.
+fused batch's diagnostics are scoped to each request (``scope_aux``).  On a
+mesh, ``per_sample_state`` / ``carry_pspecs`` give the reference's carry
+specs, and ``merge_aux`` joins the diagnostics of a batch that ran as row
+blocks on several devices.  The reference's ahead-of-time compile hooks
+have no counterpart: the executor captures each bucket's loop as a CUDA
+graph instead of compiling it.
 """
 
 from __future__ import annotations
@@ -84,6 +86,18 @@ class SolverProgram:
     def fusable(self, cfg: SolverConfig) -> bool:
         """Can strangers (and pad rows) share a fused batch under ``cfg``?"""
         return True
+
+    def per_sample_state(self, cfg: SolverConfig) -> bool:
+        """Does the loop carry per-sample ``(B,)`` solver state that goes
+        with its rows on a mesh (ERA's per-sample delta_eps)?"""
+        return False
+
+    def carry_pspecs(self, cfg: SolverConfig, mesh, *, batch=None, x_ndim=3):
+        """The reference's partition specs of this program's carry on
+        ``mesh`` (:func:`repro_torch.parallel.sharding.solver_carry_pspecs`)."""
+        from repro_torch.parallel.sharding import solver_carry_pspecs
+
+        return solver_carry_pspecs(mesh, self, cfg, batch=batch, x_ndim=x_ndim)
 
     def supports_lengths(self, cfg: SolverConfig) -> bool:
         """Can a right-padded batch with per-row ``lengths`` compute every
@@ -199,6 +213,22 @@ class SolverProgram:
         if pad_steps > 0:
             cut(self.aux_step_axes, 0, lambda n: n - pad_steps)
         return scoped if hit else aux
+
+
+    def merge_aux(self, parts: list[dict]) -> dict:
+        """The diagnostics of one batch that ran as contiguous row blocks
+        (a fusable batch split over a mesh), in row order: each
+        :attr:`aux_row_axes` entry joined on its row axis, on the first
+        block's device; every other entry is the first block's."""
+        if len(parts) == 1:
+            return parts[0]
+        dev = next((v.device for v in parts[0].values()
+                    if isinstance(v, Tensor)), None)
+        out = dict(parts[0])
+        for key, axis in self.aux_row_axes.items():
+            if parts[0].get(key) is not None:
+                out[key] = torch.cat([p[key].to(dev) for p in parts], dim=axis)
+        return out
 
 
 def trajectory_aux(

@@ -34,7 +34,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, on_meta
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
@@ -192,13 +192,17 @@ def decode_attention(
 ) -> Tensor:
     """GQA decode attention over the cache.  CPU tensors take
     :func:`decode_attention_plain`; CUDA tensors launch the kernel (bf16,
-    a head_dim of :data:`HEAD_DIMS`) or raise.  A host-int ``q_pos`` is
+    a head_dim of :data:`HEAD_DIMS`) or raise; ``meta`` tensors go to the
+    registered handler (:func:`on_meta`).  A host-int ``q_pos`` is
     written to the card first; a tensor is read there by the kernel."""
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, k, v, q_pos, kv_pos, window=window, protected=protected,
             causal=causal,
         )
+    if q.device.type == "meta":   # shapes only: the dry run's counter
+        return on_meta("decode_attention", q, k, v, kv_pos, window=window,
+                           protected=protected, causal=causal)
     if not isinstance(q_pos, Tensor):
         q_pos = torch.full((1,), int(q_pos), dtype=torch.int32, device=q.device)
     shape = q.shape

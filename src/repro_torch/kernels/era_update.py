@@ -35,7 +35,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, on_meta
 
 Tensor = torch.Tensor
 
@@ -185,7 +185,8 @@ def era_update(
     """Fused ERA step over R rows; see the module docstring.  ``cx`` and
     ``ce`` are per-row (R,) or one scalar for every row; ``active`` (R,)
     int32 freezes the rows whose flag is 0.  CPU tensors take
-    :func:`era_update_plain`; CUDA tensors launch the Triton kernel."""
+    :func:`era_update_plain`; CUDA tensors launch the Triton kernel;
+    ``meta`` tensors go to the registered handler (:func:`on_meta`)."""
     rows = x.shape[0]
     cx = torch.as_tensor(cx, dtype=torch.float32, device=x.device)
     ce = torch.as_tensor(ce, dtype=torch.float32, device=x.device)
@@ -195,6 +196,9 @@ def era_update(
         _check_shapes(x, eps_buf, tau, hist, lag_w, cx, ce, active)
         return era_update_plain(x, eps_buf, tau, hist, lag_w, am4, cx, ce,
                                 active)
+    if x.device.type == "meta":   # shapes only: the dry run's counter
+        _check_shapes(x, eps_buf, tau, hist, lag_w, cx, ce, active)
+        return on_meta("era_update", x, eps_buf, tau, lag_w, cx, ce, active)
     _check(x, eps_buf, tau, hist, lag_w, cx, ce, active)
     triton, kernel = _kernel()
     n = x.shape[1]

@@ -44,7 +44,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, on_meta
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
@@ -293,13 +293,17 @@ def flash_attention(
 ) -> Tensor:
     """GQA flash attention in the model layout; returns (B, Sq, H, hd_v).
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (bf16, a head-dim pair of :data:`HEAD_DIM_PAIRS`) or raise.
+    kernel (bf16, a head-dim pair of :data:`HEAD_DIM_PAIRS`) or raise;
+    ``meta`` tensors go to the registered handler (:func:`on_meta`).
     Under autograd a CUDA call is differentiable through the backward
     kernel (:class:`_FlashAttention`)."""
     opts = dict(kv_mask=kv_mask, window=window, causal=causal,
                 softcap=softcap, protected=protected)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, kv_pos, **opts)
+    if q.device.type == "meta":   # shapes only: the dry run's counter
+        return on_meta("flash_attention", q, k, v, q_pos, kv_pos, kv_mask=kv_mask,
+                              window=window, causal=causal, protected=protected)
     if kv_mask is not None and kv_mask.dtype != torch.int32:
         opts["kv_mask"] = kv_mask.to(torch.int32)
     if torch.is_grad_enabled() and (

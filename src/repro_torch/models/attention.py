@@ -31,8 +31,20 @@ donates its cache buffers to each jitted decode step; the port updates
 the cache tensors in place instead.  Cross-attention (whisper's
 decoder over the encoder's states) takes the same two kernels: ``flash``
 at train and prefill, the decode kernel's non-causal mode at decode.  The
-int8 cache and the banded windowed prefill (``_banded_sdpa``, a faster
-layout of the same windowed attention) wait for a later slice (ROADMAP).
+banded windowed prefill (``_banded_sdpa``, a faster layout of the same
+windowed attention) needs no port: the windowed flash kernel computes the
+same function.
+
+With ``kv_quant="int8"`` (:func:`init_cache` with ``quant=True``) the
+cache holds int8 ``k`` / ``v`` and float32 ``k_scale`` / ``v_scale`` (L,
+B, slots, KV, 1), symmetric per (token, head) as the reference's
+``_quantize``: every write quantizes (:func:`cache_write`), and decode
+dequantizes the layer's whole cache to the compute dtype before the decode
+kernel reads it (:func:`cache_kv`, the reference's ``cache_kv``).  The
+prefill attends over its fresh K/V, as the reference's does.  So an int8
+decode step moves more bytes than a bf16 one (it reads int8, then writes
+and reads the bf16 copy): the int8 cache saves memory, not time, until the
+decode kernel reads int8 itself (ROADMAP).
 """
 
 from __future__ import annotations
@@ -145,7 +157,10 @@ def _chunked_sdpa(
 
 
 def resolve_impl(impl: str, device: torch.device, sq: int, sk: int) -> str:
-    if device.type == "cuda":
+    """CUDA tensors take the kernels; so do ``meta`` tensors, whose kernel
+    wrappers charge the dry run's counter with the work of the program the
+    card runs."""
+    if device.type in ("cuda", "meta"):
         if impl not in ("auto", "flash"):
             raise ValueError(
                 f"attention impl {impl!r} is a plain version for CPU tensors; "
@@ -212,15 +227,43 @@ def sdpa(
 
 def init_cache(
     num_layers: int, batch: int, slots: int, kv_heads: int, head_dim: int,
-    dtype, device,
+    dtype, device, quant: bool = False,
 ) -> dict:
-    """An empty cache: zero K/V and every slot position -1."""
+    """An empty cache: zero K/V and every slot position -1.  ``quant``:
+    int8 K/V with float32 per-(token, head) scales (L, B, slots, KV, 1)."""
     shape = (num_layers, batch, slots, kv_heads, head_dim)
+    pos = torch.full((slots,), -1, dtype=torch.int32, device=device)
+    if quant:
+        scale = shape[:-1] + (1,)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(scale, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(scale, dtype=torch.float32, device=device),
+            "pos": pos,
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((slots,), -1, dtype=torch.int32, device=device),
+        "pos": pos,
     }
+
+
+def _quantize(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Symmetric int8 per (token, head), as the reference's ``_quantize``:
+    scale ``max|x| / 127`` over the head dim in float32, floored at 1e-8;
+    values ``clip(round(x / scale), -127, 127)`` (round half to even, as
+    ``jnp.round``).  x: (B, S, KV, hd) -> (int8 (B, S, KV, hd), float32
+    (B, S, KV, 1))."""
+    x32 = x.to(torch.float32)
+    scale = torch.amax(torch.abs(x32), dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant(q: Tensor, scale: Tensor, dtype) -> Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 def cache_slot(pos: int, slots: int, protected: int = 0) -> int:
@@ -256,14 +299,22 @@ def cache_fill(cache: dict, s: int) -> int:
 
 def cache_write(cache: dict, layer: int, k: Tensor, v: Tensor, slot: int) -> None:
     """Write ``k``/``v`` (B, n, KV, hd) of ``layer`` at slots
-    ``slot .. slot + n``, in place."""
+    ``slot .. slot + n``, in place (quantized first in an int8 cache)."""
     n = k.shape[1]
+    if cache["k"].dtype == torch.int8:
+        (k, ks), (v, vs) = _quantize(k), _quantize(v)
+        cache["k_scale"][layer, :, slot : slot + n] = ks
+        cache["v_scale"][layer, :, slot : slot + n] = vs
     cache["k"][layer, :, slot : slot + n] = k
     cache["v"][layer, :, slot : slot + n] = v
 
 
-def cache_kv(cache: dict, layer: int) -> tuple[Tensor, Tensor]:
-    """K/V of ``layer``, (B, slots, KV, hd) views of the cache."""
+def cache_kv(cache: dict, layer: int, dtype=torch.float32) -> tuple[Tensor, Tensor]:
+    """K/V of ``layer``, (B, slots, KV, hd): views of the cache, or, in an
+    int8 cache, the whole layer dequantized to ``dtype``."""
+    if cache["k"].dtype == torch.int8:
+        return (_dequant(cache["k"][layer], cache["k_scale"][layer], dtype),
+                _dequant(cache["v"][layer], cache["v_scale"][layer], dtype))
     return cache["k"][layer], cache["v"][layer]
 
 
@@ -360,7 +411,7 @@ class Attention(nn.Module):
         slots = cache["pos"].shape[0]
         check_decode(cfg.attention_impl, q.device, cfg.attn_logit_softcap)
         cache_write(cache, layer, k, v, cache_slot(pos, slots, protected))
-        k_all, v_all = cache_kv(cache, layer)
+        k_all, v_all = cache_kv(cache, layer, q.dtype)
         return decode_attention(
             q, k_all, v_all, positions, cache["pos"], window=window,
             protected=protected,

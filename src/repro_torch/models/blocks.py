@@ -313,8 +313,13 @@ class XDecBlock(nn.Module):
 
 
 def _attn_cache(cfg, count, batch, slots, device):
+    """A K/V ring, int8 under ``kv_quant="int8"`` as the reference's
+    ``_attn_cache`` (dense, moe, hymba's ring, xdec's self-attention; the
+    MLA latent ring and xdec's cross K/V ``xk`` / ``xv`` stay in the
+    compute dtype, as the reference keeps them)."""
     return A.init_cache(count, batch, slots, cfg.num_kv_heads,
-                        cfg.resolved_head_dim, cfg.dtype, device)
+                        cfg.resolved_head_dim, cfg.dtype, device,
+                        quant=cfg.kv_quant == "int8")
 
 
 BLOCKS = {

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import layers as L
 from repro_torch.models.model import Backbone
 
@@ -60,7 +60,7 @@ class DiffusionLM(nn.Module):
     ):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         d = cfg.d_model
         self.config = cfg
         self.causal = causal  # attention families denoise bidirectionally

@@ -156,12 +156,8 @@ class Model(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if cfg.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={cfg.kv_quant!r}: the int8 KV cache is not ported "
-                f"yet (ROADMAP, queue 'modules to port', item 'Autoregressive "
-                f"path: the rest')"
-            )
+        if cfg.kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant={cfg.kv_quant!r}: 'none' or 'int8'")
         dev = resolve_device(device)
         gen = seeded_generator(dev, seed)
         d = cfg.d_model

@@ -18,7 +18,10 @@
   config).
 
 The engine runs on its denoiser's device: the card unless the model was
-built with ``device="cpu"``.  The model owns its weights, so ``drain()``
+built with ``device="cpu"``.  With ``mesh=`` (a data-axis
+:class:`~repro_torch.launch.mesh.Mesh`) its batch buckets round up to
+multiples of dp and each fused batch runs as dp row blocks, one on each
+mesh device (:class:`~repro_torch.serving.executor.FusedExecutor`).  The model owns its weights, so ``drain()``
 and ``warmup()`` take no parameter tree.  The continuous-batching
 scheduler (:mod:`~repro_torch.serving.scheduler`) and the HTTP front door
 (:mod:`~repro_torch.serving.frontdoor`) run over the same executor.
@@ -69,12 +72,13 @@ class BatchedSampler:
         max_nfe: int | None = DEFAULT_MAX_NFE,
         max_seq_len: int | None = DEFAULT_MAX_SEQ_LEN,
         noise_fn: Callable[[SampleRequest], np.ndarray] | None = None,
+        mesh=None,
     ):
         self.executor = FusedExecutor(
             dlm, schedule, solver, solver_config, batch_buckets,
             seq_buckets=seq_buckets, nfe_buckets=nfe_buckets,
             metrics=metrics, max_batch=max_batch, max_nfe=max_nfe,
-            max_seq_len=max_seq_len, noise_fn=noise_fn,
+            max_seq_len=max_seq_len, noise_fn=noise_fn, mesh=mesh,
         )
         self._queue_lock = threading.Lock()
         self._pending: list[QueueItem] = []
@@ -88,6 +92,14 @@ class BatchedSampler:
     @property
     def schedule(self) -> NoiseSchedule:
         return self.executor.schedule
+
+    @property
+    def mesh(self):
+        return self.executor.mesh
+
+    @property
+    def dp(self) -> int:
+        return self.executor.dp
 
     @property
     def solver_name(self) -> str:

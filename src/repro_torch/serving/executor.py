@@ -65,7 +65,26 @@ request's exact ``(batch, seq_len, d_model)`` shape, so the batch it lands
 in never changes it.  ``noise_fn`` replaces that draw (the parity tests feed
 the reference's ``jax.random`` noise through it).  Graphs do not persist
 across processes, so the reference's persistent compile cache has no
-counterpart; mesh placement waits for a later slice.
+counterpart.
+
+**Mesh** (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh` with a
+``data`` axis over devices): the reference shards a fused batch's rows over
+the data axes and replicates the parameters.  Here batch buckets round up
+to multiples of dp (:func:`~repro_torch.parallel.sharding.round_to_dp`); a
+fused batch is split into dp contiguous row blocks, block i runs on
+``mesh.devices[i]`` against that device's copy of the weights
+(:class:`~repro_torch.parallel.sharding.ParamReplicator`), each with its own
+graph per (device, bucket), and the results are gathered in row order on
+the engine's device (``merge_aux`` joins the diagnostics).  A fusable
+program's rows do not read each other, so the split computes what the
+whole batch does.  Without a mesh, at dp = 1, and for a chunk that does not
+split (a non-fusable program's rows share state; a batch dp does not
+divide) the chunk is one block: the engine's denoiser on its own device,
+which must be the mesh's first, with no copy and no gather.  That is what
+the reference's replicated placement computes.  A mesh with a ``model``
+axis larger than 1 raises.  On the card, graphs of a split (dp > 1) are
+captured per device under ``torch.cuda.device`` (``chip_smoke.py
+--mesh-only`` on several cards holds such a drain to the unsplit one).
 """
 
 from __future__ import annotations
@@ -89,6 +108,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.era_update import era_update
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.diffusion import DiffusionLM
+from repro_torch.parallel.sharding import ParamReplicator, round_to_dp, serving_dp
 from repro_torch.serving import result_keys as K
 from repro_torch.serving.metrics import MetricsRegistry
 
@@ -182,6 +202,8 @@ class BucketGraph:
     x0: Tensor
     aux: dict[str, Tensor]
     launches: tuple[int, ...]
+    #: the denoiser (a mesh device's copy) the graph reads its weights from
+    dlm: Any = None
 
 
 def resolve_future(fut: Future, result=None, exception=None) -> None:
@@ -215,9 +237,13 @@ class FusedExecutor:
         max_nfe: int | None = DEFAULT_MAX_NFE,
         max_seq_len: int | None = DEFAULT_MAX_SEQ_LEN,
         noise_fn: Callable[[SampleRequest], np.ndarray] | None = None,
+        mesh=None,
     ):
         self.dlm = dlm
         self.device = dlm.device
+        self.mesh = mesh
+        self.dp = 1 if mesh is None else serving_dp(mesh, self.device)
+        self._replicate = None if mesh is None else ParamReplicator(mesh)
         self.schedule = schedule
         self.solver_name = solver
         self.max_batch = max_batch
@@ -231,7 +257,8 @@ class FusedExecutor:
             )
         }
         self.batch_buckets = (
-            tuple(sorted(set(batch_buckets))) if batch_buckets else None
+            tuple(sorted({round_to_dp(b, mesh) for b in batch_buckets}))
+            if batch_buckets else None
         )
         self.seq_buckets = tuple(sorted(seq_buckets)) if seq_buckets else None
         self.nfe_buckets = tuple(sorted(nfe_buckets)) if nfe_buckets else None
@@ -240,12 +267,12 @@ class FusedExecutor:
         self._nfe_masked: dict[str, bool] = {}
         # (solver, nfe) -> the exact step grid, on the host and the device
         self._row_times: dict[tuple[str, int], Tensor] = {}
-        self._grids: dict[tuple[str, int], Tensor] = {}
-        self._graphs: dict[BucketKey, BucketGraph] = {}
-        # one capture stream and one memory pool for every bucket graph:
-        # the allocator reuses a block only on the stream it came from
-        self._capture_stream: torch.cuda.Stream | None = None
-        self._graph_pool = None
+        self._grids: dict[tuple[str, int, str], Tensor] = {}
+        # bucket key -> graph; on a mesh (device index, block key) -> graph
+        self._graphs: dict[Any, BucketGraph] = {}
+        # one capture stream and one memory pool per device for every bucket
+        # graph: the allocator reuses a block only on the stream it came from
+        self._streams: dict[str, tuple[torch.cuda.Stream, Any]] = {}
         self._lock = threading.RLock()
         self._state_lock = threading.Lock()   # guards _warmup_state only
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -502,11 +529,12 @@ class FusedExecutor:
         return chunks
 
     def bucket_batch(self, n: int) -> int:
-        """Smallest batch bucket >= n (an oversize chunk runs exact-size)."""
+        """Smallest batch bucket >= n (an oversize chunk runs exact-size,
+        rounded up to a multiple of dp on a mesh)."""
         for b in self.batch_buckets or ():
             if n <= b:
                 return b
-        return n
+        return round_to_dp(n, self.mesh)
 
     # ---- fused execution -------------------------------------------------
     def noise(self, req: SampleRequest) -> Tensor:
@@ -555,14 +583,16 @@ class FusedExecutor:
             )
         return ts
 
-    def _grid(self, solver: str, nfe: int) -> Tensor:
-        """The same grid on the device, copied there once: the loop (and a
-        captured graph) reads it without a host-to-device copy."""
-        key = (solver, nfe)
+    def _grid(self, solver: str, nfe: int, device=None) -> Tensor:
+        """The same grid on the device (the engine's, or ``device``), copied
+        there once: the loop (and a captured graph) reads it without a
+        host-to-device copy."""
+        device = self.device if device is None else device
+        key = (solver, nfe, str(device))
         ts = self._grids.get(key)
         if ts is None:
             ts = self._grids[key] = self._step_times_host(solver, nfe).to(
-                self.device
+                device
             )
         return ts
 
@@ -627,15 +657,7 @@ class FusedExecutor:
             if stepped else None
         )
         key = (solver, cfg, padded, seq_len, masked, stepped)
-        graph = self._graph_for(key) if on_card else None
-
-        t0 = time.perf_counter()
-        if graph is not None:
-            x0, aux = self._replay(graph, x_init, lengths, steps)
-            torch.cuda.synchronize(self.device)
-        else:
-            out = self._run_program(key, x_init, lengths, steps)
-            x0, aux = out.x0, out.aux
+        t0, x0, aux = self._run_blocks(key, x_init, lengths, steps, on_card)
         wall = time.perf_counter() - t0
         if to_host:
             x0 = x0[:total].cpu()  # the requests' rows, not the pad rows
@@ -669,45 +691,115 @@ class FusedExecutor:
             )
             off += req.batch
 
+    # ---- row blocks -----------------------------------------------------
+    def _blocks(self, key: BucketKey) -> list[tuple[int | None, slice, BucketKey]]:
+        """(mesh device index, rows, block key) of each block a bucket runs
+        as: on a mesh, dp contiguous row blocks of a fusable batch that dp
+        divides; otherwise one block, index None, the whole batch on the
+        engine's device (the mesh's first)."""
+        solver, cfg, padded, seq, masked, stepped = key
+        if (self.dp == 1 or padded % self.dp
+                or not self.program_for(solver).fusable(cfg)):
+            return [(None, slice(0, padded), key)]
+        n = padded // self.dp
+        return [(i, slice(i * n, (i + 1) * n),
+                 (solver, cfg, n, seq, masked, stepped)) for i in range(self.dp)]
+
+    def _block_models(self, blocks) -> list[DiffusionLM]:
+        """The denoiser each block runs: the engine's own for one block,
+        each mesh device's copy of it for a split."""
+        if len(blocks) == 1:
+            return [self.dlm]
+        replicas = self._replicate(self.dlm)
+        return [replicas[i] for i, _, _ in blocks]
+
+    def _block_device(self, index: int | None) -> torch.device:
+        return self.device if index is None else self.mesh.devices[index]
+
+    def _run_blocks(self, key, x_init, lengths, steps, on_card):
+        """Run a chunk's blocks on their devices (graph replays on the
+        card: each device's replay is queued before any is waited for) and
+        gather the results in row order on the engine's device; one block
+        runs on the chunk's own tensors.  Returns (start time, x0, aux); the
+        start follows any capture."""
+        blocks = self._blocks(key)
+        models = self._block_models(blocks)
+        graphs = [self._graph_for(bkey, i, dlm) if on_card else None
+                  for (i, _, bkey), dlm in zip(blocks, models)]
+        t0 = time.perf_counter()
+        outs = []
+        for (i, rows, bkey), dlm, graph in zip(blocks, models, graphs):
+            xb, lb, sb = x_init, lengths, steps
+            if len(blocks) > 1:
+                dev = self._block_device(i)
+                xb = x_init[rows].to(dev)
+                lb = None if lengths is None else lengths[rows].to(dev)
+                sb = None if steps is None else StepMask(
+                    steps.active_steps[rows].to(dev), steps.ts[rows].to(dev))
+            if graph is not None:
+                outs.append(self._replay(graph, xb, lb, sb))
+            else:
+                out = self._run_program(bkey, xb, lb, sb, dlm)
+                outs.append((out.x0, out.aux))
+        if on_card:
+            for i, _, _ in blocks:
+                torch.cuda.synchronize(self._block_device(i))
+        if len(outs) == 1:
+            return (t0, *outs[0])
+        x0 = torch.cat([o[0].to(self.device) for o in outs])
+        aux = self.program_for(key[0]).merge_aux([
+            {k: v.to(self.device) if isinstance(v, Tensor) else v
+             for k, v in o[1].items()} for o in outs])
+        return t0, x0, aux
+
     def _run_program(
         self, key: BucketKey, x_init: Tensor, lengths: Tensor | None,
-        steps: StepMask | None,
+        steps: StepMask | None, dlm: DiffusionLM | None = None,
     ) -> SolverOutput:
         """One sampling run of a bucket's program, eagerly: fresh buffers,
-        then the loop on the bucket's grid (or the rows' own grids)."""
+        then the loop on the bucket's grid (or the rows' own grids), with
+        ``dlm`` (default: the engine's denoiser; or a mesh device's copy) on
+        ``x_init``'s device."""
         solver, cfg, _, _, _, stepped = key
         program = self.program_for(solver)
+        dlm = self.dlm if dlm is None else dlm
         return program.sample_scan(
-            self.dlm.eps_fn(lengths=lengths),
+            dlm.eps_fn(lengths=lengths),
             x_init,
             program.alloc_buffers(x_init, cfg),
             self.schedule,
             cfg,
             lengths=lengths,
             steps=steps,
-            ts=None if stepped else self._grid(solver, cfg.nfe),
+            ts=None if stepped else self._grid(solver, cfg.nfe, x_init.device),
         )
 
     # ---- bucket graphs ---------------------------------------------------
-    def _graph_for(self, key: BucketKey) -> BucketGraph:
-        """The bucket's captured graph, captured now if this is its first
-        chunk.  Callers hold the executor lock."""
-        graph = self._graphs.get(key)
-        if graph is None:
-            return self._capture(key)
+    def _graph_for(self, key: BucketKey, replica: int | None,
+                   dlm: DiffusionLM) -> BucketGraph:
+        """Block ``key``'s captured graph on the engine's device (``replica``
+        None) or on mesh device ``replica``, reading the weights of ``dlm``,
+        captured now if this is its first chunk or the device's copy of the
+        weights was rebuilt.  Callers hold the executor lock."""
+        graph = self._graphs.get(key if replica is None else (replica, key))
+        if graph is None or graph.dlm is not dlm:
+            return self._capture(key, replica, dlm)
         self._m_compile_hits.inc(solver=key[0])
         self._m_compile_programs.inc(solver=key[0], source="memory")
         self._compile_counts["memory"] += 1
         return graph
 
-    def _capture(self, key: BucketKey) -> BucketGraph:
+    def _capture(self, key: BucketKey, replica: int | None,
+                 dlm: DiffusionLM) -> BucketGraph:
         """Capture one whole sampling run of the bucket as a CUDA graph, on
         a side stream, after one eager run of the same program there.  The
         buffers are allocated inside the capture, so each replay starts
-        from fresh zeros.  Callers hold the executor lock."""
+        from fresh zeros.  The graph is block ``key``'s on the engine's
+        device (``replica`` None) or on mesh device ``replica``, with the
+        weights of ``dlm``.  Callers hold the executor lock."""
         solver, cfg, batch, seq, masked, stepped = key
         program = self.program_for(solver)
-        dev = self.device
+        dev = self._block_device(replica)
         t0 = time.perf_counter()
         # static inputs, outside the graph pool: each chunk copies into them
         x_init = torch.zeros(
@@ -720,7 +812,7 @@ class FusedExecutor:
         )
         steps = None
         if stepped:
-            grid = self._grid(solver, cfg.nfe)
+            grid = self._grid(solver, cfg.nfe, dev)
             steps = StepMask(
                 active_steps=torch.full(
                     (batch,), program.steps_for_nfe(cfg.nfe, cfg),
@@ -728,29 +820,31 @@ class FusedExecutor:
                 ),
                 ts=grid.expand(batch, -1).contiguous(),
             )
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(dev)
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        side = self._capture_stream
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._run_program(key, x_init, lengths, steps)
-        before = tuple(f.launches for f in COUNTED_KERNELS)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool, stream=side):
-            out = self._run_program(key, x_init, lengths, steps)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        with torch.cuda.device(dev):
+            if str(dev) not in self._streams:
+                self._streams[str(dev)] = (torch.cuda.Stream(dev),
+                                           torch.cuda.graph_pool_handle())
+            side, pool = self._streams[str(dev)]
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._run_program(key, x_init, lengths, steps, dlm)
+            before = tuple(f.launches for f in COUNTED_KERNELS)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                out = self._run_program(key, x_init, lengths, steps, dlm)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
         # the wrappers counted launches the capture only recorded: take
         # them back, and let every replay add them
         launches = []
         for f, b in zip(COUNTED_KERNELS, before):
             launches.append(f.launches - b)
             f.launches = b
-        entry = self._graphs[key] = BucketGraph(
+        entry = BucketGraph(
             graph=graph, x_init=x_init, lengths=lengths, steps=steps,
-            x0=out.x0, aux=out.aux, launches=tuple(launches),
+            x0=out.x0, aux=out.aux, launches=tuple(launches), dlm=dlm,
         )
+        self._graphs[key if replica is None else (replica, key)] = entry
         wall = time.perf_counter() - t0
         self._compile_counts["fresh"] += 1
         self._m_compile_misses.inc(solver=solver, source="fresh")
@@ -855,12 +949,16 @@ class FusedExecutor:
         try:
             for key in grid:
                 with self._lock:
-                    if key in self._graphs:
-                        counts["memory"] += 1
-                    elif on_card:
-                        self._capture(key)
-                        counts["fresh"] += 1
-                        self._m_warmup_programs.inc(solver=key[0])
+                    blocks = self._blocks(key)
+                    for (i, _, bkey), dlm in zip(blocks,
+                                                 self._block_models(blocks)):
+                        graph = self._graphs.get(bkey if i is None else (i, bkey))
+                        if graph is not None and graph.dlm is dlm:
+                            counts["memory"] += 1
+                        elif on_card:
+                            self._capture(bkey, i, dlm)
+                            counts["fresh"] += 1
+                            self._m_warmup_programs.inc(solver=key[0])
                 done += 1
                 with self._state_lock:
                     self._warmup_state["done"] = done
@@ -900,9 +998,10 @@ class FusedExecutor:
             return dict(self._warmup_state)
 
     # ---- introspection (tests / chip_smoke) ------------------------------
-    def compile_cache(self) -> dict[BucketKey, BucketGraph]:
+    def compile_cache(self) -> dict[Any, BucketGraph]:
         """Bucket key -> captured graph (each captured once, by warmup or
-        by its first chunk; empty on the CPU)."""
+        by its first chunk; empty on the CPU); on a mesh (device index,
+        block key) -> graph."""
         with self._lock:
             return dict(self._graphs)
 

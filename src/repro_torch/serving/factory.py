@@ -6,8 +6,7 @@ hashable value, and :func:`build_engine` turns it into the port's
 :class:`~repro_torch.serving.diffusion_sampler.BatchedSampler`, so the
 launcher and any caller serve the same engine: the same solver config and
 the same batch, seq and NFE ladders.  The reference's compile-cache fields
-have no counterpart (CUDA graphs do not persist across processes), nor its
-``mesh`` (the port runs on one card).
+have no counterpart (CUDA graphs do not persist across processes).
 """
 
 from __future__ import annotations
@@ -87,10 +86,13 @@ def build_engine(
     schedule: NoiseSchedule,
     cfg: EngineConfig | None = None,
     metrics: MetricsRegistry | None = None,
+    mesh=None,
 ) -> BatchedSampler:
-    """The engine every serve mode shares, on ``dlm``'s device.  Building
-    captures nothing: ``cfg.warmup`` is policy, and a caller warms with
-    ``engine.warmup(**warmup_kwargs(cfg))``."""
+    """The engine every serve mode shares, on ``dlm``'s device (its fused
+    batches split over ``mesh``'s data axis when one is given: a mesh is a
+    runtime resource, not engine shape, so it rides beside the config as in
+    the reference).  Building captures nothing: ``cfg.warmup`` is policy,
+    and a caller warms with ``engine.warmup(**warmup_kwargs(cfg))``."""
     cfg = cfg if cfg is not None else EngineConfig()
     if cfg.warmup not in WARMUP_MODES:
         raise ValueError(
@@ -109,6 +111,7 @@ def build_engine(
         max_batch=cfg.max_batch,
         max_nfe=cfg.max_nfe,
         max_seq_len=cfg.max_seq_len,
+        mesh=mesh,
     )
 
 

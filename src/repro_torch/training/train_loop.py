@@ -35,6 +35,7 @@ from repro_torch.interop import (
 )
 from repro_torch.models.diffusion import DiffusionLM
 from repro_torch.models.model import Model
+from repro_torch.parallel.ctx import constrain_batch
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import optimizer as opt
 
@@ -80,7 +81,9 @@ def make_lm_train_step(
             n = next(iter(batch.values())).shape[0] // microbatches
             loss, aux = 0.0, None
             for i in range(microbatches):
-                sl = {k: v[i * n : (i + 1) * n] for k, v in batch.items()}
+                # the reference's microbatch sharding hint (a no-op here)
+                sl = {k: constrain_batch(v[i * n : (i + 1) * n])
+                      for k, v in batch.items()}
                 l, a = model.loss(sl)
                 l.backward()
                 loss = loss + l.detach()

@@ -238,12 +238,6 @@ def test_cache_fill_and_insert_match_reference(case):
         same()
 
 
-def test_int8_cache_is_not_ported_yet():
-    cfg = get_config("llama3.2-1b", smoke=True).with_(kv_quant="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # serve config, sampling, launcher
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Walls around the port's package boundary and device rules.
 
-* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX
-  nor the reference package ``repro`` — checked both by importing every
+* The port (``src/repro_torch``), its examples (``examples/torch_*.py``)
+  and ``chip_smoke.py`` import neither JAX nor the reference package
+  ``repro`` — checked both by importing every
   module in a fresh interpreter and by scanning the source.
 * Nothing falls back silently: without a card, entry points that were not
   asked for the CPU raise (the bucket-graph path and ``warmup()`` too, and
@@ -41,7 +42,8 @@ from repro_torch.serving import (
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _forbidden(name: str) -> bool:
@@ -77,7 +79,9 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     assert "repro_torch.models.moe" in out["imported"]
     assert "repro_torch.models.mla" in out["imported"]
     for name in ("training.optimizer", "training.train_loop",
-                 "training.checkpoint", "data.synthetic", "launch.train"):
+                 "training.checkpoint", "data.synthetic", "launch.train",
+                 "launch.mesh", "launch.specs", "launch.op_count",
+                 "launch.dryrun", "parallel.sharding", "parallel.ctx"):
         assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["loaded"] if _forbidden(m)]
     assert not bad, bad
@@ -98,8 +102,8 @@ def test_source_imports_no_jax_or_reference(path):
 
 EXECUTOR = PKG / "serving" / "executor.py"
 #: the executor's methods a chunk or warmup() runs on the card
-GRAPH_PATH = ("run_chunk", "_run_chunk_locked", "_on_card", "_run_program",
-              "_graph_for", "_capture", "_replay", "warmup")
+GRAPH_PATH = ("run_chunk", "_run_chunk_locked", "_on_card", "_run_blocks",
+              "_run_program", "_graph_for", "_capture", "_replay", "warmup")
 
 
 @pytest.mark.parametrize(
@@ -112,6 +116,8 @@ GRAPH_PATH = ("run_chunk", "_run_chunk_locked", "_on_card", "_run_program",
            PKG / "models" / "ssm.py", PKG / "launch" / "train.py"]
         # checkpoint.py's one try/finally only removes a temporary file
         + [PKG / "training" / "optimizer.py", PKG / "training" / "train_loop.py"]
+        + [PKG / "parallel" / "sharding.py", PKG / "parallel" / "ctx.py",
+           PKG / "launch" / "op_count.py", PKG / "launch" / "specs.py"]
         + sorted((PKG / "data").glob("*.py")))]
     + [pytest.param(EXECUTOR, m, id=f"{EXECUTOR.relative_to(ROOT)}::{m}")
        for m in GRAPH_PATH],
