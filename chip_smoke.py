@@ -183,11 +183,16 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    per-row lengths, its causal 8x512, hymba-1.5b's hd 64 at G = 5 with
    window 1024 and 128 protected keys (S = 1280), a ragged S, a fully
    masked row (zero grads), queries offset from keys and softcap at hd 32,
-   two runs bitwise equal; a call at (192, 128) or (256, 256) must raise;
-   its registers and spills (none at any instance); its device time,
-   and each launch's, L2-warm and L2-cold beside its bound (the five
-   products the gradient needs, or its bytes) and one autograd backward
-   of SDPA, at qwen2's 8x256 and causal 8x512 and hymba's 2x1280.  Then
+   and at deepseek-v2-lite's MLA (192, 128) (causal 8x256, H = KV = 16,
+   row lengths 200 x3 / 256 x5) and paligemma's (256, 256) (8x256, H 8
+   over KV 1, row lengths 200 x4 / 256 x4), each also at a ragged S = 200
+   with a fully masked row; two runs bitwise equal; a call at (96, 96), a
+   pair with no instance, must raise before any launch; its registers and
+   spills (none at any instance, nor at any of the forward's training
+   instances); its device time, and each launch's, L2-warm and L2-cold
+   beside its bound (the five products the gradient needs, or its bytes)
+   and one autograd backward of SDPA, at qwen2's 8x256 and causal 8x512,
+   hymba's 2x1280, MLA's causal 8x256 and paligemma's 8x256.  Then
    full-width qwen2-1.5b (float32 parameters, bf16 compute) trains through
    ``launch/train.py``'s ``setup``: 10 steps of the diffusion objective,
    then 5 of the LM objective, batch 8 x 256, each step with exactly 28
@@ -195,9 +200,18 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    loss equal to the same loss under ``no_grad`` on the same draws, every
    attention weight with a non-zero gradient, steps/s, tokens/s, peak
    memory, one profiled step (GEMM, flash forward / backward shares) and
-   AdamW's update timed alone; and a checkpoint round trip at qwen2's widths cut to 2 layers (a full
-   archive is 21 GB), restored into a fresh denoiser whose ``eps`` is
-   bitwise the trained one's;
+   AdamW's update timed alone; a checkpoint round trip at qwen2's widths
+   cut to 2 layers (a full archive is 21 GB), restored into a fresh
+   denoiser whose ``eps`` is bitwise the trained one's; then every other
+   registry arch but the three largest, one model at a time at full
+   width: llama3.2-1b, paligemma-3b, deepseek-v2-lite-16b cut to its
+   first 7 of 27 layers (MoE routing unpinned, its aux losses in the
+   loss), whisper-base (the token model's encoder over 8 x 1,500 stub
+   frames and cross-attention), hymba-1.5b (window 1024 and 128 protected
+   meta keys; batch 4) and xlstm-350m, each 3 diffusion and 2 LM steps
+   with the same checks, flash launches a step read from the config (16,
+   18, 7, whisper 6 / 18, 32, 0) and the scans' weights (Mamba, mLSTM,
+   sLSTM) among those that must get a gradient;
 14. the int8 KV cache (after the profiled phases): phase 6's model with
    ``kv_quant="int8"`` through ``Engine.generate`` (batch 8, prompt 512,
    32 new tokens, 1024 slots; 28 flash and 28 x 31 decode launches), the
@@ -235,8 +249,13 @@ full cache, in turns.
 ``python3 chip_smoke.py --bwd-ab PARENT/src`` compares flash backward
 kernels in one process: the one under ``PARENT/src`` (through its own
 wrapper) and this checkout's, each checked in every phase-13 case, then
-timed at qwen2's 8x256 and causal 8x512 and hymba's 2x1280 in the order
-parent, this, this, parent.
+timed at qwen2's 8x256 and causal 8x512, hymba's 2x1280 and MLA's and
+paligemma's 8x256 in the order parent, this, this, parent (a kernel with
+no instance at a case's head-dim pair skips it, and says so).
+``python3 chip_smoke.py --train-fit`` runs only the memory trials behind
+phase 13's cuts: two LM steps of deepseek-v2-lite-16b at 7 and 8 layers
+and of hymba-1.5b at batch 4 and 8, each with its peak memory or its
+out-of-memory error.
 ``python3 chip_smoke.py --mesh-only`` runs only the mesh checks, data
 parallel over every local card: phase 4's drain (three drains with and
 without the mesh, x0 within ``MESH_X0_ATOL`` of the unsplit drain's) and
@@ -934,7 +953,7 @@ def ptxas_report(started, kf) -> dict:
     """Each flash instance's registers, spills, shared memory and resident
     blocks an SM, from ptxas and the CUDA occupancy API, keyed "hd x hd_v";
     fails on a spill at (128, 128) (spills at MLA's (192, 128) are
-    reported)."""
+    reported) and at any training instance."""
     import ctypes
 
     out, proc = started
@@ -966,14 +985,15 @@ def ptxas_report(started, kf) -> dict:
           "flash_attention (128, 128) spills registers")
     # the training instances, which also write the log-sum-exp
     out["lse"] = parse_ptxas(text, lse=True)
-    for d, r in sorted(out["lse"].items()):
-        log(f"flash_attention training instance ({d}, {d}): {r['registers']} "
+    check(sorted(out["lse"]) == [d for d, _ in kf.HEAD_DIM_PAIRS],
+          f"training instances of flash: {sorted(out['lse'])}")
+    for d, dv in kf.HEAD_DIM_PAIRS:
+        r = out["lse"][d]
+        log(f"flash_attention training instance ({d}, {dv}): {r['registers']} "
             f"registers, spill stores {r['spill_stores']} B, loads "
             f"{r['spill_loads']} B")
-    check(sorted(out["lse"]) == [32, 64, 128],
-          f"training instances of flash: {sorted(out['lse'])}")
-    check(out["lse"][128]["spill_stores"] == 0 and out["lse"][128]["spill_loads"] == 0,
-          "flash_attention's (128, 128) training instance spills registers")
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"flash_attention's ({d}, {dv}) training instance spills registers")
     return out
 
 
@@ -3101,6 +3121,26 @@ LOG2E = 1.4426950408889634
 # training: batch x sequence of both objectives, and the steps of each
 TRAIN_BATCH, TRAIN_SEQ = 8, 256
 TRAIN_STEPS = {"diffusion": 10, "lm": 5}
+# the other registry archs trained after qwen2-1.5b, one on the card at a time,
+# at full width: arch -> (layers kept or None for all, batch).
+# deepseek-v2-lite-16b's 27 layers take ~250 GB of training state (float32
+# weights, gradients and AdamW's two moments: 16 bytes a parameter, ~585 M
+# parameters a layer), so it keeps the first DS_TRAIN_LAYERS, the most that
+# fit: on an H100 80GB (79.2 GiB) its LM step peaked at 71,689 MiB with 7
+# layers, and an 8th adds ~9 GB.  hymba-1.5b trains at batch HY_TRAIN_BATCH:
+# with its 128 meta tokens its LM step at batch 8 ran out of the card's
+# memory (at batch 4 it peaked at 59,971 MiB).  minitron-4b, mixtral-8x7b and deepseek-67b are left out: their
+# attention is hd 128, which qwen2-1.5b trains, and their sizes would only
+# add chip time
+DS_TRAIN_LAYERS = 7
+HY_TRAIN_BATCH = 4
+TRAIN_FAMILIES = {"llama3.2-1b": (None, TRAIN_BATCH),
+                  "paligemma-3b": (None, TRAIN_BATCH),
+                  "deepseek-v2-lite-16b": (DS_TRAIN_LAYERS, TRAIN_BATCH),
+                  "whisper-base": (None, TRAIN_BATCH),
+                  "hymba-1.5b": (None, HY_TRAIN_BATCH),
+                  "xlstm-350m": (None, TRAIN_BATCH)}
+FAMILY_TRAIN_STEPS = {"diffusion": 3, "lm": 2}
 # the checkpoint round trip's model: qwen2-1.5b's widths, 2 of 28 layers
 CKPT_LAYERS = 2
 
@@ -3124,7 +3164,7 @@ def lse_plain(kf, q, k, q_pos, kv_pos, *, kv_mask, window, causal, softcap,
 
 def bwd_case(kf, name, b, sq, sk, h, kvh, hd, *, causal, window=0,
              protected=0, lengths=None, softcap=0.0, empty_row=False,
-             q_pos=None) -> float:
+             q_pos=None, hd_v=None) -> float:
     """The backward kernel through autograd of ``flash_attention``: its
     forward (the training instance) against ``flash_attention_plain`` at
     phase 3's tolerance and its lse against :func:`lse_plain`; its dq, dk,
@@ -3132,8 +3172,9 @@ def bwd_case(kf, name, b, sq, sk, h, kvh, hd, *, causal, window=0,
     backward runs bitwise equal; returns the largest gradient error over
     max|plain|."""
     gen = torch.Generator(device="cuda").manual_seed(b * 131 + sq)
-    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
-               .to(torch.bfloat16) for s, n in ((sq, h), (sk, kvh), (sk, kvh)))
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for s, n, d in ((sq, h, hd), (sk, kvh, hd), (sk, kvh, hd_v or hd)))
     q_pos = (torch.arange(sq, dtype=torch.int32, device="cuda")
              if q_pos is None else q_pos)
     kv_pos = torch.arange(sk, dtype=torch.int32, device="cuda")
@@ -3194,12 +3235,23 @@ def bwd_case(kf, name, b, sq, sk, h, kvh, hd, *, causal, window=0,
     return worst
 
 
+def bwd_instances(kf) -> tuple:
+    """The head-dim pairs ``kf``'s backward has an instance of (a parent
+    checkout of ``--bwd-ab`` may name fewer than its forward's)."""
+    return getattr(kf, "BWD_HEAD_DIM_PAIRS", kf.HEAD_DIM_PAIRS)
+
+
 def bwd_cases(kf) -> dict:
     """The backward kernel's cases: qwen2-1.5b's 8x256 diffusion batch with
     per-row lengths, its causal 8x512 (the AR prefill's shape), hymba-1.5b's
     hd 64 at G = 5 with window 1024 and 128 protected keys past the window,
     a ragged S, a fully masked row, queries offset from keys, softcap at hd
-    32; then a CUDA call at (192, 128) and (256, 256) must raise."""
+    32; deepseek-v2-lite's MLA (192, 128) at phase 10's causal 8x256 batch
+    with row lengths 200 x3, 256 x5, paligemma's (256, 256) at phase 12's
+    8x256 batch (H 8 over KV 1) with row lengths 200 x4, 256 x4, and each
+    at a ragged S with a fully masked row (a ``kf`` whose backward lacks
+    those pairs skips them and says so); then a CUDA call at (96, 96), a
+    pair with no forward instance, must raise before any launch."""
     errs = {
         "qwen2 8x256 lengths": bwd_case(
             kf, "qwen2 8x256 lengths", 8, 256, 256, 12, 2, 128, causal=False,
@@ -3220,22 +3272,41 @@ def bwd_cases(kf) -> dict:
         "softcap hd32": bwd_case(kf, "softcap hd32", 2, 100, 130, 6, 1, 32,
                                  causal=False, softcap=5.0),
     }
-    for hd, hd_v in ((192, 128), (256, 256)):
-        q = torch.zeros(1, 8, 2, hd, device="cuda", dtype=torch.bfloat16,
-                        requires_grad=True)
-        v = torch.zeros(1, 8, 2, hd_v, device="cuda", dtype=torch.bfloat16,
-                        requires_grad=True)
-        pos = torch.arange(8, dtype=torch.int32, device="cuda")
-        before = kf.flash_attention.launches
-        try:
-            kf.flash_attention(q, q, v, pos, pos)
-        except ValueError as e:
-            check("Flash backward at head dims 192 and 256" in str(e),
-                  f"the ({hd}, {hd_v}) refusal names no ROADMAP item: {e}")
-        else:
-            check(False, f"flash_attention under grad at ({hd}, {hd_v}) did not raise")
-        check(kf.flash_attention.launches == before,
-              f"the refused ({hd}, {hd_v}) call launched")
+    wide = {
+        "MLA 8x256 causal lengths": dict(
+            args=(8, 256, 256, MLA_H, MLA_H, MLA_HD), hd_v=MLA_HD_V,
+            causal=True, lengths=[200] * 3 + [256] * 5),
+        "MLA ragged S 200, fully masked row": dict(
+            args=(2, 200, 200, MLA_H, MLA_H, MLA_HD), hd_v=MLA_HD_V,
+            causal=True, empty_row=True),
+        "paligemma 8x256 lengths": dict(
+            args=(8, 256, 256, PG_H, PG_KV, PG_HD), causal=False,
+            lengths=[200] * 4 + [256] * 4),
+        "paligemma ragged S 200, fully masked row": dict(
+            args=(2, 200, 200, PG_H, PG_KV, PG_HD), causal=False,
+            empty_row=True),
+    }
+    for name, case in wide.items():
+        case = dict(case)
+        args = case.pop("args")
+        pair = (args[-1], case.get("hd_v", args[-1]))
+        if pair not in bwd_instances(kf):
+            log(f"flash backward {name}: skipped, this backward has no {pair} "
+                "instance")
+            continue
+        errs[name] = bwd_case(kf, name, *args, **case)
+    q = torch.zeros(1, 8, 2, 96, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    pos = torch.arange(8, dtype=torch.int32, device="cuda")
+    before = (kf.flash_attention.launches, kf.flash_attention_bwd.launches)
+    try:
+        kf.flash_attention(q, q, q, pos, pos)
+    except ValueError as e:
+        log(f"flash backward: (96, 96) refused: {e}")
+    else:
+        check(False, "flash_attention under grad at (96, 96) did not raise")
+    check((kf.flash_attention.launches, kf.flash_attention_bwd.launches) == before,
+          "the refused (96, 96) call launched")
     return errs
 
 
@@ -3278,16 +3349,20 @@ def bwd_timings(kf) -> dict:
     one autograd backward of SDPA on the same tensors, at qwen2-1.5b's
     diffusion shape (B=8, S=256, H=12, KV=2, hd=128, non-causal), its causal
     8x512 and hymba-1.5b's (B=2, S=1280, H=25, KV=5, hd 64, causal, window
-    1024, 128 protected; SDPA given the mask as a boolean (S, S) tensor);
-    and the host time of one wrapper call (its enqueue: the tensor maps
-    are encoded in each call)."""
+    1024, 128 protected; SDPA given the mask as a boolean (S, S) tensor),
+    and, where ``kf``'s backward has the pairs, deepseek-v2-lite's MLA
+    (192, 128) at phase 10's 8x256 causal batch (H = KV = 16) and
+    paligemma's (256, 256) at phase 12's 8x256 (H 8, KV 1, non-causal; every
+    row whole); and the host time of one wrapper call (its enqueue: the
+    tensor maps are encoded in each call)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(13)
 
-    def timed(bb, ss, h, kvh, hd, causal, window=0, protected=0):
-        q, k, v = (torch.randn(bb, ss, n, hd, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for n in (h, kvh, kvh))
+    def timed(bb, ss, h, kvh, hd, causal, window=0, protected=0, hd_v=None):
+        hd_v = hd_v or hd
+        q, k, v = (torch.randn(bb, ss, n, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n, d in ((h, hd), (kvh, hd), (kvh, hd_v)))
         pos = torch.arange(ss, dtype=torch.int32, device="cuda")
         opts = dict(kv_mask=None, window=window, causal=causal, softcap=0.0,
                     protected=protected)
@@ -3323,12 +3398,13 @@ def bwd_timings(kf) -> dict:
         library_cold = device_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), cold=True)
         # the five products the gradient needs over the pairs the masks
-        # keep (Q K^T, dO V^T, P^T dO, dS^T Q, dS K; a design's recompute of
-        # P is its own cost, not the bound's); bytes: q, o, dO read and dq
-        # written at H heads, k, v read and dk, dv written at KV heads, lse
-        # read
-        flops = 2.5 * 4.0 * bb * h * hd * bwd_pairs(ss, causal, window, protected)
-        nbytes = 2.0 * 4 * bb * ss * (h + kvh) * hd + 4.0 * bb * h * ss
+        # keep (Q K^T, dS^T Q, dS K over hd; dO V^T, P^T dO over hd_v; a
+        # design's recompute of P is its own cost, not the bound's); bytes:
+        # q, dq (hd) and o, dO (hd_v) at H heads, k, dk (hd) and v, dv (hd_v)
+        # at KV heads, lse read
+        flops = (2.0 * bb * h * (3 * hd + 2 * hd_v)
+                 * bwd_pairs(ss, causal, window, protected))
+        nbytes = 4.0 * bb * ss * (h + kvh) * (hd + hd_v) + 4.0 * bb * h * ss
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
         t = dict(
             ms=ms, ms_l2_cold=ms_cold, launch_ms=split,
@@ -3339,7 +3415,8 @@ def bwd_timings(kf) -> dict:
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             flops=flops, bytes=nbytes,
-            shape=f"B={bb} S={ss} H={h} KV={kvh} hd={hd} bf16"
+            shape=f"B={bb} S={ss} H={h} KV={kvh} hd={hd}"
+                  + (f" hd_v={hd_v}" if hd_v != hd else "") + " bf16"
                   + (" causal" if causal else "")
                   + (f" window={window} protected={protected}" if window else ""),
         )
@@ -3357,6 +3434,11 @@ def bwd_timings(kf) -> dict:
     timing["lm_causal_512"] = timed(8, 512, 12, 2, 128, causal=True)
     timing["hymba"] = timed(2, 1280, HY_H, HY_KV, HY_HD, causal=True,
                             window=HY_WINDOW, protected=HY_META)
+    if (MLA_HD, MLA_HD_V) in bwd_instances(kf):
+        timing["mla"] = timed(8, 256, MLA_H, MLA_H, MLA_HD, causal=True,
+                              hd_v=MLA_HD_V)
+    if (PG_HD, PG_HD) in bwd_instances(kf):
+        timing["paligemma"] = timed(8, 256, PG_H, PG_KV, PG_HD, causal=False)
     return timing
 
 
@@ -3364,20 +3446,21 @@ def bwd_timings(kf) -> dict:
 BWD_KERNELS = tuple(names[0] for names in BWD_LAUNCHES.values())
 
 
-def bwd_ptxas_report(text: str, kernels=BWD_KERNELS) -> dict:
-    """Registers and spills of each backward kernel's instances (none may
-    spill, at any head dim)."""
+def bwd_ptxas_report(text: str, pairs, kernels=BWD_KERNELS) -> dict:
+    """Registers and spills of each backward kernel's instance at each
+    head-dim pair of ``pairs`` (keyed by the q/k head dim, the template's
+    first argument; none may spill)."""
     out = {}
     for kernel in kernels:
         report = parse_ptxas(text, kernel)
-        for d in (32, 64, 128):
+        for d, dv in pairs:
             check(d in report and "registers" in report[d],
-                  f"no ptxas report for {kernel} hd={d}:\n{text}")
+                  f"no ptxas report for {kernel} ({d}, {dv}):\n{text}")
             r = report[d]
-            log(f"{kernel} hd={d}: {r['registers']} registers, spill stores "
-                f"{r['spill_stores']} B, loads {r['spill_loads']} B")
+            log(f"{kernel} ({d}, {dv}): {r['registers']} registers, spill "
+                f"stores {r['spill_stores']} B, loads {r['spill_loads']} B")
             check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
-                  f"{kernel} ({d}, {d}) spills registers")
+                  f"{kernel} ({d}, {dv}) spills registers")
         out[kernel] = {str(k): v for k, v in sorted(report.items())}
     return out
 
@@ -3395,51 +3478,75 @@ def train_shares(rows, busy_ms: float) -> dict:
     return out
 
 
-def attn_grad_norms(params: dict, layers: int) -> dict:
-    """The gradient norm of every attention weight of every layer."""
-    return {f"{i}.{w}": float(params[f"backbone.layers.{i}.attn.{w}.w"].grad.norm())
-            for i in range(layers) for w in ("wq", "wk", "wv", "wo")}
+def train_flash_launches(cfg, diffusion: bool) -> int:
+    """Flash forward (and backward) launches of one train step of ``cfg``:
+    one a layer that attends; whisper's token model also runs its encoder's
+    layers and each decoder layer's cross-attention (its denoiser runs
+    neither)."""
+    n = attn_layers(cfg)
+    if cfg.family == "audio" and not diffusion:
+        n = 2 * n + cfg.num_encoder_layers
+    return n
 
 
-def train_objective(kf, cfg, objective: str) -> dict:
-    """``launch/train.py``'s setup on full-width ``cfg``, ``TRAIN_STEPS``
-    steps of batch 8 x 256: per step its loss (finite) and wall, exactly one
-    flash forward and one backward launch per layer; the first loss equal
-    to the same loss computed under ``no_grad`` on the same batch and
-    draws; after the last step, a non-zero gradient on every attention
-    weight (a flash call invisible to autograd leaves wq, wk, wv without
-    one; the denoiser's first step gives the backbone none at all, its
-    ``eps_head`` starting at zero as the reference's does).  Reports steps/s
-    and tokens/s (steps after the first) and peak memory."""
+def trained_weight_names(cfg, diffusion: bool, names) -> list:
+    """The weights a train step of ``cfg`` must give a gradient: every
+    attention projection (MLA's wq, wkv_a, wkv_b, wo among them; whisper's
+    denoiser has no cross-attention), and the scans' weights: hymba's Mamba
+    heads, every weight of xlstm's mLSTM and sLSTM blocks."""
+    import re
+
+    def keep(name):
+        if cfg.family == "audio" and diffusion and "cross_attn." in name:
+            return False
+        return bool(re.search(r"(attn|mla)\.\w+\.w$", name)) or ".mamba." in name or (
+            cfg.family == "ssm" and name.startswith("backbone.layers."))
+
+    return [n for n in names if keep(n)]
+
+
+def train_objective(kf, cfg, objective: str, steps: int | None = None,
+                    profile: bool = True, batch_size: int = TRAIN_BATCH) -> dict:
+    """``launch/train.py``'s setup on full-width ``cfg``, ``steps`` steps
+    (by default ``TRAIN_STEPS``) of ``batch_size`` x 256: per step its loss
+    (finite) and wall, exactly :func:`train_flash_launches` flash forward
+    and backward launches; the first loss equal to the same loss computed
+    under ``no_grad`` on the same batch and draws; after the last step, a
+    non-zero gradient on every weight of :func:`trained_weight_names` (a
+    flash call invisible to autograd leaves wq, wk, wv without one; the
+    denoiser's first step gives the backbone none at all, its ``eps_head``
+    starting at zero as the reference's does).  Reports steps/s and
+    tokens/s (steps after the first) and peak memory; with ``profile``,
+    one more step profiled and AdamW's update timed alone."""
     from repro_torch.core import linear_schedule
     from repro_torch.launch import train as lt
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import batch_to_device
 
     diffusion = objective == "diffusion"
-    steps = TRAIN_STEPS[objective]
-    torch.cuda.empty_cache()
+    steps = steps or TRAIN_STEPS[objective]
+    reserved_mb()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     step, batches = lt.setup(cfg, diffusion=diffusion, steps=steps,
-                             batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+                             batch=batch_size, seq=TRAIN_SEQ, seed=0)
     module, params = step.module, step.params
     n_params = sum(p.numel() for p in params.values())
     check(all(p.dtype == torch.float32 and p.requires_grad for p in params.values()),
           f"{objective}: parameters not float32 with gradients on")
     state = opt.init_state(params)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    layers = cfg.num_layers
-    losses, walls, norms = [], [], {}
+    per_step = train_flash_launches(cfg, diffusion)
+    losses, walls = [], []
     # the flash launches of every step, read from the counters after it
     launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
     def count_step(what):
-        check(kf.flash_attention.launches == layers
-              and kf.flash_attention_bwd.launches == layers,
-              f"{objective} {what}: {kf.flash_attention.launches} flash "
-              f"forward / {kf.flash_attention_bwd.launches} backward launches, "
-              f"not {layers} each")
+        check(kf.flash_attention.launches == per_step
+              and kf.flash_attention_bwd.launches == per_step,
+              f"{cfg.name} {objective} {what}: {kf.flash_attention.launches} "
+              f"flash forward / {kf.flash_attention_bwd.launches} backward "
+              f"launches, not {per_step} each")
         launches["flash_attention"] += kf.flash_attention.launches
         launches["flash_attention_bwd"] += kf.flash_attention_bwd.launches
 
@@ -3465,62 +3572,73 @@ def train_objective(kf, cfg, objective: str) -> dict:
         walls.append(time.perf_counter() - t0)
         count_step(f"step {i}")
         loss = float(metrics["loss"])
-        check(loss == loss and abs(loss) < 1e6, f"{objective} step {i}: loss {loss}")
+        check(loss == loss and abs(loss) < 1e6,
+              f"{cfg.name} {objective} step {i}: loss {loss}")
         losses.append(loss)
         if i == 0:
             check(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
-                  f"{objective}: first loss {loss} != no_grad loss {ref_loss}")
+                  f"{cfg.name} {objective}: first loss {loss} != no_grad loss "
+                  f"{ref_loss}")
             first_diff = abs(loss - ref_loss)
-        log(f"train {objective} step {i}: loss {loss:.6f}, grad norm "
+        log(f"train {cfg.name} {objective} step {i}: loss {loss:.6f}, grad norm "
             f"{float(metrics['grad_norm']):.4f}, lr {float(metrics['lr']):.3e}, "
             f"{walls[-1] * 1e3:.1f} ms")
-    norms = attn_grad_norms(params, layers)
+    names = trained_weight_names(cfg, diffusion, params)
+    norms = {n: float(params[n].grad.norm()) if params[n].grad is not None else 0.0
+             for n in names}
     zero = [k for k, v in norms.items() if not v > 0]
-    check(not zero, f"{objective}: attention weights with no gradient: {zero[:6]}")
+    check(names and not zero, f"{cfg.name} {objective}: of {len(names)} attention "
+          f"and scan weights, these have no gradient: {zero[:6]}")
     peak = torch.cuda.max_memory_allocated() - base
-    per_step = sum(walls[1:]) / (steps - 1)
-    # one more step under the profiler: where a step's device time goes
-    batch = batch_to_device(next(batches), "cuda")
-    reset_counts(kf.flash_attention, kf.flash_attention_bwd)
-    idle, ops, rows, busy = profile_device(
-        lambda: step(state, batch, gen), f"{objective} train step",
-        per_step * 1e3, 1, "step")
-    count_step("profiled step")
-    shares = train_shares(rows, busy)
-    # AdamW alone (one more update from the last step's gradients): its
-    # device time beside the step's busy time, its device ops and its wall
-    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-             for n, p in params.items()}
-    adam = lambda: opt.apply_updates(step.opt_cfg, params, grads,  # noqa: E731
-                                     state)
-    adam()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    adam()
-    torch.cuda.synchronize()
-    adam_wall = (time.perf_counter() - t0) * 1e3
-    adam_rows = device_events(adam)[0]
-    adamw = dict(busy_ms=sum(r[0] for r in adam_rows),
-                 device_ops=sum(r[1] for r in adam_rows), wall_ms=adam_wall)
-    adamw["share_of_step_busy"] = adamw["busy_ms"] / busy
-    log(f"  AdamW alone: device busy {adamw['busy_ms']:.2f} ms "
-        f"({adamw['share_of_step_busy']:.3f} of the step's), "
-        f"{adamw['device_ops']} device ops, wall {adam_wall:.1f} ms")
+    per_step_s = sum(walls[1:]) / (steps - 1)
     out = dict(
-        params=n_params, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        params=n_params, steps=steps, batch=batch_size, seq=TRAIN_SEQ,
         losses=losses, step_ms=[w * 1e3 for w in walls],
-        steps_per_s=1.0 / per_step,
-        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / per_step,
-        peak_mb=peak / 2**20, first_loss_vs_no_grad=first_diff,
-        busy_ms=busy, idle_share=idle, device_ops=ops, shares=shares,
-        adamw=adamw, attn_grad_norm_min=min(norms.values()),
-        flash_launches=launches,
+        steps_per_s=1.0 / per_step_s,
+        tokens_per_s=batch_size * TRAIN_SEQ / per_step_s,
+        peak_mb=peak / 2**20, base_mb=base / 2**20,
+        first_loss_vs_no_grad=first_diff,
+        flash_per_step=per_step, weights_checked=len(names),
+        attn_grad_norm_min=min(norms.values()),
     )
-    log(f"train {objective}: {n_params / 1e9:.3f} B params, {out['steps_per_s']:.3f} "
-        f"steps/s, {out['tokens_per_s']:.0f} tokens/s, peak "
-        f"{out['peak_mb']:.0f} MiB, first step {walls[0] * 1e3:.0f} ms, "
-        f"smallest attention grad norm {out['attn_grad_norm_min']:.3e}")
-    del step, module, params, state, batch, grads
+    if profile:
+        # one more step under the profiler: where a step's device time goes
+        batch = batch_to_device(next(batches), "cuda")
+        reset_counts(kf.flash_attention, kf.flash_attention_bwd)
+        idle, ops, rows, busy = profile_device(
+            lambda: step(state, batch, gen), f"{objective} train step",
+            per_step_s * 1e3, 1, "step")
+        count_step("profiled step")
+        shares = train_shares(rows, busy)
+        # AdamW alone (one more update from the last step's gradients): its
+        # device time beside the step's busy time, its device ops and its wall
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in params.items()}
+        adam = lambda: opt.apply_updates(step.opt_cfg, params, grads,  # noqa: E731
+                                         state)
+        adam()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adam()
+        torch.cuda.synchronize()
+        adam_wall = (time.perf_counter() - t0) * 1e3
+        adam_rows = device_events(adam)[0]
+        adamw = dict(busy_ms=sum(r[0] for r in adam_rows),
+                     device_ops=sum(r[1] for r in adam_rows), wall_ms=adam_wall)
+        adamw["share_of_step_busy"] = adamw["busy_ms"] / busy
+        log(f"  AdamW alone: device busy {adamw['busy_ms']:.2f} ms "
+            f"({adamw['share_of_step_busy']:.3f} of the step's), "
+            f"{adamw['device_ops']} device ops, wall {adam_wall:.1f} ms")
+        out.update(busy_ms=busy, idle_share=idle, device_ops=ops, shares=shares,
+                   adamw=adamw)
+        del grads
+    out["flash_launches"] = launches
+    log(f"train {cfg.name} {objective}: {n_params / 1e9:.3f} B params, "
+        f"{out['steps_per_s']:.3f} steps/s, {out['tokens_per_s']:.0f} tokens/s, "
+        f"peak {out['peak_mb']:.0f} MiB, first step {walls[0] * 1e3:.0f} ms, "
+        f"{per_step} flash launches a step each way, smallest of "
+        f"{len(names)} attention / scan grad norms {out['attn_grad_norm_min']:.3e}")
+    del step, module, params, state, batch
     torch.cuda.empty_cache()
     return out
 
@@ -3579,9 +3697,77 @@ def phase_training(kf) -> tuple[dict, dict]:
     cfg = get_config("qwen2-1.5b")
     figures = {obj: train_objective(kf, cfg, obj) for obj in TRAIN_STEPS}
     figures["checkpoint"] = checkpoint_round_trip(kf, cfg)
-    launches = {name: sum(f["flash_launches"][name] for f in figures.values())
+    runs = [figures[obj] for obj in TRAIN_STEPS] + [figures["checkpoint"]]
+    figures["families"] = train_families(kf)
+    runs += [f[obj] for f in figures["families"].values() if isinstance(f, dict)
+             for obj in FAMILY_TRAIN_STEPS]
+    launches = {name: sum(f["flash_launches"][name] for f in runs)
                 for name in ("flash_attention", "flash_attention_bwd")}
     return {**launches, "era_update": 0, "decode_attention": 0}, figures
+
+
+def family_train_config(arch: str, layers: int | None):
+    """Full-width ``arch``, cut to its first ``layers`` layers (None: all)
+    as ``launch/train.py --layers`` cuts it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_layers
+
+    cfg = get_config(arch)
+    return cfg if layers is None else cut_layers(cfg, layers)
+
+
+def train_families(kf) -> dict:
+    """Every arch of ``TRAIN_FAMILIES``, one model on the card at a time:
+    ``FAMILY_TRAIN_STEPS`` steps of the diffusion objective, then of the LM
+    objective (the vlm family with stub patches, the audio family with stub
+    frames), each through :func:`train_objective` without its profile."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, (layers, batch) in TRAIN_FAMILIES.items():
+        cfg = family_train_config(arch, layers)
+        out[arch] = {obj: train_objective(kf, cfg, obj, steps, profile=False,
+                                          batch_size=batch)
+                     for obj, steps in FAMILY_TRAIN_STEPS.items()}
+        out[arch]["flash_per_step"] = {
+            obj: train_flash_launches(cfg, obj == "diffusion")
+            for obj in FAMILY_TRAIN_STEPS}
+        reduced = [f"{layers} of {family_train_config(arch, None).num_layers} "
+                   "layers"] if layers is not None else []
+        reduced += [f"batch {batch}"] if batch != TRAIN_BATCH else []
+        if reduced:
+            out[arch]["reduced"] = ", ".join(reduced)
+        reserved_mb()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"families trained: {out['wall_s']:.1f}s")
+    return out
+
+
+def train_fit() -> None:
+    """Why phase 13 cuts what it cuts: two LM steps of deepseek-v2-lite-16b
+    at DS_TRAIN_LAYERS and one layer more, and of hymba-1.5b at batch
+    HY_TRAIN_BATCH and twice it, each on a freshly emptied card; prints
+    each one's peak memory, or that it ran out of the card's memory."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kf
+
+    build.build_all([kf.SOURCE, kf.BWD_SOURCE])
+    total = torch.cuda.get_device_properties(0).total_memory / 2**20
+    trials = [("deepseek-v2-lite-16b", n, TRAIN_BATCH)
+              for n in (DS_TRAIN_LAYERS, DS_TRAIN_LAYERS + 1)]
+    trials += [("hymba-1.5b", None, b) for b in (HY_TRAIN_BATCH, 2 * HY_TRAIN_BATCH)]
+    rows = []
+    for arch, layers, batch in trials:
+        cfg = family_train_config(arch, layers)
+        row = dict(arch=arch, layers=cfg.num_layers, batch=batch, card_mb=total)
+        try:
+            r = train_objective(kf, cfg, "lm", 2, profile=False, batch_size=batch)
+            row.update(peak_mb=r["peak_mb"], params=r["params"])
+        except torch.OutOfMemoryError as e:
+            row["out_of_memory"] = str(e).splitlines()[0]
+        reserved_mb()
+        log(json.dumps(row))
+        rows.append(row)
+    log(json.dumps({"train_fit": rows}))
 
 
 # ---------------------------------------------------------------------------
@@ -4308,8 +4494,9 @@ def bwd_ab(parent_src: str) -> None:
     for name, (so, proc) in procs.items():
         text, _ = proc.communicate()
         check(proc.returncode == 0, f"nvcc failed on the {name} backward:\n{text}")
-        names = [n[0 if name == "this" else 1] for n in BWD_LAUNCHES.values()]
-        regs[name] = {n: parse_ptxas(text, n) for n in names}
+        # whichever design's kernel names the source has
+        regs[name] = {n: r for names in BWD_LAUNCHES.values() for n in names
+                      if (r := parse_ptxas(text, n))}
         lib = mods[name].bind_bwd(ctypes.CDLL(str(so)))
         mods[name]._bwd_library = lambda lib=lib: lib
         mods[name]._library = kf._library
@@ -4321,7 +4508,11 @@ def bwd_ab(parent_src: str) -> None:
         t = bwd_timings(mods[name])
         row = dict(kernel=name, round=rnd)
         for key, shape in (("qwen2_8x256", t), ("causal_8x512", t["lm_causal_512"]),
-                           ("hymba_2x1280", t["hymba"])):
+                           ("hymba_2x1280", t["hymba"]), ("mla_8x256", t.get("mla")),
+                           ("paligemma_8x256", t.get("paligemma"))):
+            if shape is None:
+                log(f"flash backward {name}: no {key} timing, no instance")
+                continue
             row[key] = {k: shape[k] for k in (
                 "ms", "ms_l2_cold", "launch_ms", "launch_ms_l2_cold",
                 "wrapper_host_ms", "library_ms", "kernel_over_library",
@@ -4443,6 +4634,9 @@ def main() -> None:
     ap.add_argument("--bwd-ab", metavar="PARENT_SRC",
                     help="only compare flash backward kernels: the one under "
                          "PARENT_SRC and this one")
+    ap.add_argument("--train-fit", action="store_true",
+                    help="only the training memory trials behind phase 13's "
+                         "cuts (deepseek's depth, hymba's batch)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="only the mesh checks, data parallel over every "
                          "local card")
@@ -4466,6 +4660,8 @@ def main() -> None:
         return bwd_ab(args.bwd_ab)
     if args.mesh_only:
         return mesh_only()
+    if args.train_fit:
+        return train_fit()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -4489,7 +4685,7 @@ def main() -> None:
     text, _ = bptxas.communicate()
     bptxas_out.unlink(missing_ok=True)
     check(bptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
-    bwd_ptxas = bwd_ptxas_report(text)
+    bwd_ptxas = bwd_ptxas_report(text, kf.HEAD_DIM_PAIRS)
     bwd_ptxas["flash_fwd_kernel_lse"] = {
         str(k): v for k, v in sorted(flash_ptxas.pop("lse").items())}
 
@@ -4609,7 +4805,8 @@ def main() -> None:
              launch_ms_l2_cold=bwd_t["launch_ms_l2_cold"],
              wrapper_host_ms=bwd_t["wrapper_host_ms"],
              shape=bwd_t["shape"], lm_causal_512=bwd_t["lm_causal_512"],
-             hymba=bwd_t["hymba"], ptxas=bwd_ptxas),
+             hymba=bwd_t["hymba"], mla=bwd_t["mla"],
+             paligemma=bwd_t["paligemma"], ptxas=bwd_ptxas),
     ]
     log(f"ERA path: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
     log(f"bucketed ERA drain: {bucketed['drain_ms']:.1f} ms, device busy "
@@ -4628,9 +4825,11 @@ def main() -> None:
     log(json.dumps({"solvers": solvers}))
     log(json.dumps({"frontdoor": frontdoor}))
     log(json.dumps({"families": families}))
-    for obj in TRAIN_STEPS:
-        t = training[obj]
-        log(f"training {obj}: {t['steps_per_s']:.3f} steps/s, "
+    trained = [("qwen2-1.5b", obj, training[obj]) for obj in TRAIN_STEPS]
+    trained += [(arch, obj, f[obj]) for arch, f in training["families"].items()
+                if isinstance(f, dict) for obj in FAMILY_TRAIN_STEPS]
+    for arch, obj, t in trained:
+        log(f"training {arch} {obj}: {t['steps_per_s']:.3f} steps/s, "
             f"{t['tokens_per_s']:.0f} tokens/s, peak {t['peak_mb']:.0f} MiB, "
             f"losses {[round(x, 5) for x in t['losses']]}")
     log(json.dumps({"training": training}))

@@ -91,10 +91,9 @@
 //  8. For training, a non-null `lse` takes each row's m * mul + log2(l)
 //     (base 2, the units the kernel's exp2 works in), or +inf for a row
 //     with no valid key, written once after the loop; the backward
-//     recomputes P from it.  It is a separate instance (LSE true) of the
-//     pairs the backward has, (32,32), (64,64) and (128,128): serving calls
-//     pass null and launch the instances as they were, register for
-//     register.
+//     recomputes P from it.  It is a separate instance (LSE true) of every
+//     pair, all of which the backward has: serving calls pass null and
+//     launch the instances as they were, register for register.
 //
 // Numbers.  Scores are accumulated in f32; the softmax uses exp2f with the
 // scale folded in by log2(e) (CUDA's exp2f: at most 2 ulp, far inside the
@@ -527,10 +526,10 @@ int blocks_per_sm(int Sk) {
   return blocks;
 }
 
-// the head-dim pairs (q/k, v) with an instance; those with a backward
-// (flash_attention_bwd.cu) also have an LSE instance
+// the head-dim pairs (q/k, v) with an instance; each also has an LSE
+// instance, which the backward (flash_attention_bwd.cu) reads
 #define FLASH_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128) X(192, 128) X(256, 256)
-#define FLASH_LSE_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128)
+#define FLASH_LSE_INSTANCES(X) FLASH_INSTANCES(X)
 
 }  // namespace
 

@@ -31,7 +31,7 @@
 // 8x256): the price of no atomics, not part of the bound.
 //
 // Three launches, no atomics, so two runs are bitwise equal:
-//  1. bwd_prep_kernel: HD/8 lanes a query row (16-byte loads of O and dO):
+//  1. bwd_prep_kernel: HDV/8 lanes a query row (16-byte loads of O and dO):
 //     D, and each row's {lse, D} into a (B, H, Sq_pad) float2 array padded
 //     to whole 64-row tiles (pad rows {+inf, 0}: P = 0); q_pos padded the
 //     same way; and each batch row's key positions with kv_mask and Sk
@@ -84,9 +84,9 @@
 //     parameters.
 //  c. Warp-level products.  Every product is a warpgroup wgmma with f32
 //     accumulators.  dK/dV: S^T = K Q^T and dP^T = V dO^T with both
-//     operands in shared memory (64 keys x 64 queries; at hd 128 two steps
-//     of 32 queries, which keeps dK, dV, S^T and dP^T inside 255 registers
-//     a thread); P^T and dS^T are formed in the accumulator registers,
+//     operands in shared memory (64 keys x 64 queries; from hd 128 on two
+//     steps of 32 queries, which keeps dK, dV, S^T and dP^T inside 255
+//     registers a thread); P^T and dS^T are formed in the accumulator registers,
 //     whose layout is that of wgmma's register A operand, and dV += P^T dO,
 //     dK += dS^T Q take A from registers and B (dO or Q, rows = queries)
 //     transposed from the same swizzled tile (an MN-major descriptor).  dQ:
@@ -107,9 +107,16 @@
 // as the forward does.  Dead tiles are never loaded; masked pairs inside a
 // live tile are masked one by one, and a full tile skips the mask.
 //
-// Instances: head dims (32, 32), (64, 64) and (128, 128), all of this
-// design: 64-row tiles; 128-byte swizzle and 64-column TMA boxes at hd 64
-// and 128 (two boxes a tile at 128), 64-byte swizzle at hd 32.
+// Instances: the forward's head-dim pairs (q/k, v), (32, 32), (64, 64),
+// (128, 128), DeepSeek's MLA (192, 128) and paligemma's (256, 256), all of
+// this design: 64-row tiles; 128-byte swizzle and 64-column TMA boxes from
+// hd 64 on (two, three and four boxes a row at 128, 192 and 256), 64-byte
+// swizzle at hd 32.  Products that run over the query/key head dim (S^T =
+// K Q^T, dK += dS^T Q, S = Q K^T, dQ += dS K) take HD, those over the
+// value's (dP^T = V dO^T, dV += P^T dO, dP = dO V^T, D) take HDV.  Two
+// register plans change past hd 128 (KVSmem, QSmem): at (256, 256) the two
+// dK/dV warpgroups split dK's and dV's columns and both take every item,
+// and from hd 192 on a dQ block runs alone on its SM.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -125,18 +132,19 @@ constexpr int KV_WGS = 2;          // consumer warpgroups of a dK/dV block
 constexpr int NT_KV = KV_WGS * WG;
 constexpr int NT_Q = WG + 32;      // a dQ block: a consumer warpgroup, a producer warp
 constexpr int MAX_CLUSTER = 8;     // portable cluster size
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block can have (227 KB)
 
 struct Params {
-  CUtensorMap tq, tk, tv, tdo;  // (B, S, heads, hd) bf16, box (CB, 1, 64, 1)
-  const bf16* o;                // (B, Sq, H, hd), the forward's output
-  const bf16* dout;             // (B, Sq, H, hd)
+  CUtensorMap tq, tk, tv, tdo;  // (B, S, heads, hd or hd_v) bf16, box (CB, 1, 64, 1)
+  const bf16* o;                // (B, Sq, H, hd_v), the forward's output
+  const bf16* dout;             // (B, Sq, H, hd_v)
   const float* lse;             // (B, H, Sq), the forward's, base 2
   float2* rows;                 // (B, H, Sq_pad): {lse, D}
   int* qp;                      // (Sq_pad,): q_pos, Q_PAD_POS past Sq
   int* kp;                      // (B, Sk_pad): key position, -1 = no key
   bf16* dq;                     // (B, Sq, H, hd)
   bf16* dk;                     // (B, Sk, KV, hd)
-  bf16* dv;                     // (B, Sk, KV, hd)
+  bf16* dv;                     // (B, Sk, KV, hd_v)
   const int* q_pos;             // (Sq,)
   const int* kv_pos;            // (Sk,), < 0 = invalid slot
   const int* kv_mask;           // (B, Sk), 0 = masked key; may be null
@@ -314,10 +322,11 @@ __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&acc)[R], 
 // 1. D, the padded rows and the positions
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(128) bwd_prep_kernel(const __grid_constant__ Params p) {
-  // LPR lanes a row of O and dO, 16 bytes (8 values) each a load
-  constexpr int LPR = HD / 8;
+  // LPR lanes a row of O and dO (HDV wide), 16 bytes (8 values) each a load
+  constexpr int LPR = HDV / 8;
+  static_assert(LPR <= 32, "a row's lanes inside one warp");
   constexpr int RPW = 32 / LPR;  // rows a warp
   const int lane = threadIdx.x % 32;
   const long row = (long(blockIdx.x) * 4 + threadIdx.x / 32) * RPW + lane / LPR;  // (b, h, q)
@@ -327,7 +336,7 @@ __global__ void __launch_bounds__(128) bwd_prep_kernel(const __grid_constant__ P
   float acc = 0.f;
   if (qi < p.Sq) {
     const int h = int(bh % p.H), b = int(bh / p.H);
-    const long off = ((long(b) * p.Sq + qi) * p.H + h) * HD + (lane % LPR) * 8;
+    const long off = ((long(b) * p.Sq + qi) * p.H + h) * HDV + (lane % LPR) * 8;
     const uint4 x = *reinterpret_cast<const uint4*>(p.o + off);
     const uint4 y = *reinterpret_cast<const uint4*>(p.dout + off);
     const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
@@ -368,46 +377,96 @@ __global__ void __launch_bounds__(128) bwd_prep_kernel(const __grid_constant__ P
 // ring's Q and dO tiles, each stage's rows ({lse, D}) and q_pos, the
 // block's key positions, the barriers, then the live query tiles' count
 // and list and each query tile's q_pos range, sized at launch.  After the
-// loop the partial dK and dV (float32, rows of HD + 8) overlay K, V and the
-// ring.  Consumer warpgroup w takes the block's items w, w + KV_WGS, ...,
-// so it owns stages w, w + KV_WGS, ... of the ring.
-template <int HD>
+// loop the partial dK (float32, rows of HD + 8) and dV (rows of HDV + 8)
+// overlay K, V and the ring.
+//
+// Which warpgroup holds what.  A thread of a warpgroup holds its share of
+// 64 keys' dK and dV, HD / 2 + HDV / 2 floats, beside S^T and dP^T of a
+// sub-step of NQ queries (NQ / 2 each) and their bf16 A fragments.  Up to
+// (192, 128) (96 + 64 + 32 + 16 at NQ 32) that fits 255 registers, and
+// consumer warpgroup w takes the block's items w, w + KV_WGS, ..., so it
+// owns stages w, w + KV_WGS, ... of the ring.  At (256, 256) dK and dV
+// alone would take 256: there (SPLIT) each warpgroup owns half of dK's and
+// half of dV's columns (whole 64-column blocks of the swizzled tiles) and
+// both take every item, each computing the item's whole S^T and dP^T (the
+// price: those two products and the score math twice an item), so both
+// read every stage of a ring of two, refilled by the block's first thread
+// once both are done with it.
+template <int HD, int HDV>
 struct KVSmem {
-  using T = Tile<HD>;
-  static constexpr int STAGES = 2 * KV_WGS;
-  // queries of a sub-step of an item: at hd 128, 64 would put dK, dV, S^T
-  // and dP^T (192 registers a thread) with the rest past the 255 a thread
-  // has (ptxas spilled 12-16 bytes)
-  static constexpr int NQ = HD == 128 ? 32 : 64;
-  static constexpr int RED_LD = HD + 8;
+  using TQ = Tile<HD>;   // Q and K tiles
+  using TV = Tile<HDV>;  // dO and V tiles
+  static constexpr bool SPLIT = HD / 2 + HDV / 2 > 160;
+  static constexpr int DKC = SPLIT ? HD / 2 : HD;    // dK columns a warpgroup holds
+  static constexpr int DVC = SPLIT ? HDV / 2 : HDV;  // and dV columns
+  static constexpr int STAGES = SPLIT ? 2 : 2 * KV_WGS;
+  static constexpr int STEP = SPLIT ? 1 : KV_WGS;    // ring items from one of a warpgroup's to the next
+  // queries of a sub-step of an item: from hd 128 on, 64 would put dK, dV,
+  // S^T and dP^T with the rest past the 255 a thread has (at hd 128 ptxas
+  // spilled 12-16 bytes)
+  static constexpr int NQ = HD >= 128 ? 32 : 64;
+  static constexpr int LDK = HD + 8;
+  static constexpr int LDV = HDV + 8;
+  static constexpr size_t STAGE = size_t(TQ::BYTES) + TV::BYTES;
   static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = T::BYTES;
-  static constexpr size_t ring_off = 2 * size_t(T::BYTES);  // stage s: Q, then dO
-  static constexpr size_t rows_off = ring_off + size_t(STAGES) * 2 * T::BYTES;
+  static constexpr size_t v_off = TQ::BYTES;
+  static constexpr size_t ring_off = STAGE;  // stage s: Q, then dO
+  static constexpr size_t rows_off = ring_off + size_t(STAGES) * STAGE;
   static constexpr size_t qp_off = rows_off + size_t(STAGES) * TILE * 8;
   static constexpr size_t kp_off = qp_off + size_t(STAGES) * TILE * 4;
   static constexpr size_t bar_off = kp_off + TILE * 4;
   static constexpr size_t list_off = bar_off + (1 + 2 * STAGES) * 8;
-  static constexpr size_t red_bytes = 2 * size_t(TILE) * RED_LD * 4;
-  static_assert(STAGES % KV_WGS == 0, "each warpgroup keeps to its own stages");
+  static constexpr size_t red_bytes = size_t(TILE) * (LDK + LDV) * 4;
+  static_assert(SPLIT || STAGES % KV_WGS == 0, "each warpgroup keeps to its own stages");
+  static_assert(!SPLIT || (DKC % TQ::CB == 0 && DVC % TV::CB == 0),
+                "a warpgroup's columns are whole column blocks");
+  static_assert(TQ::BYTES % 1024 == 0 && TV::BYTES % 512 == 0, "tiles at swizzle-aligned offsets");
   static_assert(red_bytes <= rows_off, "the partials fit over K, V and the ring");
+  static_assert(1024 + list_off + 1024 <= SMEM_MAX, "a block's shared memory");
   static size_t bytes(int nq) { return 1024 + list_off + 4 + size_t(nq) * 12; }
 };
 
-template <int HD>
+// this thread's elements of a 64-row accumulator of N columns (element e of
+// n8 block j at [4j + e], row + 8 (e / 2), column 8j + 2 (t4) + e % 2) into a
+// float32 tile of pitch LD at `mine`, its element (0, 0): stored times
+// `mul`, or with ADD added to what is there first
+template <bool ADD, int N>
+__device__ __forceinline__ void acc_to_smem(float* mine, const float (&acc)[N / 2], int ld,
+                                            float mul) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2* d = reinterpret_cast<float2*>(mine + 8 * h * ld + 8 * j);
+      const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+      if constexpr (ADD) {
+        const float2 o = d[0];
+        d[0] = make_float2((x + o.x) * mul, (y + o.y) * mul);
+      } else {
+        d[0] = make_float2(x * mul, y * mul);
+      }
+    }
+}
+
+template <int HD, int HDV>
 __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
     const __grid_constant__ Params p) {
-  using T = Tile<HD>;
-  using L = KVSmem<HD>;
+  using TQ = Tile<HD>;
+  using TV = Tile<HDV>;
+  using L = KVSmem<HD, HDV>;
   constexpr int S = L::STAGES;
   constexpr int NQ = L::NQ;
-  constexpr int LD = L::RED_LD;
+  constexpr int LDK = L::LDK;
+  constexpr int LDV = L::LDV;
+  constexpr int DKC = L::DKC;
+  constexpr int DVC = L::DVC;
+  constexpr int STEP = L::STEP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* Kt = smem + L::k_off;
   unsigned char* Vt = smem + L::v_off;
-  auto q_tile = [&](int s) { return smem + L::ring_off + size_t(s) * 2 * T::BYTES; };
-  auto do_tile = [&](int s) { return q_tile(s) + T::BYTES; };
+  auto q_tile = [&](int s) { return smem + L::ring_off + size_t(s) * L::STAGE; };
+  auto do_tile = [&](int s) { return q_tile(s) + TQ::BYTES; };
   float2* rows = reinterpret_cast<float2*>(smem + L::rows_off);
   int* qps = reinterpret_cast<int*>(smem + L::qp_off);
   int* Kp = reinterpret_cast<int*>(smem + L::kp_off);
@@ -416,7 +475,6 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
   uint64_t* empty = full + S;
   int* nlive_s = reinterpret_cast<int*>(smem + L::list_off);
   int* tiles = nlive_s + 1;  // live query tiles, as 2 t + (every pair valid)
-  float* red = reinterpret_cast<float*>(smem);  // the partials, after a pass
 
   const int C = p.cluster;
   const int rank = cluster_rank();
@@ -427,7 +485,9 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int wg = warp / 4;
-  const bool leader = tid % WG == 0;  // issues its warpgroup's copies
+  // issues the copies: each warpgroup's first thread for its own stages,
+  // or (SPLIT) the block's first for every stage
+  const bool leader = L::SPLIT ? tid == 0 : tid % WG == 0;
   const int nq = p.Sq_pad / TILE;
   int* qlo = tiles + nq;
   int* qhi = qlo + nq;
@@ -442,7 +502,7 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
     mbar_init(kv_full, 1);
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], WG);
+      mbar_init(&empty[s], L::SPLIT ? NT_KV : WG);
     }
     fence_barrier_init();
   }
@@ -526,22 +586,23 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
       const int s = r % S;
       const int h = kvh * G + i / nlive;
       const int q0 = (tiles[i % nlive] >> 1) * TILE;
-      mbar_expect_tx(&full[s], 2 * T::BYTES + TILE * 12);
+      mbar_expect_tx(&full[s], L::STAGE + TILE * 12);
       load_tile<HD>(q_tile(s), &p.tq, &full[s], h, q0, b);
-      load_tile<HD>(do_tile(s), &p.tdo, &full[s], h, q0, b);
+      load_tile<HDV>(do_tile(s), &p.tdo, &full[s], h, q0, b);
       bulk_load(rows + s * TILE, p.rows + (long(b) * p.H + h) * p.Sq_pad + q0, TILE * 8,
                 &full[s]);
       bulk_load(qps + s * TILE, p.qp + q0, TILE * 4, &full[s]);
     };
     // this warpgroup's first ring item of the pass
-    const int r_first = r0 + ((wg - r0) % KV_WGS + KV_WGS) % KV_WGS;
+    const int r_first =
+        L::SPLIT ? r0 : r0 + ((wg - r0) % KV_WGS + KV_WGS) % KV_WGS;
     if (tid == 0) {
-      mbar_expect_tx(kv_full, 2 * T::BYTES);
+      mbar_expect_tx(kv_full, L::STAGE);
       load_tile<HD>(Kt, &p.tk, kv_full, kvh, k0, b);
-      load_tile<HD>(Vt, &p.tv, kv_full, kvh, k0, b);
+      load_tile<HDV>(Vt, &p.tv, kv_full, kvh, k0, b);
     }
     if (leader)
-      for (int r = r_first; r < r_end && r < r0 + S; r += KV_WGS) issue(r);
+      for (int r = r_first; r < r_end && r < r0 + S; r += STEP) issue(r);
 
     const int w = warp % 4;
     const int g8 = lane >> 2, t4 = lane & 3;
@@ -549,15 +610,20 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
     const Scores sc(p);
     const bool capped = p.softcap > 0.f;
     const uint32_t k_base = smem_addr(Kt), v_base = smem_addr(Vt);
+    // the first column block of this warpgroup's dK and dV columns (SPLIT)
+    const uint32_t k_cols = L::SPLIT ? wg * (DKC / TQ::CB) * TQ::BLOCK_BYTES : 0;
+    const uint32_t v_cols = L::SPLIT ? wg * (DVC / TV::CB) * TV::BLOCK_BYTES : 0;
 
-    // 64 keys x HD: element e of n8 block j at [4j + e], key row
-    // 16w + g8 + 8(e/2), column 8j + 2t4 + e%2
-    float dk[HD / 2], dv[HD / 2];
+    // 64 keys x DKC and x DVC: element e of n8 block j at [4j + e], key row
+    // 16w + g8 + 8(e/2), column 8j + 2t4 + e%2 of the warpgroup's columns
+    float dk[DKC / 2], dv[DVC / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DKC / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DVC / 2; ++i) dv[i] = 0.f;
 
     mbar_wait(kv_full, pass & 1);
-    for (int r = r_first; r < r_end; r += KV_WGS) {
+    for (int r = r_first; r < r_end; r += STEP) {
       const int s = r % S;
       mbar_wait(&full[s], (r / S) & 1);
       const uint32_t q_base = smem_addr(q_tile(s)), do_base = smem_addr(do_tile(s));
@@ -565,16 +631,18 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
 #pragma unroll
       for (int h = 0; h < TILE / NQ; ++h) {
         const uint32_t kb = opaque(k_base), vb = opaque(v_base);
-        // S^T = K Q^T and dP^T = V dO^T: 64 keys x NQ queries (rows h NQ..
-        // of the Q and dO tiles: a whole number of 8-row swizzle groups)
+        // S^T = K Q^T (over HD) and dP^T = V dO^T (over HDV): 64 keys x NQ
+        // queries (rows h NQ.. of the Q and dO tiles: a whole number of
+        // 8-row swizzle groups)
         float st[NQ / 2], dp[NQ / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss<NQ>(st, desc_k<HD>(kb, kk), desc_k<HD>(q_base + h * NQ * T::SW, kk), kk > 0);
+          wgmma_ss<NQ>(st, desc_k<HD>(kb, kk), desc_k<HD>(q_base + h * NQ * TQ::SW, kk), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss<NQ>(dp, desc_k<HD>(vb, kk), desc_k<HD>(do_base + h * NQ * T::SW, kk), kk > 0);
+        for (int kk = 0; kk < HDV / 16; ++kk)
+          wgmma_ss<NQ>(dp, desc_k<HDV>(vb, kk), desc_k<HDV>(do_base + h * NQ * TV::SW, kk),
+                       kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(st);
@@ -582,7 +650,8 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
         // P^T into st, dS^T (times dz/draw / scale) into dp
         BWD_SCORES(item_scores, capped, masked, st, dp, kp_lo, kp_hi, rows + s * TILE + h * NQ,
                    qps + s * TILE + h * NQ, t4, sc);
-        // dV += P^T dO, dK += dS^T Q: the reduction runs over the NQ queries
+        // dV += P^T dO, dK += dS^T Q over this warpgroup's columns: the
+        // reduction runs over the NQ queries
         uint32_t pa[NQ / 16][4], sa[NQ / 16][4];
 #pragma unroll
         for (int kk = 0; kk < NQ / 16; ++kk) {
@@ -592,10 +661,10 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < NQ / 16; ++kk)
-          wgmma_rs<HD>(dv, pa[kk], desc_mn<HD>(do_base, h * NQ / 16 + kk), 1);
+          wgmma_rs<DVC>(dv, pa[kk], desc_mn<HDV>(do_base + v_cols, h * NQ / 16 + kk), 1);
 #pragma unroll
         for (int kk = 0; kk < NQ / 16; ++kk)
-          wgmma_rs<HD>(dk, sa[kk], desc_mn<HD>(q_base, h * NQ / 16 + kk), 1);
+          wgmma_rs<DKC>(dk, sa[kk], desc_mn<HD>(q_base + k_cols, h * NQ / 16 + kk), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv);
@@ -607,7 +676,8 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
         }
       }
       mbar_arrive(&empty[s]);
-      // the stage's next item, once the warpgroup is done with this one
+      // the stage's next item, once its warpgroup (SPLIT: both) is done
+      // with this one
       if (leader && r + S < r_end) {
         mbar_wait(&empty[s], (r / S) & 1);
         issue(r + S);
@@ -615,50 +685,48 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
     }
 
     // the block's partial, over K, V and the ring once every product and
-    // load of the pass has completed: warpgroup 1's, then warpgroup 0 adds
-    // its own (a fixed order), dK times the scale
+    // load of the pass has completed, dK times the scale: each warpgroup
+    // its own columns (SPLIT), or warpgroup 1's, then warpgroup 0 adds its
+    // own (a fixed order)
     static_assert(KV_WGS == 2, "the block's partial adds two warpgroups");
     __syncthreads();
     // this thread's element (0, 0), from the thread id again: kept live
     // through the loop, the index would cost a register there
     const int t_e = int(opaque(uint32_t(tid)));
-    float* mine0 = red + (16 * ((t_e / 32) % 4) + (t_e % 32) / 4) * LD + 2 * (t_e % 4);
-    if (wg == 1) {
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float2* k2 = reinterpret_cast<float2*>(mine0 + 8 * h * LD + 8 * j);
-          k2[0] = make_float2(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
-          k2[TILE * LD / 2] = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
-        }
-    }
-    __syncthreads();
-    if (wg == 0) {
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float2* k2 = reinterpret_cast<float2*>(mine0 + 8 * h * LD + 8 * j);
-          const float2 ko = k2[0], vo = k2[TILE * LD / 2];
-          k2[0] = make_float2((dk[4 * j + 2 * h] + ko.x) * p.scale,
-                              (dk[4 * j + 2 * h + 1] + ko.y) * p.scale);
-          k2[TILE * LD / 2] = make_float2(dv[4 * j + 2 * h] + vo.x, dv[4 * j + 2 * h + 1] + vo.y);
-        }
+    const int e_row = 16 * ((t_e / 32) % 4) + (t_e % 32) / 4, e_col = 2 * (t_e % 4);
+    const int e_wg = L::SPLIT ? t_e / WG : 0;
+    float* red_k = reinterpret_cast<float*>(smem);  // the partials
+    float* red_v = red_k + TILE * LDK;
+    float* k_mine = red_k + e_row * LDK + e_col + e_wg * DKC;
+    float* v_mine = red_v + e_row * LDV + e_col + e_wg * DVC;
+    if constexpr (L::SPLIT) {
+      acc_to_smem<false, DKC>(k_mine, dk, LDK, p.scale);
+      acc_to_smem<false, DVC>(v_mine, dv, LDV, 1.f);
+    } else {
+      if (wg == 1) {
+        acc_to_smem<false, DKC>(k_mine, dk, LDK, 1.f);
+        acc_to_smem<false, DVC>(v_mine, dv, LDV, 1.f);
+      }
+      __syncthreads();
+      if (wg == 0) {
+        acc_to_smem<true, DKC>(k_mine, dk, LDK, p.scale);
+        acc_to_smem<true, DVC>(v_mine, dv, LDV, 1.f);
+      }
     }
     cluster_sync();
     // rows [rank * per, (rank + 1) * per) of dK and dV, the cluster's
     // partials summed in rank order
     const int per = TILE / C;
-    constexpr int V4 = HD / 4;
-    for (int idx = tid; idx < 2 * per * V4; idx += NT_KV) {
-      const int which = idx / (per * V4);
-      const int row = rank * per + (idx / V4) % per;
-      const int c4 = (idx % V4) * 4;
-      const float* src = red + (which * TILE + row) * LD + c4;
+    constexpr int K4 = HD / 4, V4 = HDV / 4;
+    for (int idx = tid; idx < per * (K4 + V4); idx += NT_KV) {
+      const int row = rank * per + idx / (K4 + V4);
+      const int c = idx % (K4 + V4);
+      const bool is_v = c >= K4;
+      const int c4 = (is_v ? c - K4 : c) * 4;
+      const float* src = is_v ? red_v + row * LDV + c4 : red_k + row * LDK + c4;
       float4 acc = ld_cluster_f4(cluster_map(src, 0));
-      for (int c = 1; c < C; ++c) {
-        const float4 x = ld_cluster_f4(cluster_map(src, c));
+      for (int cr = 1; cr < C; ++cr) {
+        const float4 x = ld_cluster_f4(cluster_map(src, cr));
         acc.x += x.x;
         acc.y += x.y;
         acc.z += x.z;
@@ -666,7 +734,8 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
       }
       const int key = k0 + row;
       if (key < p.Sk) {
-        bf16* dst = (which ? p.dv : p.dk) + ((long(b) * p.Sk + key) * p.KV + kvh) * HD + c4;
+        const long kr = (long(b) * p.Sk + key) * p.KV + kvh;
+        bf16* dst = is_v ? p.dv + kr * HDV + c4 : p.dk + kr * HD + c4;
         *reinterpret_cast<uint2*>(dst) =
             make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
       }
@@ -687,34 +756,42 @@ __global__ void __launch_bounds__(NT_KV, 1) bwd_dkdv_wgmma_kernel(
 
 // Shared memory of a dQ block (from a 1024-aligned base): Q and dO, the
 // ring's K and V tiles, each stage's key positions, the barriers, then the
-// live and full bitmasks over the kv tiles, sized at launch.
-template <int HD>
+// live and full bitmasks over the kv tiles, sized at launch.  Two blocks an
+// SM up to hd 128 (two stages at 128, three below).  Past it a thread's dQ
+// (HD / 2 floats) beside S and dP (32 each) needs more than the 168
+// registers two blocks leave, and two blocks' tiles more than the SM's
+// shared memory: one block an SM, with three stages at (192, 128) (40 KB
+// each) and two at (256, 256) (64 KB each).
+template <int HD, int HDV>
 struct QSmem {
-  using T = Tile<HD>;
-  static constexpr int STAGES = HD == 128 ? 2 : 3;
-  static constexpr int MIN_BLOCKS = 2;
+  using TQ = Tile<HD>;   // Q and K tiles
+  using TV = Tile<HDV>;  // dO and V tiles
+  static constexpr int STAGES = HD == 128 || HD == 256 ? 2 : 3;
+  static constexpr int MIN_BLOCKS = HD > 128 ? 1 : 2;
+  static constexpr size_t STAGE = size_t(TQ::BYTES) + TV::BYTES;
   static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = T::BYTES;
-  static constexpr size_t ring_off = 2 * size_t(T::BYTES);  // stage s: K, then V
-  static constexpr size_t kp_off = ring_off + size_t(STAGES) * 2 * T::BYTES;
+  static constexpr size_t do_off = TQ::BYTES;
+  static constexpr size_t ring_off = STAGE;  // stage s: K, then V
+  static constexpr size_t kp_off = ring_off + size_t(STAGES) * STAGE;
   static constexpr size_t bar_off = kp_off + size_t(STAGES) * TILE * 4;
   static constexpr size_t red_off = bar_off + (1 + 2 * STAGES) * 8;
   static constexpr size_t bits_off = red_off + 4 * 4;
+  static_assert(1024 + bits_off + 256 <= SMEM_MAX, "a block's shared memory");
   static size_t bytes(int nk) { return 1024 + bits_off + 2 * size_t((nk + 31) / 32) * 4; }
 };
 
-template <int HD>
-__global__ void __launch_bounds__(NT_Q, QSmem<HD>::MIN_BLOCKS) bwd_dq_wgmma_kernel(
+template <int HD, int HDV>
+__global__ void __launch_bounds__(NT_Q, QSmem<HD, HDV>::MIN_BLOCKS) bwd_dq_wgmma_kernel(
     const __grid_constant__ Params p) {
-  using T = Tile<HD>;
-  using L = QSmem<HD>;
+  using TQ = Tile<HD>;
+  using L = QSmem<HD, HDV>;
   constexpr int S = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* Qt = smem + L::q_off;
   unsigned char* dOt = smem + L::do_off;
-  auto k_tile = [&](int s) { return smem + L::ring_off + size_t(s) * 2 * T::BYTES; };
-  auto v_tile = [&](int s) { return k_tile(s) + T::BYTES; };
+  auto k_tile = [&](int s) { return smem + L::ring_off + size_t(s) * L::STAGE; };
+  auto v_tile = [&](int s) { return k_tile(s) + TQ::BYTES; };
   int* kps = reinterpret_cast<int*>(smem + L::kp_off);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
   uint64_t* full = q_full + 1;
@@ -792,16 +869,16 @@ __global__ void __launch_bounds__(NT_Q, QSmem<HD>::MIN_BLOCKS) bwd_dq_wgmma_kern
   if (tid >= WG) {
     // producer: Q and dO once, then the ring of live kv tiles
     if (tid == WG) {
-      mbar_expect_tx(q_full, 2 * T::BYTES);
+      mbar_expect_tx(q_full, L::STAGE);
       load_tile<HD>(Qt, &p.tq, q_full, h, q0, b);
-      load_tile<HD>(dOt, &p.tdo, q_full, h, q0, b);
+      load_tile<HDV>(dOt, &p.tdo, q_full, h, q0, b);
       int n = 0;
       for (int t = next_tile(live, 0, nk); t < nk; t = next_tile(live, t + 1, nk), ++n) {
         const int s = n % S;
         if (n >= S) mbar_wait(&empty[s], ((n / S) - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * T::BYTES + TILE * 4);
+        mbar_expect_tx(&full[s], L::STAGE + TILE * 4);
         load_tile<HD>(k_tile(s), &p.tk, &full[s], kvh, t * TILE, b);
-        load_tile<HD>(v_tile(s), &p.tv, &full[s], kvh, t * TILE, b);
+        load_tile<HDV>(v_tile(s), &p.tv, &full[s], kvh, t * TILE, b);
         bulk_load(kps + s * TILE, kp_b + t * TILE, TILE * 4, &full[s]);
       }
     }
@@ -831,15 +908,15 @@ __global__ void __launch_bounds__(NT_Q, QSmem<HD>::MIN_BLOCKS) bwd_dq_wgmma_kern
       mbar_wait(&full[s], (n / S) & 1);
       const uint32_t k_base = smem_addr(k_tile(s)), v_base = smem_addr(v_tile(s));
       const uint32_t qb = opaque(q_base), dob = opaque(do_base);
-      // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+      // S = Q K^T (over HD) and dP = dO V^T (over HDV): 64 queries x 64 keys
       float score[32], dp[32];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         wgmma_ss_n64(score, desc_k<HD>(qb, kk), desc_k<HD>(k_base, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss_n64(dp, desc_k<HD>(dob, kk), desc_k<HD>(v_base, kk), kk > 0);
+      for (int kk = 0; kk < HDV / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<HDV>(dob, kk), desc_k<HDV>(v_base, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(score);
@@ -905,7 +982,8 @@ EncodeTiled encode_tiled() {
 }
 
 // the 4-D map of a (B, S, heads, HD) bf16 tensor, box (CB, 1, 64, 1): rows
-// past S read as zeros inside their own batch row
+// past S read as zeros inside their own batch row (HD: hd for q and k, hd_v
+// for v and dout)
 template <int HD>
 bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
   using T = Tile<HD>;
@@ -925,7 +1003,7 @@ bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
 
 // Raise both main kernels' dynamic shared-memory cap to the card's opt-in
 // maximum, once per instance and card.
-template <int HD>
+template <int HD, int HDV>
 cudaError_t prepare() {
   static int done[MAX_DEVICES] = {0};
   int dev = 0;
@@ -936,36 +1014,38 @@ cudaError_t prepare() {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkdv_wgmma_kernel<HD>,
+  err = cudaFuncSetAttribute(bwd_dkdv_wgmma_kernel<HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq_wgmma_kernel<HD>,
+  err = cudaFuncSetAttribute(bwd_dq_wgmma_kernel<HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done[dev] = 1;
   return err;
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
-  cudaError_t err = prepare<HD>();
+  cudaError_t err = prepare<HD, HDV>();
   if (err != cudaSuccess) return err;
   const long rows = long(p.B) * p.H * p.Sq_pad;
-  const long per_block = 4 * (32 / (HD / 8));  // rows a block of the preparation
-  bwd_prep_kernel<HD><<<unsigned((rows + per_block - 1) / per_block), 128, 0, stream>>>(p);
+  const long per_block = 4 * (32 / (HDV / 8));  // rows a block of the preparation
+  bwd_prep_kernel<HD, HDV>
+      <<<unsigned((rows + per_block - 1) / per_block), 128, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // the maps after a runtime launch: the driver's encoder needs the
   // device's context current in this thread, which a thread that has made
   // no runtime call yet (autograd's backward thread) does not have
-  if (!encode_map<HD>(&p.tq, q, p.B, p.Sq, p.H) || !encode_map<HD>(&p.tdo, p.dout, p.B, p.Sq, p.H) ||
-      !encode_map<HD>(&p.tk, k, p.B, p.Sk, p.KV) || !encode_map<HD>(&p.tv, v, p.B, p.Sk, p.KV))
+  if (!encode_map<HD>(&p.tq, q, p.B, p.Sq, p.H) ||
+      !encode_map<HDV>(&p.tdo, p.dout, p.B, p.Sq, p.H) ||
+      !encode_map<HD>(&p.tk, k, p.B, p.Sk, p.KV) || !encode_map<HDV>(&p.tv, v, p.B, p.Sk, p.KV))
     return cudaErrorInvalidValue;
 
   cudaLaunchConfig_t cfg = {};
   const int nk = p.Sk_pad / TILE;
   cfg.gridDim = dim3((p.pair ? (nk + 1) / 2 : nk) * p.cluster, p.B * p.KV);
   cfg.blockDim = dim3(NT_KV);
-  cfg.dynamicSmemBytes = KVSmem<HD>::bytes(p.Sq_pad / TILE);
+  cfg.dynamicSmemBytes = KVSmem<HD, HDV>::bytes(p.Sq_pad / TILE);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -974,16 +1054,19 @@ cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bwd_dkdv_wgmma_kernel<HD>, p);
+  err = cudaLaunchKernelEx(&cfg, bwd_dkdv_wgmma_kernel<HD, HDV>, p);
   if (err != cudaSuccess) return err;
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const dim3 grid_q(p.Sq_pad / TILE, p.B * p.H);
-  bwd_dq_wgmma_kernel<HD><<<grid_q, NT_Q, QSmem<HD>::bytes(p.Sk_pad / TILE), stream>>>(p);
+  bwd_dq_wgmma_kernel<HD, HDV>
+      <<<grid_q, NT_Q, QSmem<HD, HDV>::bytes(p.Sk_pad / TILE), stream>>>(p);
   return cudaGetLastError();
 }
 
-#define FLASH_BWD_INSTANCES(X) X(32) X(64) X(128)
+// the head-dim pairs (q/k, v): flash_attention.cu's, each with a forward
+// instance that writes the log-sum-exp
+#define FLASH_BWD_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128) X(192, 128) X(256, 256)
 
 }  // namespace
 
@@ -991,14 +1074,15 @@ cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
 // asynchronous.  Returns a cudaError_t: 0 when every launch was accepted.
 // Scratch, written whole by the first launch: `rows` (B, H, Sq_pad) float2,
 // `qp` (Sq_pad,) int32, `kp` (B, Sk_pad) int32, with Sq_pad and Sk_pad Sq
-// and Sk rounded up to 64.  `cluster` (1, 2, 4 or 8) blocks of the dK/dV
+// and Sk rounded up to 64.  q and k have head dim `hd`, v, out, dout and dv
+// `hd_v`.  `cluster` (1, 2, 4 or 8) blocks of the dK/dV
 // launch share a key tile; with `pair` a block takes two key tiles, j and
 // nk - 1 - j.  dq, dk and dv are written whole.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, void* rows, int* qp, int* kp, void* dq, void* dk, void* dv,
     const int* q_pos, const int* kv_pos, const int* kv_mask,
-    int B, int H, int KV, int Sq, int Sk, int hd,
+    int B, int H, int KV, int Sq, int Sk, int hd, int hd_v,
     float scale, float softcap, int window, int causal, int protected_, int cluster,
     int pair, void* stream) {
   if (cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) != 0)
@@ -1031,8 +1115,8 @@ extern "C" int repro_flash_attention_bwd(
   p.cluster = cluster;
   p.pair = pair != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_BWD_LAUNCH(D) \
-  if (hd == D) return int(launch<D>(p, q, k, v, s));
+#define FLASH_BWD_LAUNCH(D, DV) \
+  if (hd == D && hd_v == DV) return int(launch<D, DV>(p, q, k, v, s));
   FLASH_BWD_INSTANCES(FLASH_BWD_LAUNCH)
 #undef FLASH_BWD_LAUNCH
   return int(cudaErrorInvalidValue);

@@ -25,8 +25,8 @@ Training: on CUDA tensors under autograd (grad enabled and q, k or v
 requiring grad) the wrapper is a ``torch.autograd.Function``: its forward
 is the same kernel, also writing each row's log-sum-exp, and its backward
 is the hand-written kernel of ``csrc/flash_attention_bwd.cu`` (see
-:func:`flash_attention_bwd`), for the head-dim pairs of
-:data:`BWD_HEAD_DIM_PAIRS`.  A call under ``no_grad`` is the serving
+:func:`flash_attention_bwd`), which has an instance at every pair of
+:data:`HEAD_DIM_PAIRS`.  A call under ``no_grad`` is the serving
 launch, with no log-sum-exp.  CPU tensors take the plain versions, which
 autograd differentiates.
 
@@ -50,12 +50,9 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
-#: (query/key head dim, value head dim) of each kernel instance
+#: (query/key head dim, value head dim) of each kernel instance: the
+#: forward's serving and training (log-sum-exp) instances and the backward's
 HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
-#: the pairs the backward kernel has an instance of; the others wait for
-#: their own register plans (ROADMAP, queue 1b, item 'Flash backward at
-#: head dims 192 and 256')
-BWD_HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128))
 MAX_GRID_Y = 65535
 #: rows of the backward's tiles: keys of a dK/dV block, queries of an item
 BWD_TILE = 64
@@ -155,7 +152,8 @@ def flash_attention_bwd_plain(
 
 
 def bwd_cluster_size(b: int, kvh: int, sk: int, g: int, sq: int, hd: int,
-                     sms: int, pair: bool = False) -> int:
+                     sms: int, pair: bool = False, *,
+                     hd_v: int | None = None) -> int:
     """Blocks of the dK/dV launch's thread-block cluster, which split each
     64-key tile's (head of the group, query tile) items among them: the
     largest of 1, 2, 4, 8 that keeps the launch to one wave of blocks
@@ -163,9 +161,12 @@ def bwd_cluster_size(b: int, kvh: int, sk: int, g: int, sq: int, hd: int,
     block past the first wave waits for a whole block to finish), and no
     more than a tile has items.  ``pair``: a block takes two key tiles (the
     causal launch's), so there are half as many blocks.  The same 64-key
-    tile at every instance, so ``hd`` only has to be one."""
-    if (hd, hd) not in BWD_HEAD_DIM_PAIRS:
-        raise ValueError(f"flash_attention backward: no instance at head dim {hd}")
+    tile at every instance, so the head dims (``hd``, and ``hd_v``, by
+    default ``hd``'s pair) only have to be a pair of
+    :data:`HEAD_DIM_PAIRS`."""
+    if not any(d == hd and (hd_v is None or dv == hd_v) for d, dv in HEAD_DIM_PAIRS):
+        raise ValueError(f"flash_attention backward: no instance at head dims "
+                         f"({hd}, {hd if hd_v is None else hd_v})")
     nk = -(-sk // BWD_TILE)
     blocks = b * kvh * (-(-nk // 2) if pair else nk)
     items = g * -(-sq // BWD_TILE)
@@ -230,15 +231,6 @@ def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
         raise ValueError(f"flash_attention: B*H = {b * h} exceeds {MAX_GRID_Y}")
 
 
-def _check_bwd(q, v) -> None:
-    if (q.shape[-1], v.shape[-1]) not in BWD_HEAD_DIM_PAIRS:
-        raise ValueError(
-            f"flash_attention backward: head dims (q/k {q.shape[-1]}, v "
-            f"{v.shape[-1]}) have no backward instance (only "
-            f"{BWD_HEAD_DIM_PAIRS}); ROADMAP, queue 1b, item 'Flash backward "
-            f"at head dims 192 and 256' ports them")
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
     return bind(build.load(SOURCE))
@@ -269,7 +261,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.repro_flash_attention_bwd
     fn.argtypes = (
         [ctypes.c_void_p] * 15
-        + [ctypes.c_int] * 6
+        + [ctypes.c_int] * 7
         + [ctypes.c_float] * 2
         + [ctypes.c_int] * 5
         + [ctypes.c_void_p]
@@ -347,7 +339,6 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, opts):
-        _check_bwd(q, v)
         out, lse = _forward(q, k, v, q_pos, kv_pos, **opts, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos,
                               opts["kv_mask"])
@@ -383,23 +374,23 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, q_pos, kv_pos,
                                          **opts)
-    _check_bwd(q, v)
     _check(q, k, v, q_pos, kv_pos, kv_mask)
     b, sq, h, hd = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+    sk, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("dout", dout)):
-        if (t.shape != q.shape or t.dtype != torch.bfloat16
+        if (t.shape != (b, sq, h, hd_v) or t.dtype != torch.bfloat16
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"flash_attention_bwd: {name} must be a contiguous, "
-                             f"16-byte aligned bf16 tensor shaped like q")
+                             f"16-byte aligned bf16 tensor of shape "
+                             f"{(b, sq, h, hd_v)}")
     if (lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("flash_attention_bwd: lse must be the forward's "
                          f"({b}, {h}, {sq}) float32 on the card")
-    # TMA reads rows of H * hd and KV * hd bf16: 16-byte strides
-    if (h * hd * 2) % 16 or (kvh * hd * 2) % 16:
-        raise ValueError("flash_attention_bwd: H * hd and KV * hd must be "
-                         "multiples of 8 for the TMA tensor maps")
+    # TMA reads rows of H and KV heads of hd and hd_v bf16: 16-byte strides
+    if any(n * d % 8 for n in (h, kvh) for d in (hd, hd_v)):
+        raise ValueError("flash_attention_bwd: H and KV times hd and hd_v must "
+                         "be multiples of 8 for the TMA tensor maps")
     sq_pad = -(-sq // BWD_TILE) * BWD_TILE
     sk_pad = -(-sk // BWD_TILE) * BWD_TILE
     dev = q.device
@@ -412,7 +403,7 @@ def flash_attention_bwd(
     cluster = bwd_cluster_size(b, kvh, sk, h // kvh, sq, hd,
                                _sm_count(dev.index if dev.index is not None
                                          else torch.cuda.current_device()),
-                               pair)
+                               pair, hd_v=hd_v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = _bwd_library().repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -420,7 +411,7 @@ def flash_attention_bwd(
         kp.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         q_pos.data_ptr(), kv_pos.data_ptr(),
         None if kv_mask is None else kv_mask.data_ptr(),
-        b, h, kvh, sq, sk, hd,
+        b, h, kvh, sq, sk, hd, hd_v,
         hd**-0.5, float(softcap), int(window), int(causal), int(protected),
         cluster, int(pair), torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -6,6 +6,8 @@
         --steps 20 --batch 8 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --diffusion --steps 20 --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --layers 7 --steps 10 --batch 8 --seq 256
 
 It runs on the card unless ``--device cpu`` is given, and raises without a
 card.  Weights are random, drawn from ``--seed``, and stored in float32
@@ -18,7 +20,11 @@ the audio and vlm families with stub frames or image patches drawn by
 ``--seed``, as the reference draws them.  AdamW warms up over
 ``max(steps // 20, 5)`` steps, then decays by a cosine.  ``--ckpt-dir``
 keeps archives keyed as the reference's trees
-(:mod:`repro_torch.training.checkpoint`).
+(:mod:`repro_torch.training.checkpoint`).  ``--layers N`` keeps the first
+N layers of a model whose training state (16 bytes a parameter: float32
+weights, gradients and AdamW's two moments) does not fit one card at full
+depth, as deepseek-v2-lite-16b's 27 layers (~250 GB) do not; the widths
+stay.
 """
 
 from __future__ import annotations
@@ -40,6 +46,19 @@ from repro_torch.training import (
     make_lm_train_step,
     train,
 )
+
+
+def cut_layers(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg`` with its first ``layers`` layers: its block pattern cut
+    there, every width unchanged."""
+    if not 0 < layers <= cfg.num_layers:
+        raise ValueError(f"{cfg.name}: --layers {layers} not in 1..{cfg.num_layers}")
+    pattern, left = [], layers
+    for kind, n in cfg.blocks:
+        if left:
+            pattern.append((kind, min(n, left)))
+            left -= pattern[-1][1]
+    return cfg.with_(num_layers=layers, stack_pattern=tuple(pattern))
 
 
 def train_config(cfg: ModelConfig) -> ModelConfig:
@@ -98,6 +117,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--diffusion", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (the widths stay)")
     ap.add_argument(
         "--device", default=None,
         help="torch device to run on (default: the CUDA card; 'cpu' runs "
@@ -105,6 +126,8 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        cfg = cut_layers(cfg, args.layers)
     step, batches = setup(
         cfg, diffusion=args.diffusion, steps=args.steps, batch=args.batch,
         seq=args.seq, lr=args.lr, seed=args.seed, device=args.device)

@@ -19,8 +19,9 @@ H100_SMS = 132
 
 # (B, KV, Sk, G, Sq, hd, causal: a block takes two key tiles) -> the
 # cluster size on 132 SMs: qwen2-1.5b's diffusion batch and causal AR
-# prefill, hymba-1.5b's 2 x 1280, and the shapes of chip_smoke.py's
-# backward cases
+# prefill, hymba-1.5b's 2 x 1280, paligemma-3b's 8 x 256 (MQA, G 8) and
+# deepseek-v2-lite's MLA 8 x 256 (H = KV = 16, causal: 256 blocks, past one
+# wave already), and the shapes of chip_smoke.py's backward cases
 CLUSTER_CASES = {
     "qwen2 8x256": ((8, 2, 256, 6, 256, 128, False), 2),
     "qwen2 8x512 causal": ((8, 2, 512, 6, 512, 128, True), 2),
@@ -29,6 +30,8 @@ CLUSTER_CASES = {
     "fully masked row": ((2, 2, 96, 2, 64, 64, False), 2),
     "queries offset, window": ((2, 6, 300, 1, 70, 128, True), 2),
     "softcap hd32": ((2, 1, 130, 6, 100, 32, False), 8),
+    "paligemma 8x256": ((8, 1, 256, 8, 256, 256, False), 4),
+    "MLA 8x256 causal": ((8, 16, 256, 1, 256, 192, True), 1),
 }
 
 
@@ -72,9 +75,17 @@ def test_bwd_rank_items_deal_every_item_once(cluster, n_items):
 
 
 def test_bwd_cluster_size_refuses_head_dims_without_an_instance():
-    for hd in (16, 96, 192, 256):
-        with pytest.raises(ValueError):
+    """Every pair of the forward has a backward instance, MLA's (192, 128)
+    and paligemma's (256, 256) among them; head dims of no pair, or a value
+    head dim that is not its pair's, are refused."""
+    for hd, hd_v in kf.HEAD_DIM_PAIRS:
+        assert kf.bwd_cluster_size(1, 1, 64, 1, 64, hd, H100_SMS, hd_v=hd_v) == 1
+        assert kf.bwd_cluster_size(1, 1, 64, 1, 64, hd, H100_SMS) == 1
+    for hd in (16, 96):
+        with pytest.raises(ValueError, match="no instance"):
             kf.bwd_cluster_size(1, 1, 64, 1, 64, hd, H100_SMS)
+    with pytest.raises(ValueError, match="no instance"):
+        kf.bwd_cluster_size(1, 1, 64, 1, 64, 192, H100_SMS, hd_v=192)
 
 
 def _source() -> str:

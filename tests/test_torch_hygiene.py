@@ -329,8 +329,9 @@ def test_training_raises_without_a_card(no_card):
 
 def test_flash_backward_launch_has_no_fallback():
     """The backward's launch path (the autograd Function and its wrapper)
-    holds no ``try``, and a CUDA call at a pair without a backward instance
-    raises before any launch."""
+    holds no ``try``, and a call at a pair without an instance (forward or
+    backward: they have the same pairs) raises in the launch checks, before
+    any launch."""
     from repro_torch.kernels import flash_attention as kf
 
     tree = ast.parse((PKG / "kernels" / "flash_attention.py").read_text())
@@ -339,8 +340,11 @@ def test_flash_backward_launch_has_no_fallback():
     assert len(fns) == 3
     for fn in fns:
         assert not any(isinstance(n, ast.Try) for n in ast.walk(fn)), fn.name
-    with pytest.raises(ValueError, match="no backward instance"):
-        kf._check_bwd(torch.zeros(1, 2, 1, 256), torch.zeros(1, 2, 1, 256))
+    x, pos = torch.zeros(1, 2, 1, 96), torch.arange(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"head dims \(q/k 96, v 96\) not in"):
+        kf._check(x, x, x, pos, pos, None)
+    with pytest.raises(ValueError, match="no instance"):
+        kf.bwd_cluster_size(1, 1, 2, 1, 2, 96, 132)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

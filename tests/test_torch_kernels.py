@@ -97,12 +97,12 @@ def test_era_update_cuda_checks_reject_cpu_tensors():
                   (0, 0, 0), torch.zeros(2, 4), torch.zeros(2), torch.zeros(2))
 
 
-def _attn_case(b, s, h, kvh, hd, seed=0, sk=None):
+def _attn_case(b, s, h, kvh, hd, seed=0, sk=None, hd_v=None):
     rng = np.random.default_rng(seed)
     sk = s if sk is None else sk
     q = rng.standard_normal((b, s, h, hd), np.float32)
     k = rng.standard_normal((b, sk, kvh, hd), np.float32)
-    v = rng.standard_normal((b, sk, kvh, hd), np.float32)
+    v = rng.standard_normal((b, sk, kvh, hd if hd_v is None else hd_v), np.float32)
     return q, k, v
 
 
@@ -450,19 +450,25 @@ def test_decode_cuda_checks_reject_bad_input():
 # the flash backward's plain version, and the differentiable scan
 # ---------------------------------------------------------------------------
 
-# (b, s, sk, h, kvh, hd, options, lengths, q_pos, kv_pos): GQA at G = 6, 5
-# and 1, every mask, softcap, and a row with no valid key
+# (b, s, sk, h, kvh, hd, options, lengths, q_pos, kv_pos, hd_v or None):
+# GQA at G = 6, 5 and 1, every mask, softcap, a row with no valid key, and
+# the two pairs whose value head dim is not 32: MLA's (192, 128) at H = KV,
+# causal, and paligemma's MQA (256, 256) at G = 8 with per-row lengths
 BWD_CASES = {
     "G6 non-causal kv_mask, empty row": (
-        3, 24, 24, 12, 2, 32, dict(causal=False), (24, 9, 0), None, None),
+        3, 24, 24, 12, 2, 32, dict(causal=False), (24, 9, 0), None, None, None),
     "G5 causal window protected": (
         2, 40, 40, 10, 2, 16, dict(causal=True, window=8, protected=3),
-        None, None, None),
+        None, None, None, None),
     "G1 causal softcap": (2, 20, 20, 4, 4, 32,
-                          dict(causal=True, softcap=2.0), None, None, None),
+                          dict(causal=True, softcap=2.0), None, None, None, None),
     "wrapped ring, queries offset, window": (
         2, 10, 48, 4, 2, 32, dict(causal=True, window=12, protected=3),
-        None, np.arange(38, 48, dtype=np.int32), _ring(48, 17, (8, 16))),
+        None, np.arange(38, 48, dtype=np.int32), _ring(48, 17, (8, 16)), None),
+    "MLA (192, 128) causal, empty row": (
+        3, 20, 20, 4, 4, 192, dict(causal=True), (20, 7, 0), None, None, 128),
+    "MQA (256, 256) G8 non-causal lengths": (
+        3, 18, 18, 8, 1, 256, dict(causal=False), (18, 11, 5), None, None, None),
 }
 BWD_TOL = 2e-5
 
@@ -473,15 +479,19 @@ def test_flash_bwd_plain_matches_autograd_and_reference(case):
     backward is held to on the card) equals autograd of
     ``flash_attention_plain`` and ``jax.vjp`` of the reference's
     ``flash_attention_ref``, in float32 (summation-order rounding of
-    O(1) gradients: atol 2e-5); a row with no valid key gets zeros."""
-    b, s, sk, h, kvh, hd, kw, lengths, q_pos, kv_pos = BWD_CASES[case]
-    q, k, v = _attn_case(b, s, h, kvh, hd, sk=sk, seed=3)
+    O(1) gradients: atol 2e-5, at every head dim); a row with no valid key
+    gets zeros.  The reference's output takes q's head dim, so at MLA's
+    (192, 128) v and dout go to it padded with zeros and its dv is sliced
+    back to 128, as the reference's ``mla_train`` pads v."""
+    b, s, sk, h, kvh, hd, kw, lengths, q_pos, kv_pos, hd_v = BWD_CASES[case]
+    hd_v = hd if hd_v is None else hd_v
+    q, k, v = _attn_case(b, s, h, kvh, hd, sk=sk, seed=3, hd_v=hd_v)
     q_pos = np.arange(s, dtype=np.int32) if q_pos is None else q_pos
     kv_pos = np.arange(sk, dtype=np.int32) if kv_pos is None else kv_pos
     mask = None
     if lengths is not None:
         mask = (np.arange(sk)[None] < np.asarray(lengths)[:, None]).astype(np.int32)
-    dout = np.random.default_rng(4).standard_normal((b, s, h, hd)).astype(np.float32)
+    dout = np.random.default_rng(4).standard_normal((b, s, h, hd_v)).astype(np.float32)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
     pos = dict(q_pos=torch.from_numpy(q_pos), kv_pos=torch.from_numpy(kv_pos))
     tmask = None if mask is None else torch.from_numpy(mask)
@@ -494,28 +504,39 @@ def test_flash_bwd_plain_matches_autograd_and_reference(case):
     assert kf.flash_attention_bwd.launches == 0
     jm = None if mask is None else jnp.asarray(mask)
     t = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))  # noqa: E731
+    pad = lambda a: np.pad(a, [(0, 0)] * 3 + [(0, hd - hd_v)])  # noqa: E731
     _, vjp = jax.vjp(
         lambda a, c, e: ref.flash_attention_ref(
             a, c, e, jnp.asarray(q_pos), jnp.asarray(kv_pos), kv_mask=jm, **kw),
-        t(q), t(k), t(v))
-    want = [np.asarray(g).transpose(0, 2, 1, 3) for g in vjp(t(dout))]
+        t(q), t(k), t(pad(v)))
+    want = [np.asarray(g).transpose(0, 2, 1, 3) for g in vjp(t(pad(dout)))]
+    want[2] = want[2][..., :hd_v]
     for name, a, p, w in zip(("dq", "dk", "dv"), grads, plain, want):
         assert p.dtype == torch.float32
         np.testing.assert_allclose(p.numpy(), a.numpy(), atol=BWD_TOL, err_msg=name)
         np.testing.assert_allclose(p.numpy(), w, atol=BWD_TOL, err_msg=name)
-    if lengths is not None:
-        assert np.all(plain[0].numpy()[2] == 0.0)  # no valid key: zero dq
-        assert np.all(plain[1].numpy()[2] == 0.0) and np.all(plain[2].numpy()[2] == 0.0)
+    for row, n in enumerate(lengths or ()):
+        if n == 0:  # no valid key: zero dq, and its keys give zero dk, dv
+            assert all(np.all(g.numpy()[row] == 0.0) for g in plain)
 
 
 @pytest.mark.parametrize("hd,hd_v", [(192, 128), (256, 256)])
 def test_flash_bwd_refuses_pairs_without_an_instance(hd, hd_v):
-    q = torch.zeros(1, 4, 2, hd)
-    v = torch.zeros(1, 4, 2, hd_v)
-    with pytest.raises(ValueError, match="Flash backward at head dims 192 and 256"):
-        kf._check_bwd(q, v)
-    for d in (32, 64, 128):
-        kf._check_bwd(torch.zeros(1, 4, 2, d), torch.zeros(1, 4, 2, d))
+    """MLA's and paligemma's pairs have a backward instance: the launch
+    checks pass their head dims (and stop at the CPU tensors, which the
+    kernels do not take) and the dK/dV plan takes them; a pair with no
+    forward instance is refused by the forward's check, naming the pairs,
+    which are the backward's too."""
+    pos = torch.arange(4, dtype=torch.int32)
+    k = torch.zeros(1, 4, 2, hd)
+    with pytest.raises(ValueError, match="not cuda"):
+        kf._check(torch.zeros(1, 4, 2, hd), k, torch.zeros(1, 4, 2, hd_v), pos, pos, None)
+    assert kf.bwd_cluster_size(1, 2, 4, 1, 4, hd, 132, hd_v=hd_v) >= 1
+    with pytest.raises(ValueError, match="no instance"):
+        kf.bwd_cluster_size(1, 2, 4, 1, 4, hd, 132, hd_v=hd_v + 32)
+    x = torch.zeros(1, 4, 2, 96)
+    with pytest.raises(ValueError, match=r"not in \(\(32, 32\)"):
+        kf._check(x, x, x, pos, pos, None)
 
 
 @pytest.mark.parametrize("n,bshape", [(37, (2, 37, 3, 4)), (5, (1, 5, 2)),

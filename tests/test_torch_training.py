@@ -25,6 +25,7 @@ Tolerances:
   each later step to 20% (measured 12.1%).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -100,10 +101,22 @@ def _grads(params: dict) -> dict:
             for n, p in params.items()}
 
 
-def _denoiser_pair(arch, seed=0):
+def _full_head_dims(cfg):
+    """``cfg`` (of either package) with the full-width head dims that the
+    smoke rule cuts to 32: MLA's q/k 128 + 64 rope dims and v 128, or
+    paligemma's 256."""
+    if cfg.mla is not None:
+        return dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128))
+    return dataclasses.replace(cfg, head_dim=256)
+
+
+def _denoiser_pair(arch, seed=0, widen=lambda c: c):
     """The reference's smoke denoiser with a small random ``eps_head`` (so
-    gradients reach every layer) and the same weights in the port."""
-    jcfg, cfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
+    gradients reach every layer) and the same weights in the port; both
+    configs first pass through ``widen``."""
+    jcfg = widen(jget_config(arch, smoke=True))
+    cfg = widen(get_config(arch, smoke=True))
     jdlm = JDiffusionLM(jbuild_model(jcfg))
     params = jdlm.init(jax.random.PRNGKey(seed))
     params["eps_head"]["w"] = 0.05 * jax.random.normal(
@@ -152,7 +165,25 @@ def test_diffusion_loss_and_grads_match_reference(arch):
     """``DiffusionLM.loss_at`` on the reference's own draws (the two keys
     its ``loss`` splits off) equals ``jax.value_and_grad`` of its
     ``DiffusionLM.loss``, value and gradient of every leaf."""
-    jdlm, params, dlm, cfg = _denoiser_pair(arch)
+    _assert_diffusion_loss_matches(arch)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "paligemma-3b"])
+def test_diffusion_loss_and_grads_at_full_head_dims(arch):
+    """The same at the head dims of the flash kernels' (192, 128) and
+    (256, 256) instances: the smoke denoisers of deepseek-v2-lite (MLA) and
+    paligemma given back their full-width heads in both packages.  The
+    port's attention runs its plain version here, the function those
+    instances compute on the card; tolerances as above."""
+    cfg = _full_head_dims(get_config(arch, smoke=True))
+    pair = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim)
+            if cfg.mla is not None else (cfg.resolved_head_dim,) * 2)
+    assert pair == ((192, 128) if cfg.mla is not None else (256, 256))
+    _assert_diffusion_loss_matches(arch, widen=_full_head_dims)
+
+
+def _assert_diffusion_loss_matches(arch, widen=lambda c: c):
+    jdlm, params, dlm, cfg = _denoiser_pair(arch, widen=widen)
     x0 = np.random.default_rng(1).standard_normal(
         (4, 8, cfg.d_model)).astype(np.float32)
     key = jax.random.PRNGKey(3)
@@ -507,3 +538,25 @@ def test_launcher_trains_on_cpu(objective, tmp_path):
     assert np.isfinite(loss)
     tree, step = jckpt.restore(jckpt.latest(str(tmp_path)))
     assert step == 6 and int(tree["opt"]["step"]) == 6
+
+
+def test_cut_layers_keeps_the_first_layers_and_every_width(capsys):
+    """``launch/train.py --layers N`` (``cut_layers``): the block pattern
+    cut after N layers, widths and the rest of the config unchanged; N out
+    of range raises; the launcher trains the cut model."""
+    ds = get_config("deepseek-v2-lite-16b")
+    cut = launch_train.cut_layers(ds, 4)
+    assert (cut.num_layers, cut.blocks) == (4, (("mla_moe", 4),))
+    assert dataclasses.replace(cut, num_layers=27, stack_pattern=ds.stack_pattern) == ds
+    hy = launch_train.cut_layers(get_config("hymba-1.5b"), 17)
+    assert hy.blocks == (("hymba_full", 1), ("hymba_swa", 14), ("hymba_full", 1),
+                         ("hymba_swa", 1))
+    qw = launch_train.cut_layers(get_config("qwen2-1.5b"), 2)
+    assert (qw.num_layers, qw.blocks) == (2, (("dense", 2),))
+    for bad in (0, 28):
+        with pytest.raises(ValueError, match="--layers"):
+            launch_train.cut_layers(ds, bad)
+    launch_train.main(["--arch", "hymba-1.5b", "--smoke", "--device", "cpu",
+                       "--layers", "1", "--steps", "2", "--batch", "2", "--seq", "8"])
+    out = capsys.readouterr().out
+    assert "arch=hymba-1.5b-smoke" in out and "final loss" in out
