@@ -687,7 +687,91 @@ def flash_cases(kf) -> float:
                 AR_PROMPT, WH_H, WH_H, WH_HD, sk=WH_FRAMES, causal=False,
                 q_pos=torch.zeros(AR_PROMPT, dtype=torch.int32, device=dev)),
         ]
+    # the TMA edges at every pair: Sq not a multiple of the 64-row query
+    # tile and Sk not a multiple of any key tile (32, 64 or 128), so the
+    # last tiles of Q, K and V read rows past their batch row's end as
+    # zeros; queries offset from keys under a causal mask, and a
+    # non-causal batch with a row whose every key is masked
+    for d, dv in getattr(kf, "HEAD_DIM_PAIRS", ()):
+        edge = torch.ones(3, 93, dtype=torch.int32, device=dev)
+        edge[1] = 0
+        edge[2, 40:] = 0
+        errs += [
+            run(f"({d}, {dv}) Sq=100 over Sk=157, queries at 57-156, causal",
+                2, 100, 4, 2, d, hd_v=dv, sk=157, causal=True,
+                q_pos=torch.arange(57, 157, dtype=torch.int32, device=dev)),
+            run(f"({d}, {dv}) Sq=37 over Sk=93 non-causal, row 1 fully masked",
+                3, 37, 4, 1, d, hd_v=dv, sk=93, causal=False, kv_mask=edge,
+                zero_row=1),
+        ]
+    # more kv tiles than the forward's flags hold at once (a chunk of 1,024
+    # tiles of 32 or 64 keys): its producer marks the later chunks as it
+    # reaches them, with live, dead and full tiles on both sides of a chunk
+    # boundary, and a dead run that crosses one
+    pairs = getattr(kf, "HEAD_DIM_PAIRS", ())
+    if (PG_HD, PG_HD) in pairs:
+        far = torch.arange(80_000, dtype=torch.int32, device=dev)
+        far[66_000:70_000] = -1
+        far_mask = torch.ones(1, 80_000, dtype=torch.int32, device=dev)
+        far_mask[0, 1_000:1_500] = 0
+        errs.append(run(
+            "(256, 256) Sq=100 over Sk=80,000 causal, queries at 75,000-75,099, "
+            "keys 66,000-69,999 empty, kv_mask holes", 1, 100, 2, 1, PG_HD,
+            sk=80_000, causal=True, kv_pos=far, kv_mask=far_mask,
+            q_pos=torch.arange(75_000, 75_100, dtype=torch.int32, device=dev)))
+    if (128, 128) in pairs:
+        errs.append(run(
+            "(128, 128) Sq=70 over Sk=40,000 causal, window=1024, protected=128, "
+            "queries at 38,000-38,069", 2, 70, 4, 2, 128, sk=40_000, causal=True,
+            window=1024, protected=128,
+            q_pos=torch.arange(38_000, 38_070, dtype=torch.int32, device=dev)))
+    if (64, 64) in pairs:
+        errs.append(run("(64, 64) Sq=64 over Sk=70,000 non-causal", 1, 64, 2, 2,
+                        64, sk=70_000, causal=False))
+    flash_lse_cases(kf)
     return max(errs)
+
+
+def flash_lse_cases(kf) -> None:
+    """At every pair: the training (``LSE``) launch's output bitwise the
+    serving launch's, its log-sum-exp within ``LSE_ATOL`` of the float32
+    logsumexp (+inf exactly on the rows with no valid key), and two serving
+    launches bitwise equal; on a ragged Sq and Sk with a fully masked row,
+    causal with queries offset from keys, then with a softcap."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    worst = 0.0
+    for d, dv in getattr(kf, "HEAD_DIM_PAIRS", ()):
+        b, sq, sk, h, kvh = 3, 100, 157, 4, 2
+        q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(b, sk, kvh, d, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, sk, kvh, dv, generator=gen, device=dev).to(torch.bfloat16)
+        q_pos = torch.arange(sk - sq, sk, dtype=torch.int32, device=dev)
+        kv_pos = torch.arange(sk, dtype=torch.int32, device=dev)
+        kv_mask = torch.ones(b, sk, dtype=torch.int32, device=dev)
+        kv_mask[1] = 0
+        for softcap in (0.0, 30.0):
+            opts = dict(kv_mask=kv_mask, window=0, causal=True, softcap=softcap,
+                        protected=0)
+            name = f"({d}, {dv})" + (f" softcap={softcap:g}" if softcap else "")
+            serve = [kf._forward(q, k, v, q_pos, kv_pos, **opts)[0] for _ in range(2)]
+            out, lse = kf._forward(q, k, v, q_pos, kv_pos, **opts, with_lse=True)
+            torch.cuda.synchronize()
+            check(torch.equal(serve[0], serve[1]),
+                  f"flash {name}: two serving launches differ")
+            check(torch.equal(out, serve[0]), f"flash {name}: the LSE launch's "
+                  "output is not bitwise the serving launch's")
+            want = lse_plain(kf, q, k, q_pos, kv_pos, **opts)
+            empty = torch.isinf(want)
+            check(torch.equal(torch.isinf(lse), empty) and bool((lse[empty] > 0).all()),
+                  f"flash {name}: lse is not +inf exactly on the empty rows")
+            err = float((lse[~empty] - want[~empty]).abs().max())
+            check(err <= LSE_ATOL, f"flash {name}: lse error {err:.3e} over {LSE_ATOL}")
+            check(bool((serve[0][1] == 0).all()), f"flash {name}: masked row not zero")
+            worst = max(worst, err)
+    log(f"flash_attention LSE instances: output bitwise the serving launch's, "
+        f"two launches bitwise equal, lse error {worst:.3e} (tolerance "
+        f"{LSE_ATOL:.3e}) at every pair")
 
 
 def refuses_head_dims(kf, hd: int, hd_v: int) -> None:
@@ -745,35 +829,70 @@ def flash_timings(kf) -> dict:
         q, k, v = (torch.randn(bb, ss, n, hd, generator=gen, device="cuda")
                    .to(torch.bfloat16) for n in (h, kvh, kvh))
         pos = torch.arange(ss, dtype=torch.int32, device="cuda")
-        ms = device_ms(lambda: kf.flash_attention(q, k, v, pos, pos, causal=causal),
-                       pick=is_flash_kernel, kernels=1)
+
+        def kernel():
+            return kf.flash_attention(q, k, v, pos, pos, causal=causal)
+        ms = device_ms(kernel, pick=is_flash_kernel, kernels=1)
+        ms_l2_cold = device_ms(kernel, cold=True, pick=is_flash_kernel, kernels=1)
         plain_ms = device_ms(
             lambda: kf.flash_attention_plain(q, k, v, pos, pos, causal=causal),
             iters=5,
         )
         library_ms = device_ms(library(q, k, v, causal))
+        library_ms_l2_cold = device_ms(library(q, k, v, causal), cold=True)
         # a causal mask leaves (S + 1) / 2S of the scores to compute
         frac = (ss + 1) / (2 * ss) if causal else 1.0
         flops = 4.0 * bb * h * ss * ss * hd * frac
         nbytes = 2.0 * (2 * bb * ss * h * hd + 2 * bb * ss * kvh * hd)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
         t = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            ms=ms, ms_l2_cold=ms_l2_cold, plain_ms=plain_ms,
+            library_ms=library_ms, library_ms_l2_cold=library_ms_l2_cold,
             kernel_over_library=ms / library_ms,
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             shape=f"B={bb} S={ss} H={h} KV={kvh} hd={hd} bf16"
                   + (" causal" if causal else ""),
         )
-        log(f"flash_attention timing {t['shape']}: kernel {ms:.5f} ms, "
-            f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, "
-            f"kernel_over_library {t['kernel_over_library']:.3f}, "
+        log(f"flash_attention timing {t['shape']}: kernel {ms:.5f} ms L2-warm, "
+            f"{ms_l2_cold:.5f} ms L2-cold; plain {plain_ms:.5f} ms; SDPA "
+            f"{library_ms:.5f} / {library_ms_l2_cold:.5f} ms; "
+            f"kernel_over_library {t['kernel_over_library']:.3f}; "
             f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+        return t
+
+    def timed_lse(bb, ss, causal):
+        """The training (LSE) launch at qwen2's training shape beside the
+        serving launch on the same inputs, L2-warm and L2-cold."""
+        q, k, v = (torch.randn(bb, ss, n, hd, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (h, kvh, kvh))
+        pos = torch.arange(ss, dtype=torch.int32, device="cuda")
+        opts = dict(kv_mask=None, window=0, causal=causal, softcap=0.0, protected=0)
+
+        def train():
+            return kf._forward(q, k, v, pos, pos, **opts, with_lse=True)
+
+        def serve():
+            return kf._forward(q, k, v, pos, pos, **opts)
+        t = dict(
+            ms=device_ms(train, pick=is_flash_kernel, kernels=1),
+            ms_l2_cold=device_ms(train, cold=True, pick=is_flash_kernel, kernels=1),
+            serving_ms=device_ms(serve, pick=is_flash_kernel, kernels=1),
+            serving_ms_l2_cold=device_ms(serve, cold=True, pick=is_flash_kernel,
+                                         kernels=1),
+            shape=f"B={bb} S={ss} H={h} KV={kvh} hd={hd} bf16"
+                  + (" causal" if causal else "") + ", with lse",
+        )
+        log(f"flash_attention timing (training, LSE) {t['shape']}: "
+            f"{t['ms']:.5f} ms L2-warm, {t['ms_l2_cold']:.5f} ms L2-cold; the "
+            f"serving launch {t['serving_ms']:.5f} / {t['serving_ms_l2_cold']:.5f} ms")
         return t
 
     timing = timed(8, 256, causal=False)
     timing["era_seq128"] = timed(8, 128, causal=False)
     timing["prefill"] = timed(AR_BATCH, AR_PROMPT, causal=True)
+    timing["lse"] = {"diffusion": timed_lse(TRAIN_BATCH, TRAIN_SEQ, False),
+                     "lm": timed_lse(TRAIN_BATCH, TRAIN_SEQ, True)}
     timing["hymba"] = hymba_flash_timings(kf)
     timing.update(audio_vlm_flash_timings(kf))
     return timing
@@ -951,16 +1070,29 @@ def parse_ptxas(text: str, kernel: str = "flash_fwd_kernel",
 
 def ptxas_report(started, kf) -> dict:
     """Each flash instance's registers, spills, shared memory and resident
-    blocks an SM, from ptxas and the CUDA occupancy API, keyed "hd x hd_v";
-    fails on a spill at (128, 128) (spills at MLA's (192, 128) are
-    reported) and at any training instance."""
-    import ctypes
-
+    blocks an SM (:func:`flash_ptxas` of the build started by
+    :func:`ptxas_start`); fails on a spill at any of the ten instances."""
     out, proc = started
     text, _ = proc.communicate()
     out.unlink(missing_ok=True)
     check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
-    lib = kf._library()
+    report = flash_ptxas(text, kf._library(), kf.HEAD_DIM_PAIRS)
+    for key, r in report.items():
+        if key != "warnings":
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                  f"flash_attention {key} spills registers")
+    return report
+
+
+def flash_ptxas(text: str, lib, pairs) -> dict:
+    """Each flash instance's registers and spills from ``nvcc -Xptxas -v``
+    output ``text``, keyed "hd x hd_v" (serving) and "hd x hd_v lse"
+    (training), with the serving instance's shared memory and resident
+    blocks an SM at Sk = 256 from ``lib``'s C entry points; ptxas's
+    warnings of wgmma serialisation (a product waiting on the one before
+    it) are kept under "warnings"."""
+    import ctypes
+
     smem_fn = lib.repro_flash_attention_smem_bytes
     smem_fn.argtypes = [ctypes.c_int] * 3
     smem_fn.restype = ctypes.c_longlong
@@ -969,31 +1101,24 @@ def ptxas_report(started, kf) -> dict:
     occ_fn.restype = ctypes.c_int
     # instances are named by their first template argument, the q/k head
     # dim, which tells the pairs apart
-    report = parse_ptxas(text)
+    serving, training = parse_ptxas(text), parse_ptxas(text, lse=True)
     out = {}
-    for d, dv in kf.HEAD_DIM_PAIRS:
-        check(d in report and "registers" in report[d],
-              f"no ptxas report for flash ({d}, {dv}):\n{text}")
-        r = out[f"{d}x{dv}"] = report[d]
-        r["smem_bytes_s256"] = int(smem_fn(d, dv, 256))
-        r["blocks_per_sm_s256"] = int(occ_fn(d, dv, 256))
-        log(f"flash_attention ({d}, {dv}): {r['registers']} registers, spill "
-            f"stores {r['spill_stores']} B, loads {r['spill_loads']} B, "
-            f"{r['smem_bytes_s256']} B shared memory at Sk=256, "
-            f"{r['blocks_per_sm_s256']} blocks an SM")
-    check(report[128]["spill_stores"] == 0 and report[128]["spill_loads"] == 0,
-          "flash_attention (128, 128) spills registers")
-    # the training instances, which also write the log-sum-exp
-    out["lse"] = parse_ptxas(text, lse=True)
-    check(sorted(out["lse"]) == [d for d, _ in kf.HEAD_DIM_PAIRS],
-          f"training instances of flash: {sorted(out['lse'])}")
-    for d, dv in kf.HEAD_DIM_PAIRS:
-        r = out["lse"][d]
-        log(f"flash_attention training instance ({d}, {dv}): {r['registers']} "
-            f"registers, spill stores {r['spill_stores']} B, loads "
-            f"{r['spill_loads']} B")
-        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
-              f"flash_attention's ({d}, {dv}) training instance spills registers")
+    for d, dv in pairs:
+        for key, rep in ((f"{d}x{dv}", serving), (f"{d}x{dv} lse", training)):
+            check(d in rep and "registers" in rep[d],
+                  f"no ptxas report for flash {key}:\n{text}")
+            r = out[key] = dict(rep[d])
+            r["smem_bytes_s256"] = int(smem_fn(d, dv, 256))
+            r["blocks_per_sm_s256"] = int(occ_fn(d, dv, 256))
+            log(f"flash_attention {key}: {r['registers']} registers, spill "
+                f"stores {r['spill_stores']} B, loads {r['spill_loads']} B, "
+                f"{r['smem_bytes_s256']} B shared memory at Sk=256, "
+                f"{r['blocks_per_sm_s256']} blocks an SM")
+    warnings = [line.strip() for line in text.splitlines()
+                if "flash_fwd_kernel" in line and "Performance" in line]
+    for line in warnings:
+        log(f"flash_attention ptxas: {line}")
+    out["warnings"] = warnings
     return out
 
 
@@ -2924,12 +3049,15 @@ def hymba_flash_timings(kf) -> dict:
         flops = 4.0 * h * hd * pairs
         nbytes = 2.0 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        def kernel(q=q, k=k, v=v, pos=pos, kw=kw):
+            return kf.flash_attention(q, k, v, pos, pos, **kw)
         t = dict(
-            ms=device_ms(lambda: kf.flash_attention(q, k, v, pos, pos, **kw),
-                         pick=is_flash_kernel, kernels=1),
+            ms=device_ms(kernel, pick=is_flash_kernel, kernels=1),
+            ms_l2_cold=device_ms(kernel, cold=True, pick=is_flash_kernel, kernels=1),
             plain_ms=device_ms(
                 lambda: kf.flash_attention_plain(q, k, v, pos, pos, **kw), iters=5),
             library_ms=device_ms(sdpa),
+            library_ms_l2_cold=device_ms(sdpa, cold=True),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             shape=f"B={b} S={s} H={h} KV={kvh} hd={hd} bf16 "
@@ -2938,9 +3066,10 @@ def hymba_flash_timings(kf) -> dict:
         )
         t["kernel_over_library"] = t["ms"] / t["library_ms"]
         log(f"flash_attention timing (hymba) {t['shape']}: kernel "
-            f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, SDPA "
-            f"{t['library_ms']:.5f} ms, kernel_over_library "
-            f"{t['kernel_over_library']:.3f}, bound {t['bound_ms']:.5f} ms "
+            f"{t['ms']:.5f} ms L2-warm, {t['ms_l2_cold']:.5f} ms L2-cold; plain "
+            f"{t['plain_ms']:.5f} ms; SDPA {t['library_ms']:.5f} / "
+            f"{t['library_ms_l2_cold']:.5f} ms; kernel_over_library "
+            f"{t['kernel_over_library']:.3f}; bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']})")
         out[name] = t
     return out
@@ -4385,46 +4514,172 @@ def era_ab(parent_src: str) -> None:
         log(out.stdout.strip().splitlines()[-1])
 
 
-# tile variants of the shipped flash kernel that --flash-ab times beside it:
-# (keys a kv tile, blocks an SM its register budget is set for)
-FLASH_VARIANTS = ((64, 2), (64, 3), (32, 2))
+# variants of the shipped flash kernel that --flash-ab times beside it: name
+# -> {q/k head dim: (keys a kv tile, stages of the ring, blocks an SM the
+# register budget is set for)}, each replacing that head dim's entry of
+# FLASH_FWD_CFG in a copy of the source
+FLASH_VARIANTS = {
+    "hd32/64: BK32, 3 stages, 4 blocks": {32: (32, 3, 4), 64: (32, 3, 4)},
+    "hd32/64: BK64, 2 stages, 4 blocks": {32: (64, 2, 4), 64: (64, 2, 4)},
+    "hd32/64: BK32, 4 stages, 4 blocks": {32: (32, 4, 4), 64: (32, 4, 4)},
+    "hd128: BK64, 2 stages, 2 blocks": {128: (64, 2, 2)},
+    "hd256: BK64, 2 stages": {256: (64, 2, 1)},
+}
+
+# the forward's path shapes (PERF.md's table) and qwen2's training shape:
+# (name, B, Sq, Sk, H, KV, hd, hd_v, mask, options); mask "full" (every
+# key), "causal" or "lengths" (row lengths 200 x4, 256 x4 as kv_mask)
+FLASH_AB_SHAPES = (
+    ("qwen2 ERA 8x256", 8, 256, 256, 12, 2, 128, 128, "full", {}),
+    ("qwen2 ERA 8x128", 8, 128, 128, 12, 2, 128, 128, "full", {}),
+    ("qwen2 AR prefill 8x512 causal", 8, 512, 512, 12, 2, 128, 128, "causal", {}),
+    ("qwen2 training 8x256 with lse", 8, 256, 256, 12, 2, 128, 128, "full",
+     {"with_lse": True}),
+    ("MLA 8x256 causal", 8, 256, 256, MLA_H, MLA_H, MLA_HD, MLA_HD_V, "causal", {}),
+    ("hymba ERA 8x256", 8, 256, 256, HY_H, HY_KV, HY_HD, HY_HD, "lengths",
+     {"window": HY_WINDOW}),
+    ("hymba prefill 8x640 causal", 8, HY_PREFILL, HY_PREFILL, HY_H, HY_KV, HY_HD,
+     HY_HD, "causal", {"window": HY_WINDOW, "protected": HY_META}),
+    ("paligemma ERA 8x256", 8, 256, 256, PG_H, PG_KV, PG_HD, PG_HD, "lengths", {}),
+    ("paligemma prefill 8x768 causal", 8, PG_PREFILL, PG_PREFILL, PG_H, PG_KV,
+     PG_HD, PG_HD, "causal", {}),
+    ("whisper encoder 8x1500", 8, WH_FRAMES, WH_FRAMES, WH_H, WH_H, WH_HD, WH_HD,
+     "full", {}),
+    ("whisper cross 8x512 over 1500", 8, AR_PROMPT, WH_FRAMES, WH_H, WH_H, WH_HD,
+     WH_HD, "full", {}),
+)
+
+
+def flash_ab_inputs():
+    """Inputs of every ``FLASH_AB_SHAPES`` entry: name -> (kernel(kf), one
+    SDPA call on the same tensors, bound ms)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for name, b, sq, sk, h, kvh, hd, hd_v, mask, extra in FLASH_AB_SHAPES:
+        extra = dict(extra)
+        with_lse = extra.pop("with_lse", False)
+        q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn(b, sk, kvh, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn(b, sk, kvh, hd_v, generator=gen, device="cuda").to(torch.bfloat16)
+        q_pos = (torch.zeros(sq, dtype=torch.int32, device="cuda") if sq != sk
+                 else torch.arange(sq, dtype=torch.int32, device="cuda"))
+        kv_pos = torch.arange(sk, dtype=torch.int32, device="cuda")
+        g = h // kvh
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        # G query heads folded into the query axis where no causal mask ties
+        # a query to its position (SDPA's flash backend then makes no K/V
+        # copy), enable_gqa under a causal mask
+        qf = q.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4).reshape(b, kvh, g * sq, hd)
+        kv_mask, am = None, None
+        if mask == "lengths":
+            kv_mask = fused_kv_mask("cuda")
+            am = kv_mask.bool()[:, None, None, :]
+            pairs = float(sq * kv_mask.sum())
+        elif mask == "causal":
+            pairs = float(b * sq * (sq + 1) / 2)
+        else:
+            pairs = float(b * sq * sk)
+        opts = dict(kv_mask=kv_mask, window=extra.get("window", 0),
+                    causal=mask == "causal", softcap=0.0,
+                    protected=extra.get("protected", 0))
+
+        def kernel(kf, q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos, opts=opts,
+                   with_lse=with_lse):
+            return lambda: kf._forward(q, k, v, q_pos, kv_pos, **opts,
+                                       with_lse=with_lse)
+
+        if mask == "causal":
+            qt = q.transpose(1, 2)
+
+            def sdpa(qt=qt, kt=kt, vt=vt, gqa=kvh != h):
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=gqa)
+        else:
+            def sdpa(qf=qf, kt=kt, vt=vt, am=am):
+                return F.scaled_dot_product_attention(qf, kt, vt, attn_mask=am)
+        nbytes = 2.0 * (b * sq * h * (hd + hd_v) + b * sk * kvh * (hd + hd_v))
+        flops = 2.0 * h * (hd + hd_v) * pairs
+        bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+        out[name] = (kernel, sdpa, bound)
+    return out
+
+
+# the clock64 sums of a flash forward built with -DFLASH_CLOCKS (--flash-ab),
+# as flash_attention.cu's consumer warps take them: waiting on the ring's
+# barriers, issuing the products and waiting for the scores, mask and
+# softmax, waiting for P.V behind the softmax, rescaling O and forming P
+CLOCK_SLOTS = ("ring_wait", "scores", "mask_softmax", "pv_tail", "rescale")
+
+
+def clock_split(lib, kernel, slots) -> dict:
+    """One launch of ``kernel`` through the clocked build ``lib``: each
+    slot's share of the warps' cycles, the rest of the loop's (its start
+    and the tiles' bookkeeping), the epilogue's, and the warps' cycles."""
+    import ctypes
+
+    read = lib.repro_flash_clocks
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * (len(slots) + 2))()
+    check(read(buf) == 0, "repro_flash_clocks failed")
+    kernel()
+    torch.cuda.synchronize()
+    check(read(buf) == 0, "repro_flash_clocks failed")
+    *parts, loop, total = (float(x) for x in buf)
+    out = {name: x / total for name, x in zip(slots, parts)}
+    out["start_and_rest"] = (loop - sum(parts)) / total
+    out["epilogue"] = (total - loop) / total
+    out["warp_cycles"] = total
+    return out
+
+
+def flash_variant_source(text: str, cfg: dict) -> str:
+    """``text`` with the FLASH_FWD_CFG entries of ``cfg``'s head dims
+    replaced."""
+    import re
+
+    for hd, entry in cfg.items():
+        pat = rf"X\({hd}(, \d+){{{len(entry)}}}\)"
+        check(len(re.findall(pat, text)) == 1, f"flash source: no single {pat}")
+        text = re.sub(pat, f"X({', '.join(str(x) for x in (hd, *entry))})", text)
+    return text
 
 
 def flash_ab(parent_src: str) -> None:
-    """Build the flash kernel of ``parent_src``, this checkout's and the
-    tile variants of this one (``FLASH_VARIANTS``), each with ``-Xptxas
-    -v``; hold each against the plain version in every phase-3 case, then
-    time each at the three path shapes beside SDPA, in the order given and
-    then reversed.  Prints one JSON line per variant and round."""
+    """Build the flash kernel of ``parent_src`` (through its own wrapper),
+    this checkout's and the variants of this one (``FLASH_VARIANTS``), each
+    with ``-Xptxas -v``, and a -DFLASH_CLOCKS copy of this one; report
+    every instance's registers, spills and shared memory; hold each
+    against the plain version in every phase-3 case; split the clocked
+    copy's loop cycles at every path shape; then time each at every
+    ``FLASH_AB_SHAPES`` shape beside SDPA, in the order given and then
+    reversed.  Prints one JSON line per variant and round, then a summary
+    line."""
     import ctypes
     import importlib.util
-    import re
 
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
 
     this = (build.CSRC_DIR / kf.SOURCE).read_text()
-    consts = {}
-    for key in ("BK", "MIN_BLOCKS"):
-        m = re.findall(rf"constexpr int {key} = (\d+);", this)
-        check(len(m) == 1, f"flash source: no single {key} constant")
-        consts[key] = int(m[0])
-    sources = {f"this: BK={consts['BK']}, {consts['MIN_BLOCKS']} blocks an SM": this}
-    for bk, mb in FLASH_VARIANTS:
-        text = this
-        for key, val in (("BK", bk), ("MIN_BLOCKS", mb)):
-            text = text.replace(f"constexpr int {key} = {consts[key]};",
-                                f"constexpr int {key} = {val};")
-        sources[f"BK={bk}, {mb} blocks an SM"] = text
     parent_dir = Path(parent_src) / "repro_torch"
-    sources["parent"] = (parent_dir / "csrc" / kf.SOURCE).read_text()
+    parent_text = (parent_dir / "csrc" / kf.SOURCE).read_text()
+    # name -> (source, include directory, extra nvcc flags)
+    sources = {"this": (this, build.CSRC_DIR, [])}
+    for name, cfg in FLASH_VARIANTS.items():
+        sources[name] = (flash_variant_source(this, cfg), build.CSRC_DIR, [])
+    sources["parent"] = (parent_text, parent_dir / "csrc", [])
+    sources["this clock64"] = (this, build.CSRC_DIR, ["-DFLASH_CLOCKS"])
     vdir = build.BUILD_DIR / f"flash_ab.{os.getpid()}"
     vdir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, text) in enumerate(sources.items()):
+    for i, (name, (text, inc, flags)) in enumerate(sources.items()):
         cu, so = vdir / f"v{i}.cu", vdir / f"v{i}.so"
         cu.write_text(text)
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(cu)]
+        cmd = [build.nvcc_path(), "-I", str(inc), *build.NVCC_FLAGS, *flags,
+               "-Xptxas", "-v", "-o", str(so), str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     # the parent's own wrapper module (its C signature may differ), its
@@ -4437,29 +4692,58 @@ def flash_ab(parent_src: str) -> None:
     for name, (so, proc) in procs.items():
         text, _ = proc.communicate()
         check(proc.returncode == 0, f"nvcc failed on flash variant {name}:\n{text}")
-        regs[name] = parse_ptxas(text).get(128, {})
         lib = ctypes.CDLL(str(so))
         libs[name] = parent.bind(lib) if name == "parent" else kf.bind(lib)
+        log(f"flash variant {name}:")
+        regs[name] = flash_ptxas(text, lib, kf.HEAD_DIM_PAIRS)
+    clocked = libs.pop("this clock64")
 
-    def use(name):
+    def use(name, lib=None):
         """The wrapper module of ``name``, pointed at its build."""
         mod = parent if name == "parent" else kf
-        mod._library = lambda lib=libs[name]: lib
+        mod._library = lambda lib=lib or libs[name]: lib
         return mod
 
     for name in libs:
-        log(f"flash variant {name}: ptxas hd=128 {regs[name]}, "
-            f"max_abs_err {flash_cases(use(name)):.3e}")
+        log(f"flash variant {name}: max_abs_err {flash_cases(use(name)):.3e}")
+    shapes = flash_ab_inputs()
+
+    # where the cycles go: one launch a shape, each consumer warp's kv-loop
+    # parts summed over the grid
+    mod = use("this", clocked)
+    split = {s: clock_split(clocked, kernel(mod), CLOCK_SLOTS)
+             for s, (kernel, _, _) in shapes.items()}
+    for s, r in split.items():
+        log(f"flash this clock64 {s}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r.items() if k != "warp_cycles"))
+    log(json.dumps({"flash_this_clock64": split}))
+
     names = list(libs)
+    rows = []
     for rnd, order in enumerate((names, names[::-1])):
+        sdpa_ms = {s: device_ms(sd) for s, (_, sd, _) in shapes.items()}
         for name in order:
-            t = flash_timings(use(name))
-            row = dict(variant=name, round=rnd, ptxas_hd128=regs[name])
-            for key, shape in (("era", t), ("era_seq128", t["era_seq128"]),
-                               ("prefill", t["prefill"])):
-                row[key] = {k: shape[k] for k in
-                            ("ms", "library_ms", "kernel_over_library", "bound_ms")}
+            mod = use(name)
+            row = dict(variant=name, round=rnd)
+            for s, (kernel, _, bound) in shapes.items():
+                ms = device_ms(kernel(mod), pick=is_flash_kernel, kernels=1)
+                row[s] = dict(ms=ms, library_ms=sdpa_ms[s],
+                              kernel_over_library=ms / sdpa_ms[s], bound_ms=bound)
+            rows.append(row)
             log(json.dumps(row))
+    summary = {}
+    for s in shapes:
+        mean = {n: sum(r[s]["ms"] for r in rows if r["variant"] == n) / 2 for n in names}
+        lib_ms = sum(r[s]["library_ms"] for r in rows) / len(rows)
+        summary[s] = dict(
+            ms={n: round(m, 6) for n, m in mean.items()}, library_ms=lib_ms,
+            bound_ms=shapes[s][2],
+            parent_over={n: mean["parent"] / m for n, m in mean.items()})
+        log(f"flash-ab {s}: parent {mean['parent']:.5f} ms, this {mean['this']:.5f} "
+            f"ms ({mean['parent'] / mean['this']:.2f}x), SDPA {lib_ms:.5f} ms, best "
+            f"variant {min(mean, key=mean.get)}")
+    log(json.dumps({"flash_ab_summary": summary,
+                    "ptxas": {n: regs[n] for n in names}}))
 
 
 def bwd_ab(parent_src: str) -> None:
@@ -4687,7 +4971,7 @@ def main() -> None:
     check(bptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
     bwd_ptxas = bwd_ptxas_report(text, kf.HEAD_DIM_PAIRS)
     bwd_ptxas["flash_fwd_kernel_lse"] = {
-        str(k): v for k, v in sorted(flash_ptxas.pop("lse").items())}
+        k: v for k, v in flash_ptxas.items() if k.endswith(" lse")}
 
     def done(phase):
         log(f"phase {phase} done at {time.perf_counter() - t0:.1f}s")
@@ -4758,11 +5042,14 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention.py:34",
              **counts("flash_attention"), max_abs_err=flash_err,
              ms=flash_t["ms"], kernel_ms=flash_t["ms"],
+             ms_l2_cold=flash_t["ms_l2_cold"],
              plain_ms=flash_t["plain_ms"], bound_ms=flash_t["bound_ms"],
              bound_by=flash_t["bound_by"], library_ms=flash_t["library_ms"],
+             library_ms_l2_cold=flash_t["library_ms_l2_cold"],
              kernel_over_library=flash_t["kernel_over_library"],
              shape=flash_t["shape"], era_seq128=flash_t["era_seq128"],
-             ar_prefill=flash_t["prefill"], mla=flash_mla_t,
+             ar_prefill=flash_t["prefill"], lse_training=flash_t["lse"],
+             mla=flash_mla_t,
              hymba=flash_t["hymba"],
              audio_vlm={k: flash_t[k] for k in (
                  "paligemma_era", "paligemma_prefill", "whisper_encoder",

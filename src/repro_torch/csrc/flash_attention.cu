@@ -15,479 +15,621 @@
 // keeping v at 128 reads a third fewer V bytes and holds a third fewer
 // output accumulators.
 //
-// Bound.  At the ERA path's shape (B=8, S=256, H=12, KV=2, hd=128,
-// non-causal) the work is 4*B*H*S*S*hd = 3.2 GFLOP against 14.7 MB of
-// inputs and output, 0.00438 ms at 3.35 TB/s against 0.00326 ms at the
-// bf16 tensor peak: bytes bound it, by a little.  In the AR prefill (B=8,
-// S=512, causal) the causal half is 6.5 GFLOP against 29.4 MB: 0.00876 ms
-// (bytes) against 0.0066 ms (operations).  Both sit close to the ridge, so
-// the kernel must keep the tensor cores fed and move each byte once.
+// Bound (NVIDIA H100 80GB HBM3, 3.35 TB/s, 989 TFLOP/s bf16; each input
+// read once and the output written once; the operations the masks leave).
+//   qwen2 ERA 8x256, H 12 / KV 2, (128,128), non-causal: 14.7 MB, 3.2 GFLOP:
+//     0.00438 ms (bytes) against 0.00326 (operations).
+//   qwen2 ERA 8x128: 0.00219 ms (bytes).  AR prefill 8x512 causal: 29.4 MB,
+//     6.5 GFLOP: 0.00876 ms (bytes) against 0.0066.
+//   MLA 8x256 causal, H = KV = 16, (192,128): 0.01252 ms (bytes).
+//   hymba 8x256, H 25 / KV 5, (64,64), row lengths: 0.00470 ms (bytes);
+//     its prefill 8x640 causal, window 1024, 128 protected: 0.01174 (bytes).
+//   paligemma 8x256, H 8 / KV 1, (256,256): 0.00563 ms (bytes); its
+//     prefill 8x768 causal: 1.94e10 FLOP, 0.01957 ms (operations).
+//   whisper encoder 8x1500, H = KV = 8, (64,64): 3.69e10 FLOP, 0.03727 ms
+//     (operations); cross 8x512 over 1500 keys: 0.01272 ms (operations).
+// Most path shapes sit near the ridge; the long prefills and whisper's
+// encoder are bound by the tensor cores.
 //
-// Design (FlashAttention-2 on warp-level mma.sync).  One block of 4 warps
-// owns one (batch*head, 64-query tile) and walks the kv axis in 32-key
-// tiles, which takes the place of the TPU's sequential kv grid axis; each
-// warp owns 16 query rows end to end.  What the first version (WMMA through
-// shared memory) lost time on, and what this one does instead:
-//  1. Products and softmax in registers.  Q.K^T and P.V are
-//     mma.sync.m16n8k16 bf16 products with f32 accumulators, their operands
-//     brought from shared memory by ldmatrix (.trans for V).  Q is loaded
-//     into A fragments once and stays in registers.  The 16x32 score tile
-//     stays in the accumulator registers; the online softmax runs there,
-//     each thread holding two rows' columns, so a row's max takes two quad
-//     shuffles, and the row sum is kept per thread and reduced once at the
-//     end.  P is rounded to bf16 in registers: an m16n8 accumulator pair is
-//     the A fragment of the next k16 step.
-//  2. Output in registers.  The output accumulator (16 x hd f32 a warp, 64
-//     registers a thread at hd=128) and the running max and sum stay in
-//     registers for the whole kv loop; the output is written once, as bf16,
-//     through shared memory in 16-byte stores.
-//  3. Overlap.  K/V tiles are copied by cp.async.cg (16 bytes a thread)
-//     into a 2-stage ring: tile t+1 is in flight while tile t is computed.
-//     Rows are padded to hd+8 bf16, so the 8 row addresses of an ldmatrix
-//     phase fall in 8 distinct 16-byte bank groups.  Keys past Sk are
-//     zero-filled.  The tile's kv_pos and kv_mask entries come in with it,
-//     by 4-byte cp.async, so no load waits in the loop.
-//  4. Occupancy.  No score, probability or output tile lives in shared
-//     memory: a block holds the 2-stage K/V ring (Q is staged in the second
-//     stage before the loop, the output in the first after it) and the
-//     positions, 35 KB at hd=128 against 113 KB before.  Registers set the
-//     occupancy: at most 168 a thread (167 used at hd=128, no spill) let
-//     three blocks, 12 warps, share an SM, so the ERA shape's 384 blocks
-//     (S=256, 64-query tiles) run in one wave on 132 SMs, and its 192 at
-//     S=128 in less.  32-key tiles keep the score tile small enough for
-//     that budget; 64-key tiles at two blocks an SM measured slower at
-//     S=256 (PERF.md).  Late query tiles, which a causal mask leaves the
-//     most work, are dispatched first.
-//  5. A tile skip from positions, not indices.  Before the loop the block
-//     takes the min and max q_pos of its rows and, one warp per tile and a
-//     warp vote, marks each kv tile live (some key can be valid for some
-//     row: kv_pos >= 0, kv_mask set, kp <= max q_pos under causal, and
-//     kp > min q_pos - window or kp < protected under a window) and full
-//     (every key is valid for every row).  Dead tiles are never loaded or
-//     computed, which leaves (O, m, l) as an all-masked tile would; full
-//     tiles skip the per-element mask.  Arbitrary positions (ring slots,
-//     holes of -1, queries offset from keys) are handled, since nothing is
-//     inferred from tile numbers.  A row with no valid key ends with l = 0
-//     and writes exact zeros.
-//  6. Host.  The shared-memory attribute is set once per instance and card,
-//     not on every launch.
+// What held the previous design back: FlashAttention-2 on warp-level
+// mma.sync (4 warps of 16 query rows over 32-key tiles, a 2-stage cp.async
+// ring), 1.15-2.61x SDPA at 8 of the 10 path shapes.  A clock64 copy of it
+// (chip_smoke.py --flash-ab; NVIDIA H100 80GB HBM3, 700 W; PERF.md) split
+// a warp's cycles: waiting for the next tile's copies and the block-wide
+// barrier after them 0.15-0.30, its m16n8k16 products with the ldmatrix
+// loads that feed them 0.19-0.36, mask and softmax 0.11-0.27, all in
+// sequence: a warp computed nothing while it waited or copied.  This
+// design (FlashAttention-3's plan, arXiv:2407.08608, laid out as the
+// backward's dQ kernel, flash_attention_bwd.cu):
 //
-//  7. Head dim 256: Q from shared memory.  Kept in registers, a warp's Q
-//     fragments would take 64 registers a thread and its 16 x 256 output
-//     accumulator 128, which with the score tile and addresses is past the
-//     255 a thread can have: it would spill.  So the (256,256) instance
-//     keeps Q in shared memory (64 x 264 bf16, 33 KB of its own, beside the
-//     two 33 KB K/V stages: ~100 KB a block, two blocks an SM) and reads
-//     each 16-dim A fragment by ldmatrix as the Q.K^T loop needs it, once a
-//     kv tile: 16 more ldmatrix a warp and tile against 32 for K, and the
-//     64 registers go to the accumulator.  The alternatives were an output
-//     split over two warps that share each score tile (the scores computed
-//     twice, or passed through shared memory) and 8 query rows a warp (half
-//     of each m16 product wasted); both cost more than the reloads.  At
-//     paligemma's ERA shape (B=8, S=256, H=8, KV=1, non-causal) the work is
-//     4.3 GFLOP against 18.9 MB, 0.0056 ms at 3.35 TB/s against 0.0043 ms
-//     at the bf16 peak: bytes bound it, as at hd 128.
+//  1. Loads by TMA.  A block owns one (batch, head, 64-query tile): a
+//     producer warp loads Q once and keeps the block's live K and V tiles
+//     in flight in a ring of STAGES stages, a full and an empty mbarrier a
+//     stage for K and another pair for V: a tile's K is free once its
+//     scores are computed, its V only a tile later (3.), so with separate
+//     barriers two stages already keep one tile in flight.  Tile 0 is
+//     loaded with Q, before the tiles are marked (4.): every ring starts
+//     with it, and the consumers drop it if it is dead.  Tensor maps are
+//     4-D over (B, S, heads, hd), so a ragged Sq or Sk zero-fills inside
+//     its own batch row; tiles are 128-byte swizzled in 64-column boxes
+//     from hd 64 up, 64-byte at hd 32 (Tile<HD, ROWS>, flash_sm90.cuh).
+//     The maps are encoded on the host in every call and passed as
+//     __grid_constant__ parameters: nothing is copied to device memory,
+//     so a launch can be captured in a CUDA graph.  The producer also
+//     writes each tile's key positions (kv_pos with kv_mask and Sk folded
+//     in, -1 = no key) and its entry word (live, full) beside it in the
+//     stage, and after the last live tile an entry with no tile (END),
+//     which ends the consumers' loop.  The consumers' ring waits are now
+//     0.03-0.11 of their cycles.
+//  2. Products by wgmma.  One consumer warpgroup computes S = Q K^T with
+//     both operands in shared memory (wgmma_ss, K-major), a 64 x BK tile in
+//     its accumulator registers.  The online softmax runs there,
+//     branch-free: the softcap and the per-element mask are template
+//     instances picked outside the element loop (a full tile skips the
+//     mask), and exp2 is the SFU's ex2.approx.  P is rounded to bf16 in
+//     registers and is the register A operand of O += P V (wgmma_rs), with
+//     V read through an MN-major descriptor.  O and the running max and
+//     sum stay in registers.
+//  3. Overlap inside the warpgroup.  The products of tile j+1's scores and
+//     tile j's P V are issued together; the warpgroup waits for the scores
+//     only, runs tile j+1's softmax while the tensor cores run P V (the
+//     wait for P V behind it is 0.00-0.02 of the cycles), then rescales O
+//     and frees tile j's V.  Across blocks an SM holds BLOCKS of them,
+//     whose products and softmax interleave.
+//  4. Tile skip from positions, not indices.  Before the loop the block
+//     takes the min and max q_pos of its rows and, one warp a tile, marks
+//     each kv tile live (some key can be valid for some row: kv_pos >= 0,
+//     kv_mask set, kp <= max q_pos under causal, and kp > min q_pos -
+//     window or kp < protected under a window) and full (every key valid
+//     for every row), one byte a tile: no atomics.  The flags hold a chunk
+//     of CHUNK tiles: the five warps mark the first before the loop, and
+//     the producer warp marks each later one when it reaches it (past
+//     32,768 keys at 32-key tiles, 65,536 at 64-key ones), so shared
+//     memory does not grow with Sk and any Sk runs.  Only the producer
+//     reads the flags; the consumers take a tile's full flag from its ring
+//     entry.  Only live tiles are computed, which leaves (O, m, l) as an
+//     all-masked tile would.  Ring slots, holes of -1 and queries offset
+//     from keys are handled, since nothing is inferred from tile numbers.
+//     A row with no valid key ends with l = 0 and writes exact zeros.  The grid is (B*H, query tiles)
+//     with the last query tile first, so under a causal mask the blocks
+//     with the most work are dispatched first.
+//  5. Output.  O / l is written once as bf16 through shared memory (over Q
+//     and the ring, once every product has read them), 16 bytes a thread,
+//     never past row Sq.
+//  6. Determinism.  No atomics; each (b, h, query tile) is one block's, its
+//     kv tiles summed in order: two runs are bitwise equal.  The LSE
+//     instance differs only in the store of each row's log-sum-exp, so its
+//     O is bitwise the serving instance's.
 //
-//  8. For training, a non-null `lse` takes each row's m * mul + log2(l)
-//     (base 2, the units the kernel's exp2 works in), or +inf for a row
-//     with no valid key, written once after the loop; the backward
-//     recomputes P from it.  It is a separate instance (LSE true) of every
-//     pair, all of which the backward has: serving calls pass null and
-//     launch the instances as they were, register for register.
+// Per head dim (FLASH_FWD_CFG), chosen by --flash-ab at the ten path
+// shapes and the training one (PERF.md): the key tile, the ring's stages
+// and the blocks an SM the registers are set for.  Registers and shared
+// memory (the same at every Sk), no spill anywhere:
+//   hd 32 / 64: 64, 3 stages, 3 blocks: 128 registers, 31.6 / 60.3 KB.
+//     4 blocks with 32-key tiles (94-96 registers) took 0.164 ms at
+//     whisper's encoder against 0.132; with 64-key tiles they spill.
+//   hd 128: 32, 3, 3: 127 registers (LSE 128), 68.1 KB.  The ERA
+//     shape's 384 blocks fit one wave: 0.0144 ms against 0.0167 with
+//     64-key tiles at 2 blocks (168 registers), which win the causal
+//     8x512 prefill (0.0305 against 0.0327) and 8x128 (0.0069 / 0.0073).
+//   hd 192 (MLA): 64, 2, 2: 168 registers, 109.2 KB.
+//   hd 256: 64, 3, 1: 254 registers, 232.3 KB; paligemma's 8x768 prefill
+//     0.075-0.078 ms against 0.082 at two stages.
+// A block is one consumer warpgroup (64 query rows) and a producer warp.
+// Two consumer warpgroups a block (128 query rows sharing each K/V tile:
+// half the L2 reads; 288 threads, 161-168 registers, one block an SM) were
+// slower or no faster at every shape (qwen2 ERA 0.0178 ms, whisper's
+// encoder 0.162): fewer warps an SM hide less of the softmax's latency.
+// Where the time goes now (a build with -DFLASH_CLOCKS, which --flash-ab
+// makes: each consumer warp's clock64 sums): in the kv loop, mask and
+// softmax take 0.12-0.37 of a consumer warp's cycles and the scores' wait
+// 0.04-0.18; before and after it, 0.42-0.57 and 0.06-0.16 at the short
+// shapes (the tile marking's loads, Q's and the first tile's arrival, the
+// output's write), 0.26 and 0.03 at whisper's 1,500 keys.
 //
-// Numbers.  Scores are accumulated in f32; the softmax uses exp2f with the
-// scale folded in by log2(e) (CUDA's exp2f: at most 2 ulp, far inside the
+// For training, a non-null `lse` takes each row's m * mul + log2(l) (base
+// 2, the units the kernel's exp2 works in), or +inf for a row with no valid
+// key; the backward (flash_attention_bwd.cu) recomputes P from it.  It is a
+// separate instance (LSE true) of every pair.
+//
+// Numbers.  Scores are accumulated in f32; p = ex2.approx(x * mul - m *
+// mul) with the scale folded into mul (about 2^-22 relative, far inside the
 // 2^-7 relative tolerance the output is held to); the softcap uses the
-// full-precision tanhf.  P is rounded to bf16 before P.V, as before; the
-// row sum l adds the unrounded p.
+// full-precision tanhf.  P is rounded to bf16 before P V; the row sum l
+// adds the unrounded p.
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace flash::sm90;
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 32;          // keys per kv tile
-constexpr int NWARPS = BQ / 16; // one warp per 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int MIN_BLOCKS = 3;   // blocks an SM must hold: <= 168 registers
-// the (192,128) instance keeps 48 registers of Q fragments a thread more
-// than (128,128), and (256,256) 64 more accumulators: two blocks an SM
-// (<= 255 registers) keep them from spilling
-constexpr int MIN_BLOCKS_WIDE = 2;
-static_assert(2 * BK <= NTHREADS, "one thread a kv_pos and a kv_mask entry");
+constexpr int BQ = 64;              // query rows of a block: its consumer warpgroup's
+constexpr int NC = 128;             // consumer threads
+constexpr int NTHREADS = NC + 32;   // and the producer warp
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int CHUNK = 1024;         // kv tiles whose flags a marking pass holds
+constexpr int MARK = 8;             // tiles a warp marks at a time
+constexpr size_t SMEM_MAX = 232448;     // dynamic shared memory a block can have
+constexpr size_t SMEM_PER_SM = 233472;  // an SM's, every block's share counted
+
+// a kv tile's flags, and its ring entry's word (END: the ring has no more tiles)
+constexpr int LIVE = 1, FULL = 2, END = 4;
+
+// Per q/k head dim: X(hd, keys a kv tile, stages of the ring, blocks an SM
+// the register budget is set for).
+#define FLASH_FWD_CFG(X) \
+  X(32, 64, 3, 3) X(64, 64, 3, 3) X(128, 32, 3, 3) X(192, 64, 2, 2) X(256, 64, 3, 1)
+
+template <int HD>
+struct Cfg;
+#define FLASH_FWD_CFG_DEF(D, K, S, NB) \
+  template <>                          \
+  struct Cfg<D> {                      \
+    static constexpr int BK = K;       \
+    static constexpr int STAGES = S;   \
+    static constexpr int BLOCKS = NB;  \
+  };
+FLASH_FWD_CFG(FLASH_FWD_CFG_DEF)
+#undef FLASH_FWD_CFG_DEF
+
+// --flash-ab builds a copy with -DFLASH_CLOCKS: each consumer warp sums the
+// clock64 cycles of its kv loop's parts, read back by repro_flash_clocks
+#ifdef FLASH_CLOCKS
+#define CLOCKED(...) __VA_ARGS__
+constexpr int CLOCK_SLOTS = 5;  // ring wait, scores, mask and softmax, P V's tail, rescale
+__device__ unsigned long long flash_clk[CLOCK_SLOTS + 2];  // then the loop's, all
+#else
+#define CLOCKED(...)
+#endif
 
 struct Params {
-  const bf16* q;       // (B, Sq, H, hd)
-  const bf16* k;       // (B, Sk, KV, hd)
-  const bf16* v;       // (B, Sk, KV, hd_v)
-  bf16* o;             // (B, Sq, H, hd_v)
-  const int* q_pos;    // (Sq,)
-  const int* kv_pos;   // (Sk,), < 0 = invalid slot
-  const int* kv_mask;  // (B, Sk), 0 = masked key; may be null
-  float* lse;          // (B, H, Sq) log2-sum-exp2 of each row; may be null
+  CUtensorMap tq, tk, tv;  // (B, S, heads, hd or hd_v) bf16, boxes (CB, 1, BQ or BK, 1)
+  bf16* o;                 // (B, Sq, H, hd_v)
+  const int* q_pos;        // (Sq,)
+  const int* kv_pos;       // (Sk,), < 0 = invalid slot
+  const int* kv_mask;      // (B, Sk), 0 = masked key; may be null
+  float* lse;              // (B, H, Sq) log2-sum-exp2 of each row; may be null
   int B, H, KV, Sq, Sk;
   float scale, softcap;
   int window, causal, protected_;
 };
 
-// Shared memory: the K0 V0 K1 V1 tiles (bf16, pitches LDK and LDV; Q is
-// staged from stage 1 on before the loop, or kept in a buffer of its own
-// after them where it is read each tile (QSMEM), the output in stage 0
-// after the loop),
-// the two tiles' kv_pos and kv_mask entries, the block's q positions and
-// their min/max, then two bitmasks over the kv tiles (live, full), sized at
-// launch.
+// Shared memory of a block (from a 1024-aligned base): Q, the ring's K and
+// V tiles, each stage's key positions and entry word, the barriers (Q's,
+// then each stage's K full, V full, K empty and V empty), the two q-range
+// warps' min and max, then one byte a kv tile of a chunk (LIVE, FULL).
+// After the loop the output is staged over Q and the ring (rows of HDV + 8).
 template <int HD, int HDV>
 struct Smem {
-  // Q read from shared memory in the kv loop, not held in registers
-  static constexpr bool QSMEM = HD > 192;
-  static constexpr int LDK = HD + 8;
-  static constexpr int LDV = HDV + 8;
-  static constexpr size_t ktile = size_t(BK) * LDK * 2;
-  static constexpr size_t stage = ktile + size_t(BK) * LDV * 2;
-  static constexpr size_t qbytes = size_t(BQ) * LDK * 2;
-  static constexpr size_t q_off = 2 * stage;  // Q's own buffer (QSMEM)
-  static constexpr size_t kv_bytes =
-      QSMEM ? q_off + qbytes : stage + (qbytes > stage ? qbytes : stage);
-  static_assert(size_t(BQ) * LDV * 2 <= kv_bytes, "the output stages in the tiles");
-  static constexpr size_t kp_off = kv_bytes;
-  static constexpr size_t km_off = kp_off + 2 * BK * 4;
-  static constexpr size_t qp_off = km_off + 2 * BK * 4;
-  static constexpr size_t red_off = qp_off + BQ * 4;
-  static constexpr size_t bits_off = red_off + 2 * NWARPS * 4;
-  static size_t bytes(int nk) { return bits_off + 2 * size_t((nk + 31) / 32) * 4; }
+  static constexpr int BK = Cfg<HD>::BK;
+  static constexpr int STAGES = Cfg<HD>::STAGES;
+  using TQ = Tile<HD, BQ>;
+  using TK = Tile<HD, BK>;
+  using TV = Tile<HDV, BK>;
+  static constexpr int LDO = HDV + 8;
+  static constexpr size_t STAGE = size_t(TK::BYTES) + TV::BYTES;
+  static constexpr size_t q_off = 0;
+  static constexpr size_t ring_off = TQ::BYTES;  // stage s: K, then V
+  static constexpr size_t kp_off = ring_off + size_t(STAGES) * STAGE;
+  static constexpr size_t entry_off = kp_off + size_t(STAGES) * BK * 4;
+  static constexpr size_t bar_off = entry_off + (STAGES * 4 + 7) / 8 * 8;
+  static constexpr size_t red_off = bar_off + (1 + 4 * STAGES) * 8;
+  static constexpr size_t flags_off = red_off + 4 * 4;
+  // the base's alignment, the layout, the flags
+  static constexpr size_t BYTES = 1024 + flags_off + CHUNK;
+  static_assert(TQ::BYTES % (8 * TQ::SW) == 0 && TK::BYTES % (8 * TK::SW) == 0 &&
+                    TV::BYTES % (8 * TV::SW) == 0,
+                "tiles at swizzle-aligned offsets");
+  static_assert(size_t(BQ) * LDO * 2 <= kp_off, "the output stages over Q and the ring");
+  static_assert(BK == 32 || BK == 64, "whole warps of keys, one wgmma of scores");
+  static_assert(BYTES <= SMEM_MAX, "a block's shared memory");
+  static_assert(size_t(Cfg<HD>::BLOCKS) * (BYTES + 1024) <= SMEM_PER_SM,
+                "BLOCKS blocks of this instance fit an SM's shared memory");
 };
 
-// LSE: also write each row's log-sum-exp for the backward (training); the
-// serving instances (LSE false) compile exactly as without it.  At hd 128
-// the LSE instance keeps m past the loop, one value more than 168
-// registers hold: it takes the wide budget (two blocks an SM) rather than
-// spill
-template <int HD, int HDV, bool LSE>
-__global__ void __launch_bounds__(
-    NTHREADS, HD > 128 || (LSE && HD == 128) ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
-    flash_fwd_kernel(const Params p) {
-  using L = Smem<HD, HDV>;
-  constexpr bool QSMEM = L::QSMEM;
-  constexpr int LDK = L::LDK;
-  constexpr int LDV = L::LDV;
-  constexpr int VPR = HD / 8;    // 16-byte vectors per Q / K row
-  constexpr int VPRV = HDV / 8;  // and per V / output row
-  extern __shared__ __align__(128) unsigned char smem[];
-  // stage s: K, then V (offsets, not a pointer array, so a run-time stage
-  // index stays in registers)
-  auto k_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + s * L::stage); };
-  auto v_tile = [&](int s) { return reinterpret_cast<bf16*>(smem + s * L::stage + L::ktile); };
-  int* Kp = reinterpret_cast<int*>(smem + L::kp_off);  // [2][BK] kv_pos
-  int* Km = reinterpret_cast<int*>(smem + L::km_off);  // [2][BK] kv_mask
-  int* Qp = reinterpret_cast<int*>(smem + L::qp_off);  // [BQ] q_pos
-  int* red = reinterpret_cast<int*>(smem + L::red_off);
-  const int nk = (p.Sk + BK - 1) / BK;
-  const int nwords = (nk + 31) / 32;
-  uint32_t* live = reinterpret_cast<uint32_t*>(smem + L::bits_off);  // then full
+// The softcap, the mask and the online softmax of one kv tile, in place of
+// its scores x (64 x BK, this thread's element e of n8 block j at [4j + e]:
+// row g8 + 8 (e / 2) of its warp's 16, key 8j + 2 t4 + e % 2).  Kp holds the
+// tile's key positions and qp this thread's two rows' positions; alpha
+// takes the factor the running output is rescaled by.
+template <bool CAPPED, bool MASKED, int BK>
+__device__ __forceinline__ void online_softmax(float (&x)[BK / 2], float (&m_run)[2],
+                                               float (&l_run)[2], float (&alpha)[2],
+                                               const int* Kp, const int (&qp)[2], int t4,
+                                               float mul, const Params& p) {
+  if constexpr (CAPPED || MASKED) {
+    const float cap_in = CAPPED ? p.scale / p.softcap : 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int2 kp =
+          MASKED ? *reinterpret_cast<const int2*>(Kp + 8 * j + 2 * t4) : make_int2(0, 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& v = x[4 * j + e];
+        if constexpr (CAPPED) v = p.softcap * tanhf(v * cap_in);
+        if constexpr (MASKED) v = key_valid((e & 1) ? kp.y : kp.x, qp[e >> 1], p) ? v : NEG_INF;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m_run[r];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]));
+    mx = quad_max(mx);
+    // no valid key yet: subtract 0, so masked scores give exp2(-huge) = 0
+    const float base = mx > NEG_INF / 2 ? mx * mul : 0.f;
+    alpha[r] = ex2_approx(fmaf(m_run[r], mul, -base));
+    m_run[r] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      x[4 * j + 2 * r] = ex2_approx(fmaf(x[4 * j + 2 * r], mul, -base));
+      x[4 * j + 2 * r + 1] = ex2_approx(fmaf(x[4 * j + 2 * r + 1], mul, -base));
+      sum += x[4 * j + 2 * r] + x[4 * j + 2 * r + 1];
+    }
+    l_run[r] = l_run[r] * alpha[r] + sum;  // this thread's columns only
+  }
+}
 
-  // late query tiles first: under a causal mask they have the most work
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int bh = blockIdx.y;
+// the four instances of the softmax, picked by two uniform flags
+#define FWD_SOFTMAX(capped, masked, ...)                        \
+  do {                                                          \
+    if (capped) {                                               \
+      if (masked) online_softmax<true, true, BK>(__VA_ARGS__);  \
+      else online_softmax<true, false, BK>(__VA_ARGS__);        \
+    } else {                                                    \
+      if (masked) online_softmax<false, true, BK>(__VA_ARGS__); \
+      else online_softmax<false, false, BK>(__VA_ARGS__);       \
+    }                                                           \
+  } while (0)
+
+// the consumer warpgroup's own barrier (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(NC) : "memory");
+}
+
+// This lane's key positions in the MARK kv tiles t0, t0 + stride, ..
+// (kv_mask and Sk folded in, -1 = no key).
+template <int BK>
+__device__ __forceinline__ void load_marks(int (&marks)[MARK][BK / 32], int t0, int stride,
+                                           int lane, long mask_off, const Params& p) {
+#pragma unroll
+  for (int u = 0; u < MARK; ++u)
+#pragma unroll
+    for (int c = 0; c < BK / 32; ++c) {
+      const int j = (t0 + u * stride) * BK + 32 * c + lane;
+      marks[u][c] = j < p.Sk ? p.kv_pos[j] : -1;
+      if (j < p.Sk && p.kv_mask != nullptr && p.kv_mask[mask_off + j] == 0) marks[u][c] = -1;
+    }
+}
+
+// The flags of those tiles below `end`, for query positions in [lo, hi],
+// into flags[t % CHUNK]: a warp's vote, stored by its first lane.
+template <int BK>
+__device__ __forceinline__ void store_marks(uint8_t* flags, const int (&marks)[MARK][BK / 32],
+                                            int t0, int stride, int end, int lane, int lo, int hi,
+                                            const Params& p) {
+#pragma unroll
+  for (int u = 0; u < MARK; ++u) {
+    const int t = t0 + u * stride;
+    if (t >= end) break;
+    bool some = false, every = true;
+#pragma unroll
+    for (int c = 0; c < BK / 32; ++c) key_reach(marks[u][c], lo, hi, p, some, every);
+    const bool any = __any_sync(0xffffffffu, some);
+    const bool all = __all_sync(0xffffffffu, every);
+    if (lane == 0) flags[t % CHUNK] = uint8_t((any ? LIVE : 0) | (any && all ? FULL : 0));
+  }
+}
+
+template <int HD, int HDV, bool LSE>
+__global__ void __launch_bounds__(NTHREADS, Cfg<HD>::BLOCKS)
+    flash_fwd_kernel(const __grid_constant__ Params p) {
+  using L = Smem<HD, HDV>;
+  constexpr int BK = L::BK;
+  constexpr int S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Qt = smem + L::q_off;
+  auto k_tile = [&](int s) { return smem + L::ring_off + size_t(s) * L::STAGE; };
+  auto v_tile = [&](int s) { return k_tile(s) + L::TK::BYTES; };
+  int* kps = reinterpret_cast<int*>(smem + L::kp_off);
+  int* entry = reinterpret_cast<int*>(smem + L::entry_off);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* k_empty = v_full + S;
+  uint64_t* v_empty = k_empty + S;
+  int* red = reinterpret_cast<int*>(smem + L::red_off);
+  uint8_t* flags = smem + L::flags_off;
+  CLOCKED(const long long c_start = clock64();)
+
+  const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int kvh = h / (p.H / p.KV);
+  // the last query tile first: under a causal mask it has the most work
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-
-  // element strides between rows and offsets of this (b, h) / (b, kvh);
-  // few values are kept live through the kv loop, to leave registers to
-  // the products
-  const int q_stride = p.H * HD;
-  const int kv_stride = p.KV * HD;
-  const long q_off = (long(b) * p.Sq * p.H + h) * HD;
-  const long kv_off = (long(b) * p.Sk * p.KV + kvh) * HD;
-  const long v_off = (long(b) * p.Sk * p.KV + kvh) * HDV;
+  const int nk = (p.Sk + BK - 1) / BK;
   const long mask_off = long(b) * p.Sk;
-  const bool masked = p.kv_mask != nullptr;
 
-  // Q from the second stage's K buffer on (or its own buffer); rows past
-  // Sq are zeros
-  bf16* Qs = QSMEM ? reinterpret_cast<bf16*>(smem + L::q_off) : k_tile(1);
-  for (int idx = tid; idx < BQ * VPR; idx += NTHREADS) {
-    const int r = idx / VPR, c = (idx % VPR) * 8;
-    const bool in = q0 + r < p.Sq;
-    cp_async16(Qs + r * LDK + c, p.q + (in ? q_off + long(q0 + r) * q_stride + c : 0), in);
+  // the producer's first thread: the barriers, then Q and tile 0's K and V,
+  // in flight while the tiles are marked.  Every ring starts with tile 0:
+  // live, it is the first tile computed; dead, the consumers drop it.
+  if (tid == NC) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 32);  // the producer warp's lanes (the tile's key positions)
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], NC);
+      mbar_init(&v_empty[s], NC);
+    }
+    fence_barrier_init();
+    mbar_expect_tx(q_full, L::TQ::BYTES);
+    load_tile<HD, BQ>(Qt, &p.tq, q_full, h, q0, b);
+    // K's bytes without an arrival: the warp's 32 come with tile 0's key
+    // positions, after the marking
+    mbar_expect_tx_only(&k_full[0], L::TK::BYTES);
+    load_tile<HD, BK>(k_tile(0), &p.tk, &k_full[0], kvh, 0, b);
+    mbar_expect_tx(&v_full[0], L::TV::BYTES);
+    load_tile<HDV, BK>(v_tile(0), &p.tv, &v_full[0], kvh, 0, b);
   }
-  cp_async_commit();
-
-  // the block's q-position range, then the live / full bitmask of kv tiles
-  {
+  // this thread's rows as a consumer: 16 w + g8 and + 8
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int row0 = 16 * warp + g8;
+  int qp[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    qp[r] = qi < p.Sq && warp < NWARPS - 1 ? p.q_pos[qi] : Q_PAD_POS;
+  }
+  // The block's q-position range (rows inside Sq), then the live and full
+  // flags of the first chunk's kv tiles, one warp a tile.  MARK tiles a
+  // warp at a time: their loads are issued together, the first batch
+  // before the q range is known, so the pass waits out about one load
+  // latency per MARK * NWARPS tiles (against one tile a warp at a time: 4%
+  // less time at whisper's cross prefill, 6% at MLA's 8x256, in one
+  // --flash-ab process).
+  int marks[MARK][BK / 32];
+  load_marks<BK>(marks, warp, NWARPS, lane, mask_off, p);
+  if (warp < 2) {
     const int qi = q0 + tid;
-    const bool in = tid < BQ && qi < p.Sq;
-    const int qp = in ? p.q_pos[qi] : Q_PAD_POS;
-    if (tid < BQ) Qp[tid] = qp;
-    int lo = in ? qp : INT32_MAX, hi = in ? qp : INT32_MIN;
+    const bool in = qi < p.Sq;
+    const int qpos = in ? p.q_pos[qi] : 0;
+    int lo = in ? qpos : INT32_MAX, hi = in ? qpos : INT32_MIN;
     for (int o = 16; o > 0; o >>= 1) {
       lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
       hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
     }
     if (lane == 0) {
       red[warp] = lo;
-      red[NWARPS + warp] = hi;
-    }
-    for (int w = tid; w < 2 * nwords; w += NTHREADS) live[w] = 0u;
-  }
-  __syncthreads();
-  int min_qp = red[0], max_qp = red[NWARPS];
-  for (int w = 1; w < NWARPS; ++w) {
-    min_qp = min(min_qp, red[w]);
-    max_qp = max(max_qp, red[NWARPS + w]);
-  }
-  for (int t = warp; t < nk; t += NWARPS) {
-    bool any = false, all = true;
-#pragma unroll
-    for (int c = 0; c < BK / 32; ++c) {
-      const int j = t * BK + c * 32 + lane;
-      int kp = -1;
-      if (j < p.Sk) {
-        kp = p.kv_pos[j];
-        if (masked && p.kv_mask[mask_off + j] == 0) kp = -1;
-      }
-      // some row may see the key / every row sees it
-      bool some = kp >= 0, every = kp >= 0;
-      if (p.causal) {
-        some = some && kp <= max_qp;
-        every = every && kp <= min_qp;
-      }
-      if (p.window > 0) {
-        const bool sink = kp < p.protected_;
-        some = some && (kp > min_qp - p.window || sink);
-        every = every && (kp > max_qp - p.window || sink);
-      }
-      any = any || some;
-      all = all && every;
-    }
-    any = __any_sync(0xffffffffu, any);
-    all = __all_sync(0xffffffffu, all);
-    if (lane == 0) {
-      if (any) atomicOr(&live[t >> 5], 1u << (t & 31));
-      if (all) atomicOr(&live[nwords + (t >> 5)], 1u << (t & 31));
+      red[2 + warp] = hi;
     }
   }
   __syncthreads();
-
-  // issue the cp.async copies of kv tile t into stage s: K, V, and the
-  // tile's kv_pos and kv_mask entries (keys past Sk are zero-filled).  The
-  // copy loop is not unrolled: its addresses would hold registers that the
-  // products need.
-  auto load_tile = [&](int t, int s) {
-    const int k0 = t * BK;
-#pragma unroll 1
-    for (int idx = tid; idx < BK * VPR; idx += NTHREADS) {
-      const int r = idx / VPR, c = (idx % VPR) * 8;
-      const bool in = k0 + r < p.Sk;
-      const long off = in ? kv_off + long(k0 + r) * kv_stride + c : 0;
-      cp_async16(k_tile(s) + r * LDK + c, p.k + off, in);
-      if (HDV == HD) cp_async16(v_tile(s) + r * LDV + c, p.v + off, in);
-    }
-    if (HDV != HD) {
-#pragma unroll 1
-      for (int idx = tid; idx < BK * VPRV; idx += NTHREADS) {
-        const int r = idx / VPRV, c = (idx % VPRV) * 8;
-        const bool in = k0 + r < p.Sk;
-        const long off = in ? v_off + long(k0 + r) * p.KV * HDV + c : 0;
-        cp_async16(v_tile(s) + r * LDV + c, p.v + off, in);
-      }
-    }
-    const int j = k0 + (tid % BK);
-    const bool in = j < p.Sk;
-    if (tid < BK) cp_async4(Kp + s * BK + tid, p.kv_pos + (in ? j : 0), in);
-    else if (tid < 2 * BK && masked)
-      cp_async4(Km + s * BK + tid - BK, p.kv_mask + (in ? mask_off + j : 0), in);
-  };
-
-  int cur = next_tile(live, 0, nk);
-  if (cur < nk) {
-    load_tile(cur, 0);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q has landed
-  } else {
-    cp_async_wait<0>();
+  const int min_qp = min(red[0], red[1]), max_qp = max(red[2], red[3]);
+  for (int t0 = warp, end = min(nk, CHUNK); t0 < end; t0 += MARK * NWARPS) {
+    if (t0 != warp) load_marks<BK>(marks, t0, NWARPS, lane, mask_off, p);
+    store_marks<BK>(flags, marks, t0, NWARPS, end, lane, min_qp, max_qp, p);
   }
   __syncthreads();
 
-  // this warp's Q rows as A fragments, kept for the whole loop (QSMEM:
-  // one fragment, read from shared memory for each 16-dim step of a tile)
-  const int row0 = warp * 16;
-  const bf16* q_row = Qs + (row0 + (lane & 15)) * LDK + (lane >> 4) * 8;
-  uint32_t qf[QSMEM ? 1 : HD / 16][4];
-  if constexpr (!QSMEM) {
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(qf[kk], q_row + kk * 16);
+  if (warp == NWARPS - 1) {
+    // producer: ring entries of tile 0 and the live kv tiles after it, K
+    // with its key positions and entry word, then V, and last an END
+    // entry; the consumers free a tile's K after its scores and its V
+    // after its P V, a tile later, so each has its own barriers.  The
+    // first live tile after t, or nk; the warp marks each chunk after the
+    // first when it reaches it.
+    auto next_live = [&](int t) {
+      for (++t; t < nk; ++t) {
+        if (t % CHUNK == 0) {
+          for (int t0 = t, end = min(nk, t + CHUNK); t0 < end; t0 += MARK) {
+            load_marks<BK>(marks, t0, 1, lane, mask_off, p);
+            store_marks<BK>(flags, marks, t0, 1, end, lane, min_qp, max_qp, p);
+          }
+          __syncwarp();
+        }
+        if (flags[t % CHUNK] & LIVE) break;
+      }
+      return t;
+    };
+    for (int n = 0, t = 0;; t = next_live(t), ++n) {
+      const int s = n % S;
+      const uint32_t phase = ((n / S) - 1) & 1;
+      if (n >= S) mbar_wait(&k_empty[s], phase);
+      if (t == nk) {
+        if (lane == 0) entry[s] = END;
+        mbar_arrive(&k_full[s]);
+        return;
+      }
+      for (int i = lane; i < BK; i += 32) {
+        const int j = t * BK + i;
+        int kp = -1;
+        if (j < p.Sk) {
+          kp = p.kv_pos[j];
+          if (p.kv_mask != nullptr && p.kv_mask[mask_off + j] == 0) kp = -1;
+        }
+        kps[s * BK + i] = kp;
+      }
+      if (lane == 0) entry[s] = flags[t % CHUNK];
+      if (n == 0) {  // tile 0's copies are in flight
+        mbar_arrive(&k_full[0]);
+        continue;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&k_full[s], L::TK::BYTES);
+        load_tile<HD, BK>(k_tile(s), &p.tk, &k_full[s], kvh, t * BK, b);
+        if (n >= S) mbar_wait(&v_empty[s], phase);
+        mbar_expect_tx(&v_full[s], L::TV::BYTES);
+        load_tile<HDV, BK>(v_tile(s), &p.tv, &v_full[s], kvh, t * BK, b);
+      } else {
+        mbar_arrive(&k_full[s]);
+      }
+    }
   }
-  __syncthreads();  // Q's buffer is the first prefetch's target
 
-  // this thread's rows: g and g + 8 of the warp's 16; columns 2*t4, +1 of
-  // each 8-wide block
-  const int g = lane >> 2, t4 = lane & 3;
+  // the consumer warpgroup
   const bool capped = p.softcap > 0.f;
   // p = exp2(x * mul - m * mul), x the (capped) score; raw scores are
   // unscaled, so without a cap the scale folds into mul
   const float mul = capped ? LOG2E : p.scale * LOG2E;
-  const float cap_in = capped ? p.scale / p.softcap : 0.f;
 
-  float o[HDV / 8][4];
+  float o[HDV / 2];
 #pragma unroll
-  for (int n = 0; n < HDV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF};
   float l_run[2] = {0.f, 0.f};
+  uint32_t pa[BK / 16][4];  // the previous tile's P, the A operand of O += P V
 
-  int stage = 0;
-  while (cur < nk) {
-    const int nxt = next_tile(live, cur + 1, nk);
-    if (nxt < nk) {
-      load_tile(nxt, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile `cur` is in stage `stage` for every thread
-
-    const bf16* Kt = k_tile(stage);
-    const bf16* Vt = v_tile(stage);
-
-    // S = Q K^T, 16 x BK a warp, in registers
-    float s[BK / 8][4];
+  // S = Q K^T of the tile in stage s, into x
+  auto scores = [&](float (&x)[BK / 2], int s) {
+    const uint32_t qb = opaque(smem_addr(Qt)), kb = smem_addr(k_tile(s));
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BK>(x, desc_k<HD, BQ>(qb, kk), desc_k<HD, BK>(kb, kk), kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of the tile in stage s, P the A fragments in pa
+  auto pv = [&](int s) {
+    const uint32_t vb = smem_addr(v_tile(s));
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      if constexpr (QSMEM) ldsm_x4(qf[0], q_row + kk * 16);
-      const uint32_t(&qa)[4] = qf[QSMEM ? 0 : kk];
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        uint32_t kb[4];
-        ldsm_x4(kb, Kt + (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * LDK + kk * 16 +
-                        ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jp], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qa, kb[2], kb[3]);
-      }
-    }
-
-    // softcap, mask, online softmax; element e of s[j]: row g + 8*(e/2),
-    // key 8j + 2*t4 + e%2
-    if (capped) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = p.softcap * tanhf(s[j][e] * cap_in);
-    }
-    const bool is_full = (live[nwords + (cur >> 5)] >> (cur & 31)) & 1u;
-    if (!is_full) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const int col = 8 * j + 2 * t4;
-        int2 kp = *reinterpret_cast<const int2*>(Kp + stage * BK + col);
-        if (masked) {
-          const int2 km = *reinterpret_cast<const int2*>(Km + stage * BK + col);
-          if (km.x == 0) kp.x = -1;
-          if (km.y == 0) kp.y = -1;
-        }
-        if (cur * BK + col >= p.Sk) kp.x = -1;
-        if (cur * BK + col + 1 >= p.Sk) kp.y = -1;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = (e & 1) ? kp.y : kp.x;
-          if (!key_valid(key, Qp[row0 + g + 8 * (e >> 1)], p)) s[j][e] = NEG_INF;
-        }
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m_run[r];
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = quad_max(mx);
-      // no valid key yet: subtract 0, so masked scores give exp2(-huge) = 0
-      const float base = mx > NEG_INF / 2 ? mx * mul : 0.f;
-      alpha[r] = exp2f(m_run[r] * mul - base);
-      m_run[r] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        s[j][2 * r] = exp2f(fmaf(s[j][2 * r], mul, -base));
-        s[j][2 * r + 1] = exp2f(fmaf(s[j][2 * r + 1], mul, -base));
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      l_run[r] = l_run[r] * alpha[r] + sum;  // this thread's columns only
-    }
-#pragma unroll
-    for (int n = 0; n < HDV / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V, P rounded to bf16 in registers as the A operand
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < HDV / 16; ++np) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, Vt + (kk * 16 + (lane & 15)) * LDV + np * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * np], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
-      }
-    }
-
-    __syncthreads();  // the next iteration's prefetch overwrites stage `stage`
-    cur = nxt;
-    stage ^= 1;
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<HDV>(o, pa[kk], desc_mn<HDV, BK>(vb, kk), 1);
+    wgmma_commit();
+  };
+  // Every barrier wait comes before the wgmma.fence of the products it
+  // guards: a wait is a spin loop, and a product issued behind one (or
+  // behind a branch between the fence and it) makes ptxas serialise every
+  // wgmma of the kernel (C7520).  So the first tile is peeled off the loop.
+  mbar_wait(q_full, 0);
+  CLOCKED(unsigned long long clk[CLOCK_SLOTS] = {0};)
+  int n = 0;
+  mbar_wait(&k_full[0], 0);
+  int e = entry[0];
+  if (!(e & LIVE)) {  // tile 0 is dead: drop the ring's first entry
+    mbar_wait(&v_full[0], 0);
+    mbar_arrive(&k_empty[0]);
+    mbar_arrive(&v_empty[0]);
+    n = 1;
+    mbar_wait(&k_full[1 % S], (1 / S) & 1);
+    e = entry[1 % S];
   }
+  if (!(e & END)) {
+    int prev = n % S;
+    {
+      float x[BK / 2];
+      wgmma_fence();
+      scores(x, prev);
+      wgmma_wait<0>();
+      fence_regs(x);
+      float alpha[2];  // O is still 0: nothing to rescale
+      FWD_SOFTMAX(capped, !(e & FULL), x, m_run, l_run, alpha, kps + prev * BK, qp, t4, mul,
+                  p);
+      mbar_arrive(&k_empty[prev]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) a_frag(pa[kk], x, kk);
+    }
+    for (++n;; ++n) {
+      const int s = n % S;
+      CLOCKED(const long long ca = clock64();)
+      mbar_wait(&k_full[s], (n / S) & 1);
+      e = entry[s];
+      if (e & END) break;
+      mbar_wait(&v_full[prev], ((n - 1) / S) & 1);
+      CLOCKED(const long long cb = clock64();)
+      // this tile's scores, and behind them the previous tile's P V
+      float x[BK / 2];
+      wgmma_fence();
+      scores(x, s);
+      pv(prev);
+      wgmma_wait<1>();  // the scores; P V runs on
+      fence_regs(x);
+      CLOCKED(const long long cc = clock64();)
+      float alpha[2];
+      FWD_SOFTMAX(capped, !(e & FULL), x, m_run, l_run, alpha, kps + s * BK, qp, t4, mul, p);
+      CLOCKED(const long long cd = clock64();)
+      mbar_arrive(&k_empty[s]);  // this tile's K and key positions are read
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+      CLOCKED(const long long ce = clock64();)
+      mbar_arrive(&v_empty[prev]);  // the previous tile's V is read
+#pragma unroll
+      for (int i = 0; i < HDV / 8; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) a_frag(pa[kk], x, kk);
+      prev = s;
+      CLOCKED(const long long cf = clock64(); clk[0] += cb - ca; clk[1] += cc - cb;
+              clk[2] += cd - cc; clk[3] += ce - cd; clk[4] += cf - ce;)
+    }
+    mbar_wait(&v_full[prev], ((n - 1) / S) & 1);
+    wgmma_fence();
+    pv(prev);
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+  }
+  CLOCKED(const long long c_loop = clock64();)
 
-  // O / l as bf16, staged in the first stage's buffers (free after the
-  // loop's last barrier), then written in 16-byte rows; for the backward,
-  // each row's m * mul + log2(l) (so p = exp2(x * mul - lse)), +inf for a
-  // row with no valid key (every p of the row is then 0)
-  bf16* Os = k_tile(0) + row0 * LDV;
+  // O / l as bf16, staged over Q and the ring once every product of the
+  // warpgroup has read them, then written in 16-byte rows; for the
+  // backward, each row's m * mul + log2(l) (so p = exp2(x * mul - lse)),
+  // +inf for a row with no valid key (every p of the row is then 0)
+  consumers_sync();
+  constexpr int LDO = L::LDO;
+  bf16* Os = reinterpret_cast<bf16*>(smem);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float l = quad_sum(l_run[r]);
     const float inv = l > 0.f ? 1.f / l : 0.f;
+    const int row = row0 + 8 * r;
     if constexpr (LSE) {
-      // indices and mul re-derived here, not kept live through the loop
-      const int qi = (gridDim.x - 1 - blockIdx.x) * BQ + row0 + g + 8 * r;
-      const float mul_l = p.softcap > 0.f ? LOG2E : p.scale * LOG2E;
-      if (t4 == 0 && qi < p.Sq)
-        p.lse[long(blockIdx.y) * p.Sq + qi] =
-            l > 0.f ? fmaf(m_run[r], mul_l, log2f(l)) : pos_inf();
+      if (t4 == 0 && q0 + row < p.Sq)
+        p.lse[long(bh) * p.Sq + q0 + row] = l > 0.f ? fmaf(m_run[r], mul, log2f(l)) : pos_inf();
     }
 #pragma unroll
-    for (int n = 0; n < HDV / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8 * r) * LDV + 8 * n + 2 * t4) =
-          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int j = 0; j < HDV / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(Os + row * LDO + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
-  __syncwarp();
+  consumers_sync();
+  constexpr int VPR = HDV / 8;  // 16-byte vectors a row
   const long o_off = (long(b) * p.Sq * p.H + h) * HDV;
-  for (int idx = lane; idx < 16 * VPRV; idx += 32) {
-    const int r = idx / VPRV, c = (idx % VPRV) * 8;
-    const int qi = q0 + row0 + r;
+  for (int idx = tid; idx < BQ * VPR; idx += NC) {
+    const int r = idx / VPR, c = (idx % VPR) * 8;
+    const int qi = q0 + r;
     if (qi < p.Sq)
       *reinterpret_cast<uint4*>(p.o + o_off + long(qi) * p.H * HDV + c) =
-          *reinterpret_cast<const uint4*>(Os + r * LDV + c);
+          *reinterpret_cast<const uint4*>(Os + r * LDO + c);
   }
+#ifdef FLASH_CLOCKS
+  if (lane == 0) {
+    for (int i = 0; i < CLOCK_SLOTS; ++i) atomicAdd(&flash_clk[i], clk[i]);
+    atomicAdd(&flash_clk[CLOCK_SLOTS], (unsigned long long)(c_loop - c_start));
+    atomicAdd(&flash_clk[CLOCK_SLOTS + 1], (unsigned long long)(clock64() - c_start));
+  }
+#endif
 }
 
 constexpr int MAX_DEVICES = 64;
 
 // Raise the instance's dynamic shared-memory cap to the card's opt-in
-// maximum, once per card (a launch still asks only for what its Sk needs).
+// maximum, once per card (a launch still asks only for Smem::BYTES).
 template <int HD, int HDV, bool LSE>
 cudaError_t allow_smem() {
   static int done[MAX_DEVICES] = {0};
@@ -506,22 +648,28 @@ cudaError_t allow_smem() {
 }
 
 template <int HD, int HDV, bool LSE>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
+                   cudaStream_t stream) {
+  constexpr int BK = Cfg<HD>::BK;
   cudaError_t err = allow_smem<HD, HDV, LSE>();
   if (err != cudaSuccess) return err;
-  const int nk = (p.Sk + BK - 1) / BK;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  flash_fwd_kernel<HD, HDV, LSE><<<grid, NTHREADS, Smem<HD, HDV>::bytes(nk), stream>>>(p);
+  if (!encode_map<HD, BQ>(&p.tq, q, p.B, p.Sq, p.H) ||
+      !encode_map<HD, BK>(&p.tk, k, p.B, p.Sk, p.KV) ||
+      !encode_map<HDV, BK>(&p.tv, v, p.B, p.Sk, p.KV))
+    return cudaErrorInvalidValue;
+  // (B*H, query tiles): the wrapper keeps the query tiles within 65,535
+  const dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
+  flash_fwd_kernel<HD, HDV, LSE><<<grid, NTHREADS, Smem<HD, HDV>::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int HD, int HDV>
-int blocks_per_sm(int Sk) {
+int blocks_per_sm() {
   int blocks = -1;
   if (allow_smem<HD, HDV, false>() != cudaSuccess) return -1;
-  const size_t bytes = Smem<HD, HDV>::bytes((Sk + BK - 1) / BK);
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_kernel<HD, HDV, false>,
-                                                    NTHREADS, bytes) != cudaSuccess)
+                                                    NTHREADS, Smem<HD, HDV>::BYTES) !=
+      cudaSuccess)
     return -1;
   return blocks;
 }
@@ -529,12 +677,12 @@ int blocks_per_sm(int Sk) {
 // the head-dim pairs (q/k, v) with an instance; each also has an LSE
 // instance, which the backward (flash_attention_bwd.cu) reads
 #define FLASH_INSTANCES(X) X(32, 32) X(64, 64) X(128, 128) X(192, 128) X(256, 256)
-#define FLASH_LSE_INSTANCES(X) FLASH_INSTANCES(X)
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Returns a cudaError_t: 0 on a
-// successful launch.  The launch is asynchronous on `stream`.  `lse` (B, H,
+// successful launch.  The launch is asynchronous on `stream`; the tensor
+// maps of q, k and v are encoded on the host in every call.  `lse` (B, H,
 // Sq) float32 takes each row's log-sum-exp for the backward
 // (flash_attention_bwd.cu); serving calls pass null.
 extern "C" int repro_flash_attention_fwd(
@@ -544,9 +692,6 @@ extern "C" int repro_flash_attention_fwd(
     float scale, float softcap, int window, int causal, int protected_,
     float* lse, void* stream) {
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.o = static_cast<bf16*>(o);
   p.q_pos = q_pos;
   p.kv_pos = kv_pos;
@@ -565,24 +710,23 @@ extern "C" int repro_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lse == nullptr) {
 #define FLASH_LAUNCH(D, DV) \
-  if (hd == D && hd_v == DV) return int(launch<D, DV, false>(p, s));
+  if (hd == D && hd_v == DV) return int(launch<D, DV, false>(p, q, k, v, s));
     FLASH_INSTANCES(FLASH_LAUNCH)
 #undef FLASH_LAUNCH
   } else {
 #define FLASH_LAUNCH_LSE(D, DV) \
-  if (hd == D && hd_v == DV) return int(launch<D, DV, true>(p, s));
-    FLASH_LSE_INSTANCES(FLASH_LAUNCH_LSE)
+  if (hd == D && hd_v == DV) return int(launch<D, DV, true>(p, q, k, v, s));
+    FLASH_INSTANCES(FLASH_LAUNCH_LSE)
 #undef FLASH_LAUNCH_LSE
   }
   return int(cudaErrorInvalidValue);
 }
 
 // Dynamic shared memory of one block for head dims (`hd`, `hd_v`) and `Sk`
-// keys, or -1 for an unsupported pair.
+// keys (the same at every Sk), or -1 for an unsupported pair.
 extern "C" long long repro_flash_attention_smem_bytes(int hd, int hd_v, int Sk) {
-  const int nk = (Sk + BK - 1) / BK;
 #define FLASH_SMEM(D, DV) \
-  if (hd == D && hd_v == DV) return (long long)Smem<D, DV>::bytes(nk);
+  if (hd == D && hd_v == DV) return (long long)Smem<D, DV>::BYTES;
   FLASH_INSTANCES(FLASH_SMEM)
 #undef FLASH_SMEM
   return -1;
@@ -592,8 +736,19 @@ extern "C" long long repro_flash_attention_smem_bytes(int hd, int hd_v, int Sk) 
 // once (the CUDA occupancy API, on the current card), or -1 on an error.
 extern "C" int repro_flash_attention_blocks_per_sm(int hd, int hd_v, int Sk) {
 #define FLASH_OCC(D, DV) \
-  if (hd == D && hd_v == DV) return blocks_per_sm<D, DV>(Sk);
+  if (hd == D && hd_v == DV) return blocks_per_sm<D, DV>();
   FLASH_INSTANCES(FLASH_OCC)
 #undef FLASH_OCC
   return -1;
 }
+
+#ifdef FLASH_CLOCKS
+// Copy the clock sums (CLOCK_SLOTS, then the kv loop's and all cycles of
+// every consumer warp) to `out` and zero them; a cudaError_t.
+extern "C" int repro_flash_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, flash_clk, sizeof(flash_clk));
+  if (e != cudaSuccess) return int(e);
+  static const unsigned long long zero[CLOCK_SLOTS + 2] = {0};
+  return int(cudaMemcpyToSymbol(flash_clk, zero, sizeof(zero)));
+}
+#endif

@@ -155,63 +155,6 @@ struct Params {
   int pair;                     // a dK/dV block takes key tiles j and nk - 1 - j
 };
 
-// A 64-row bf16 tile of head dim HD as TMA writes it: column blocks of CB
-// columns (one box each), each 64 rows of SW bytes, swizzled in 8-row
-// groups of 8 * SW bytes.
-template <int HD>
-struct Tile {
-  static constexpr int SW = HD >= 64 ? 128 : 64;
-  static constexpr int CB = SW / 2;
-  static constexpr int NCB = HD / CB;
-  static constexpr int BLOCK_BYTES = TILE * SW;
-  static constexpr int BYTES = TILE * HD * 2;
-  static_assert(HD % CB == 0, "whole column blocks");
-};
-
-// descriptor of k-step kk (16 columns) of a tile read K-major: rows are the
-// product's M or N, columns its K (A of S^T = K Q^T, B of it, ...)
-template <int HD>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  using T = Tile<HD>;
-  const int col = kk * 16;
-  return smem_desc<T::SW>(tile + (col / T::CB) * T::BLOCK_BYTES + (col % T::CB) * 2, 16,
-                          8 * T::SW);
-}
-
-// descriptor of k-step kk (16 rows) of a tile read MN-major: rows are the
-// product's K, columns its N (B of dV += P^T dO, dK += dS^T Q, dQ += dS K);
-// leading offset: the next column block, stride offset: the next 8 rows
-template <int HD>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  using T = Tile<HD>;
-  return smem_desc<T::SW>(tile + kk * 16 * T::SW, T::BLOCK_BYTES, 8 * T::SW);
-}
-
-// the whole tile by TMA: one box a column block
-template <int HD>
-__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int head, int row0, int b) {
-  using T = Tile<HD>;
-#pragma unroll
-  for (int c = 0; c < T::NCB; ++c)
-    tma_load_4d(static_cast<unsigned char*>(dst) + c * T::BLOCK_BYTES, map, bar, c * T::CB,
-                head, row0, b);
-}
-
-// `a` as a value the compiler cannot see through: the descriptors of a
-// fixed tile are then rebuilt in each loop trip (a few integer operations
-// a product) instead of being hoisted out of the loop, where at hd 128
-// sixteen 64-bit descriptors would hold 32 registers for the whole loop
-__device__ __forceinline__ uint32_t opaque(uint32_t a) {
-  asm volatile("" : "+r"(a));
-  return a;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_addr(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
-
 // The scale and masks of the scores: x = scale * q.k, or softcap *
 // tanh(scale * q.k / softcap); p = exp2(x * mul - lse).  Only `mul` is
 // held in a register across the loops; the masks' parameters are read
@@ -221,12 +164,7 @@ struct Scores {
   float mul;
   __device__ explicit Scores(const Params& p_)
       : p(p_), mul(p_.softcap > 0.f ? LOG2E : p_.scale * LOG2E) {}
-  // key_valid without branches, so that an unrolled tile of elements is
-  // one straight run of code the compiler can interleave
-  __device__ __forceinline__ bool valid(int kp, int qp) const {
-    return (kp >= 0) & ((p.causal == 0) | (kp <= qp)) &
-           ((p.window <= 0) | (kp > qp - p.window) | (kp < p.protected_));
-  }
+  __device__ __forceinline__ bool valid(int kp, int qp) const { return key_valid(kp, qp, p); }
 };
 
 // the softcap's factors: x = softcap * tanh(raw * cap_in), tanh = x * inv
@@ -307,16 +245,6 @@ __device__ __forceinline__ void tile_scores(float (&score)[32], float (&dp)[32],
       else fn<false, false>(__VA_ARGS__);                  \
     }                                                      \
   } while (0)
-
-// the bf16 A fragment of k-step kk (16 columns) from a 64-row
-// accumulator: n8 blocks 2kk and 2kk + 1
-template <int R>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&acc)[R], int kk) {
-  a[0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
-  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
-  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
-  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
-}
 
 // ---------------------------------------------------------------------------
 // 1. D, the padded rows and the positions
@@ -842,21 +770,8 @@ __global__ void __launch_bounds__(NT_Q, QSmem<HD, HDV>::MIN_BLOCKS) bwd_dq_wgmma
   for (int t = warp; t < nk; t += NT_Q / 32) {
     bool some = false, every = true;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kp = kp_b[t * TILE + 32 * r + lane];
-      bool sm = kp >= 0, ev = kp >= 0;
-      if (p.causal) {
-        sm = sm && kp <= max_qp;
-        ev = ev && kp <= min_qp;
-      }
-      if (p.window > 0) {
-        const bool sink = kp < p.protected_;
-        sm = sm && (kp > min_qp - p.window || sink);
-        ev = ev && (kp > max_qp - p.window || sink);
-      }
-      some = some || sm;
-      every = every && ev;
-    }
+    for (int r = 0; r < 2; ++r)
+      key_reach(kp_b[t * TILE + 32 * r + lane], min_qp, max_qp, p, some, every);
     const bool any = __any_sync(0xffffffffu, some);
     const bool all = __all_sync(0xffffffffu, every);
     if (lane == 0) {
@@ -956,50 +871,6 @@ __global__ void __launch_bounds__(NT_Q, QSmem<HD, HDV>::MIN_BLOCKS) bwd_dq_wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int MAX_DEVICES = 64;
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// the 4-D map of a (B, S, heads, HD) bf16 tensor, box (CB, 1, 64, 1): rows
-// past S read as zeros inside their own batch row (HD: hd for q and k, hd_v
-// for v and dout)
-template <int HD>
-bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
-  using T = Tile<HD>;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(heads), cuuint64_t(S), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(HD) * 2, cuuint64_t(heads) * HD * 2,
-                                 cuuint64_t(S) * heads * HD * 2};
-  const cuuint32_t box[4] = {cuuint32_t(T::CB), 1, cuuint32_t(TILE), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // Raise both main kernels' dynamic shared-memory cap to the card's opt-in
 // maximum, once per instance and card.

@@ -1,8 +1,9 @@
 // Device helpers shared by the flash attention forward
 // (flash_attention.cu) and backward (flash_attention_bwd.cu) kernels for
-// Hopper (sm_90a): cp.async copies, ldmatrix loads, the m16n8k16 bf16
-// mma.sync product, quad reductions over an accumulator row, the
-// positional mask predicate and the tile-bitmask walk.
+// Hopper (sm_90a): constants, bf16 packing, quad reductions over an
+// accumulator row, the positional mask predicates and the tile-bitmask
+// walk.  The Hopper instructions
+// (TMA, mbarriers, wgmma) are in flash_sm90.cuh.
 
 #pragma once
 
@@ -25,45 +26,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// d += a * b, m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -79,14 +41,32 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// is key position kp visible to query position qp (kp < 0: an invalid key)?
-// P is a parameter block with causal, window and protected_
+// is key position kp visible to query position qp (kp < 0: no key)?  No
+// branches, so that an unrolled tile of elements is one straight run of
+// code.  P is a parameter block with causal, window and protected_.
 template <class P>
 __device__ __forceinline__ bool key_valid(int kp, int qp, const P& p) {
-  bool ok = kp >= 0;
-  if (p.causal) ok = ok && kp <= qp;
-  if (p.window > 0) ok = ok && (kp > qp - p.window || kp < p.protected_);
-  return ok;
+  return (kp >= 0) & ((p.causal == 0) | (kp <= qp)) &
+         ((p.window <= 0) | (kp > qp - p.window) | (kp < p.protected_));
+}
+
+// can some query position in [lo, hi] see key position kp / can every one?
+// (the live and full marks of a kv tile, a key at a time)
+template <class P>
+__device__ __forceinline__ void key_reach(int kp, int lo, int hi, const P& p, bool& some,
+                                          bool& every) {
+  bool sm = kp >= 0, ev = kp >= 0;
+  if (p.causal) {
+    sm = sm && kp <= hi;
+    ev = ev && kp <= lo;
+  }
+  if (p.window > 0) {
+    const bool sink = kp < p.protected_;
+    sm = sm && (kp > lo - p.window || sink);
+    ev = ev && (kp > hi - p.window || sink);
+  }
+  some = some || sm;
+  every = every && ev;
 }
 
 // first tile >= t whose bit is set, or nk

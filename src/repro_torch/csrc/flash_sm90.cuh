@@ -1,8 +1,9 @@
-// Hopper (sm_90a) device helpers of the flash attention backward
-// (flash_attention_bwd.cu): mbarriers, TMA tensor and bulk copies, wgmma
-// products and their shared-memory descriptors, a fast exp2, and the
-// thread block cluster's barrier and distributed shared memory.  The forward
-// (flash_attention.cu) does not include this file.
+// Hopper (sm_90a) helpers of the flash attention forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers,
+// TMA tensor and bulk copies, the swizzled tile layout TMA writes and the
+// wgmma descriptors that read it, wgmma products, a fast exp2, the thread
+// block cluster's barrier and distributed shared memory, and on the host
+// the encoding of the 4-D tensor maps both kernels load through.
 
 #pragma once
 
@@ -28,6 +29,12 @@ __device__ __forceinline__ void fence_barrier_init() {
 // one arrival that also sets the bytes the barrier's phase waits for
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// sets the bytes the barrier's phase waits for, without an arrival
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
@@ -265,6 +272,77 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n256(d, a, db, scale_d);
 }
 
+// -- the swizzled tile layout and its descriptors -----------------------------
+
+// A ROWS-row bf16 tile of head dim HD as TMA writes it: column blocks of CB
+// columns (one box each), each ROWS rows of SW bytes, swizzled in 8-row
+// groups of 8 * SW bytes.
+template <int HD, int ROWS = 64>
+struct Tile {
+  static constexpr int SW = HD >= 64 ? 128 : 64;
+  static constexpr int CB = SW / 2;
+  static constexpr int NCB = HD / CB;
+  static constexpr int BLOCK_BYTES = ROWS * SW;
+  static constexpr int BYTES = ROWS * HD * 2;
+  static_assert(HD % CB == 0, "whole column blocks");
+  static_assert(ROWS % 8 == 0 && ROWS <= 256, "whole swizzle groups, one TMA box");
+};
+
+// descriptor of k-step kk (16 columns) of a tile read K-major: rows are the
+// product's M or N, columns its K (A of S^T = K Q^T, B of it, ...)
+template <int HD, int ROWS = 64>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using T = Tile<HD, ROWS>;
+  const int col = kk * 16;
+  return smem_desc<T::SW>(tile + (col / T::CB) * T::BLOCK_BYTES + (col % T::CB) * 2, 16,
+                          8 * T::SW);
+}
+
+// descriptor of k-step kk (16 rows) of a tile read MN-major: rows are the
+// product's K, columns its N (B of dV += P^T dO, dK += dS^T Q, dQ += dS K,
+// O += P V); leading offset: the next column block, stride offset: the
+// next 8 rows
+template <int HD, int ROWS = 64>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  using T = Tile<HD, ROWS>;
+  return smem_desc<T::SW>(tile + kk * 16 * T::SW, T::BLOCK_BYTES, 8 * T::SW);
+}
+
+// the whole tile by TMA: one box a column block
+template <int HD, int ROWS = 64>
+__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int head, int row0, int b) {
+  using T = Tile<HD, ROWS>;
+#pragma unroll
+  for (int c = 0; c < T::NCB; ++c)
+    tma_load_4d(static_cast<unsigned char*>(dst) + c * T::BLOCK_BYTES, map, bar, c * T::CB,
+                head, row0, b);
+}
+
+// `a` as a value the compiler cannot see through: the descriptors of a
+// fixed tile are then rebuilt in each loop trip (a few integer operations
+// a product) instead of being hoisted out of the loop, where at hd 128
+// sixteen 64-bit descriptors would hold 32 registers for the whole loop
+__device__ __forceinline__ uint32_t opaque(uint32_t a) {
+  asm volatile("" : "+r"(a));
+  return a;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// the bf16 A fragment of k-step kk (16 columns) from a 64-row
+// accumulator: n8 blocks 2kk and 2kk + 1
+template <int R>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&acc)[R], int kk) {
+  a[0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
+  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+}
+
 // -- math --------------------------------------------------------------------
 
 // 2^x by the SFU alone (about 2^-22 relative error; results below 2^-126
@@ -302,6 +380,51 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
   return v;
+}
+
+// -- host: tensor maps -------------------------------------------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the 4-D map of a (B, S, heads, HD) bf16 tensor, box (CB, 1, ROWS, 1): rows
+// past S read as zeros inside their own batch row
+template <int HD, int ROWS = 64>
+bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
+  using T = Tile<HD, ROWS>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(heads), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(HD) * 2, cuuint64_t(heads) * HD * 2,
+                                 cuuint64_t(S) * heads * HD * 2};
+  const cuuint32_t box[4] = {cuuint32_t(T::CB), 1, cuuint32_t(ROWS), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -3,23 +3,23 @@
 Replaces the TPU kernel ``repro.kernels.flash_attention._flash_kernel``
 (wrapper ``repro.kernels.ops.flash_attention``).  The kernel source is
 ``src/repro_torch/csrc/flash_attention.cu``; its header comment gives the
-design and what bounds it on the H100.  In short: one block of 4 warps per
-(batch*head, 64-query tile) walks 32-key tiles (the TPU's sequential kv
-grid axis), Q.K^T and P.V run as ``mma.sync`` bf16 products with the
-scores, the online-softmax state and the output accumulator in registers,
-the next K/V tile is copied by ``cp.async`` while the current one is
-computed, and kv tiles that no (query, key) pair of the block can use are
-skipped, decided from the positions and ``kv_mask``.  GQA reads kv head
-``h // G`` by index, and the kernel reads and writes the model layout
-``(B, S, H, hd)`` with no transposes.  The value head dim may differ from
-the query/key one: the instances are (32,32), (64,64), (128,128), for
-MLA (192,128) and for paligemma (256,256), which reads Q from shared
-memory each kv tile instead of holding it in registers; a CUDA tensor of
-another pair raises.  It is built with
-``nvcc`` for
-``sm_90a`` at first use and bound with ctypes; the C entry point returns
-``cudaGetLastError()`` after the launch and the wrapper raises if it is
-not 0.
+design and what bounds it on the H100.  In short: one block per (batch,
+head, 64-query tile), a producer warp that loads Q once by TMA and keeps
+the block's live K/V tiles in flight in an ``mbarrier`` ring, and one
+consumer warpgroup whose ``wgmma`` products compute Q.K^T from shared
+memory and P.V with P in registers, the online softmax, the running max
+and sum and the output accumulator all in registers; the next tile's
+scores are computed while the previous tile's P.V runs.  kv tiles that no
+(query, key) pair of the block can use are skipped, decided from the
+positions and ``kv_mask``.  GQA reads kv head ``h // G`` by index, and the
+kernel reads and writes the model layout ``(B, S, H, hd)`` with no
+transposes (the TMA tensor maps are 4-D over it, encoded on the host in
+every call).  The value head dim may differ from the query/key one: the
+instances are (32,32), (64,64), (128,128), for MLA (192,128) and for
+paligemma (256,256); a CUDA tensor of another pair raises.  It is built
+with ``nvcc`` for ``sm_90a`` at first use and bound with ctypes; the C
+entry point returns ``cudaGetLastError()`` after the launch and the
+wrapper raises if it is not 0.
 
 Training: on CUDA tensors under autograd (grad enabled and q, k or v
 requiring grad) the wrapper is a ``torch.autograd.Function``: its forward
@@ -54,6 +54,8 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 #: forward's serving and training (log-sum-exp) instances and the backward's
 HEAD_DIM_PAIRS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 MAX_GRID_Y = 65535
+#: query rows of a forward block; the forward's grid is (B*H, query tiles)
+FWD_TILE = 64
 #: rows of the backward's tiles: keys of a dK/dV block, queries of an item
 BWD_TILE = 64
 #: most blocks of a dK/dV thread-block cluster (the portable limit)
@@ -227,8 +229,22 @@ def _check(q, k, v, q_pos, kv_pos, kv_mask) -> None:
         raise ValueError("flash_attention: q_pos must be (Sq,), kv_pos (Sk,)")
     if kv_mask is not None and kv_mask.shape != (b, sk):
         raise ValueError(f"flash_attention: kv_mask must be ({b}, {sk})")
+
+
+def _check_fwd_grid(sq: int) -> None:
+    """The forward's grid is (B*H, query tiles): its query tiles are the
+    y dimension, which holds at most MAX_GRID_Y."""
+    if -(-sq // FWD_TILE) > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: Sq = {sq} is more than {MAX_GRID_Y} "
+                         f"query tiles of {FWD_TILE}")
+
+
+def _check_bwd_grid(b: int, h: int) -> None:
+    """The backward's dQ grid is (query tiles, B*H) and its dK/dV grid
+    (key tiles, B*KV): B*H is the y dimension, which holds at most
+    MAX_GRID_Y."""
     if b * h > MAX_GRID_Y:
-        raise ValueError(f"flash_attention: B*H = {b * h} exceeds {MAX_GRID_Y}")
+        raise ValueError(f"flash_attention_bwd: B*H = {b * h} exceeds {MAX_GRID_Y}")
 
 
 @functools.cache
@@ -313,6 +329,7 @@ def _forward(q, k, v, q_pos, kv_pos, *, kv_mask, window, causal, softcap,
     Sq) float32 is written only for the backward."""
     _check(q, k, v, q_pos, kv_pos, kv_mask)
     b, sq, h, hd = q.shape
+    _check_fwd_grid(sq)
     sk, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty(b, sq, h, hd_v)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
@@ -376,6 +393,7 @@ def flash_attention_bwd(
                                          **opts)
     _check(q, k, v, q_pos, kv_pos, kv_mask)
     b, sq, h, hd = q.shape
+    _check_bwd_grid(b, h)
     sk, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("dout", dout)):
         if (t.shape != (b, sq, h, hd_v) or t.dtype != torch.bfloat16

@@ -115,9 +115,12 @@ def test_bwd_source_is_the_hopper_design():
     assert '#include "flash_sm90.cuh"' in code
     assert "mma_bf16(" not in code and "ldsm_x4" not in code
     assert "cp_async16" not in code and "cp_async4" not in code
-    for call in ("wgmma_ss_n64(", "wgmma_rs<HD>(", "tma_load_4d(", "bulk_load(",
+    # its tiles come through load_tile, flash_sm90.cuh's TMA tensor copy,
+    # which the forward shares
+    for call in ("wgmma_ss_n64(", "wgmma_rs<HD>(", "load_tile<HD>(", "bulk_load(",
                  "mbar_wait(", "cluster_sync()", "ld_cluster_f4("):
         assert call in code, call
+    assert "tma_load_4d(" in header[header.index("void load_tile("):]
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.4d", "mbarrier.try_wait",
                 "barrier.cluster", "ld.shared::cluster"):
         assert ptx in header, ptx
