@@ -225,11 +225,21 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    tiny defaults on the card in a subprocess of its own (quickstart,
    solver comparison, AR serving over the families); a failure fails the
    phase;
-15. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
+15. the dry run's memory against the card's: the qwen2-1.5b ERA request
+   at 8x256 (nfe 10), run eagerly through the program's loop, and one
+   qwen2-1.5b diffusion training step at 8x256, each from a clean
+   allocator: ``max_memory_allocated()`` over the run against the dry
+   run's count of the same program on meta (the state it is handed plus
+   its activation peak), within 10% of the measured total, and the
+   activation part alone within 5% of the measured one; then one
+   partitioned count on this host (the request at 2x4 on a fake process
+   group), its collective bytes a card and its wall;
+16. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
    ``{"frontdoor": {...}}`` line with phase 9's, one ``{"families":
    {...}}`` line with phases 10, 11 and 12's, one ``{"training": {...}}``
    line with phase 13's, one line with the mesh, the request's FLOPs, the
-   int8 cache and the examples' walls, and one ``{"kernels": [...]}`` line with each
+   int8 cache and the examples' walls, one ``{"dryrun_memory": {...}}``
+   line with phase 15's, and one ``{"kernels": [...]}`` line with each
    kernel's launches (by path), error and times beside its bound, then
    the result line.
 
@@ -4279,6 +4289,164 @@ def phase_examples() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the dry run's memory against the card's
+# ---------------------------------------------------------------------------
+
+# the dry run's prediction of a program's device memory (the state it is
+# handed plus its activation peak, counted on meta) against
+# max_memory_allocated() over the same program on the card: within 10% of
+# the measured total.  The activation part differs by what the kernels
+# allocate beside their outputs (the flash forward's log-sum-exp for the
+# backward, the backward's float32 dq), which the meta handlers do not
+DRYRUN_MEM_RTOL = 0.10
+# the activation part alone, predicted against measured (the peak above
+# what the program was handed): 0.987 of it in both programs on an H100,
+# so 5% sees a peak tracker that is off by more than the kernels' buffers
+DRYRUN_ACT_RTOL = 0.05
+
+
+def peak_above(run, before: int) -> tuple[int, int]:
+    """(max_memory_allocated over ``run()`` above ``before``, and above
+    what was allocated just before ``run``)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak - before, peak - held
+
+
+def memory_check(what: str, predicted_state: int, predicted_act: int,
+                 measured: int, measured_act: int) -> dict:
+    """Log and check one program's predicted against measured memory."""
+    predicted = predicted_state + predicted_act
+    ratio = predicted / measured
+    act_ratio = predicted_act / measured_act
+    log(f"dry-run memory, {what}: predicted {predicted / 2**20:.1f} MiB "
+        f"(state {predicted_state / 2**20:.1f} + activations "
+        f"{predicted_act / 2**20:.1f}), measured {measured / 2**20:.1f} MiB "
+        f"(activations {measured_act / 2**20:.1f}): {ratio:.4f}, "
+        f"activations {act_ratio:.4f}")
+    check(abs(ratio - 1) <= DRYRUN_MEM_RTOL,
+          f"dry-run memory of {what}: predicted {predicted} B, measured "
+          f"{measured} B, outside {DRYRUN_MEM_RTOL:.0%}")
+    check(abs(act_ratio - 1) <= DRYRUN_ACT_RTOL,
+          f"dry-run activations of {what}: predicted {predicted_act} B, measured "
+          f"{measured_act} B, outside {DRYRUN_ACT_RTOL:.0%}")
+    return dict(predicted_bytes=predicted, predicted_state_bytes=predicted_state,
+                predicted_activation_bytes=predicted_act, measured_bytes=measured,
+                measured_activation_bytes=measured_act, predicted_over_measured=ratio,
+                activations_predicted_over_measured=act_ratio)
+
+
+def phase_dryrun_memory(ku, kf, kd) -> tuple[dict, dict]:
+    """Phase 15: the dry run's memory (``launch/dryrun.py`` on meta, one
+    card) against the card's: the qwen2-1.5b ERA request at 8 x 256 (nfe
+    10) run eagerly through the program's loop, and one qwen2-1.5b
+    diffusion training step at 8 x 256 from ``launch/train.py``'s setup,
+    each from a clean allocator; then one sharded count on this host (the
+    same request at 2x4, a fake process group), its collectives and its
+    wall.  Returns the launches of the two runs and the figures."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ERAConfig, get_program, linear_schedule
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as lt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import batch_to_device
+
+    cfg = get_config("qwen2-1.5b")
+    out = {}
+    launches = {"era_update": 0, "flash_attention": 0, "decode_attention": 0,
+                "flash_attention_bwd": 0}
+
+    def add_launches():
+        for name, fn in (("era_update", ku.era_update),
+                         ("flash_attention", kf.flash_attention),
+                         ("decode_attention", kd.decode_attention),
+                         ("flash_attention_bwd", kf.flash_attention_bwd)):
+            launches[name] += fn.launches
+
+    # the ERA request, eagerly
+    reserved_mb()
+    before = torch.cuda.memory_allocated()
+    dlm = build_dlm()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn(8, 256, cfg.d_model, generator=gen, device="cuda")
+    program = get_program("era")
+    ecfg = ERAConfig(nfe=NFE, k=K, per_sample=True)
+    result = {}
+
+    def request():
+        with torch.no_grad():
+            result["x0"] = program.sample_scan(
+                dlm.eps_fn(), x, program.alloc_buffers(x, ecfg), linear_schedule(),
+                ecfg).x0
+
+    reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention,
+                 kf.flash_attention_bwd)
+    measured, measured_act = peak_above(request, before)
+    add_launches()
+    x0 = result.pop("x0")
+    check(x0.shape == x.shape and bool(torch.isfinite(x0).all()),
+          "dry-run memory: the ERA request's x0 is not finite")
+    del x0, dlm, x
+    rec = dryrun.run_solver_program("qwen2-1.5b", "1x1", out_dir=None, nfe=NFE,
+                                    batch=8, seq=256)
+    state = rec["param_bytes_per_device"] + 8 * 256 * cfg.d_model * 4
+    out["era_request"] = memory_check(
+        "ERA request 8x256", int(state), rec["peak_activation_bytes_per_device"],
+        measured, measured_act)
+    out["era_request"]["count_s"] = rec["count_s"]
+
+    # one diffusion training step
+    reserved_mb()
+    before = torch.cuda.memory_allocated()
+    step, batches = lt.setup(cfg, diffusion=True, steps=1, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, seed=0)
+    state = opt.init_state(step.params)
+    batch = batch_to_device(next(batches), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def train_step():
+        _, metrics = step(state, batch, gen)
+        result["loss"] = float(metrics["loss"])
+
+    reset_counts(ku.era_update, kf.flash_attention, kd.decode_attention,
+                 kf.flash_attention_bwd)
+    measured, measured_act = peak_above(train_step, before)
+    add_launches()
+    check(result["loss"] == result["loss"], "dry-run memory: the training loss is NaN")
+    del step, state, batch
+    reserved_mb()
+    rec = dryrun.count_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out["diffusion_train_step"] = memory_check(
+        f"diffusion training step {TRAIN_BATCH}x{TRAIN_SEQ}",
+        int(rec["state_bytes_per_device"]["total"]),
+        rec["peak_activation_bytes_per_device"], measured, measured_act)
+    out["diffusion_train_step"]["count_s"] = rec["count_s"]
+
+    # the partitioned count on this host: the fake process group imports
+    rec = dryrun.run_solver_program("qwen2-1.5b", "2x4", out_dir=None, nfe=NFE,
+                                    batch=8, seq=256)
+    check(not torch.distributed.is_initialized(),
+          "dry-run memory: the sharded count left its process group up")
+    check(rec["collective_bytes_total"] > 0,
+          "dry-run memory: the 2x4 count issued no collective")
+    out["sharded_request_2x4"] = dict(
+        collectives=rec["collectives"],
+        collective_bytes_total=rec["collective_bytes_total"],
+        flops_per_device=rec["flops_per_device"],
+        peak_activation_bytes_per_device=rec["peak_activation_bytes_per_device"],
+        count_s=rec["count_s"])
+    log(f"dry run at 2x4, ERA request 8x256: {rec['collective_bytes_total']:.4e} "
+        f"collective bytes a card {rec['collectives']}, counted in "
+        f"{rec['count_s']:.1f}s")
+    out["launches"] = dict(launches)
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 # timing and tracing
 # ---------------------------------------------------------------------------
 
@@ -5013,6 +5181,8 @@ def main() -> None:
     int8_launches, int8 = phase_int8(ku, kf, kd)
     examples = phase_examples()
     done(14)
+    dryrun_launches, dryrun_memory = phase_dryrun_memory(ku, kf, kd)
+    done(15)
 
     def counts(name):
         by_path = {"era": era_launches[name], "mesh": mesh_launches[name],
@@ -5023,7 +5193,8 @@ def main() -> None:
                    "families": families_launches[name],
                    "ssm_hybrid": ssm_launches[name],
                    "audio_vlm": audio_vlm_launches[name],
-                   "training": training_launches[name]}
+                   "training": training_launches[name],
+                   "dryrun_memory": dryrun_launches[name]}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     kernels = [
@@ -5078,8 +5249,10 @@ def main() -> None:
                       "chunked SDPA with XLA autodiff (src/repro/models/"
                       "attention.py); the backward of "
                       "src/repro/kernels/flash_attention.py:34",
-             launches=training_launches["flash_attention_bwd"],
-             launches_by_path={"training": training_launches["flash_attention_bwd"]},
+             launches=(training_launches["flash_attention_bwd"]
+                       + dryrun_launches["flash_attention_bwd"]),
+             launches_by_path={"training": training_launches["flash_attention_bwd"],
+                               "dryrun_memory": dryrun_launches["flash_attention_bwd"]},
              max_abs_err=max(bwd_errs.values()), max_abs_err_of="max|plain|",
              max_abs_err_by_case=bwd_errs,
              ms=bwd_t["ms"], kernel_ms=bwd_t["ms"],
@@ -5122,6 +5295,7 @@ def main() -> None:
     log(json.dumps({"training": training}))
     log(json.dumps({"mesh": mesh, "request_flops": request_flops,
                     "int8_cache": int8, "examples_s": examples}))
+    log(json.dumps({"dryrun_memory": dryrun_memory}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

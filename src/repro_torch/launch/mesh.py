@@ -10,10 +10,14 @@ pods and has no counterpart: the dry run takes a layout of H100s
 (``--mesh DxM``) as an abstract mesh instead.
 
 Building a mesh touches no device state beyond listing the cards.
+:func:`device_mesh` turns an abstract mesh into a ``DeviceMesh`` over a
+fake process group, for the dry run's sharded count: no card, no other
+process, no network.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -23,6 +27,10 @@ PEAK_FLOPS_BF16 = 989e12        # FLOP/s, bf16 / fp16 tensor cores
 PEAK_FLOPS_F32 = 67e12          # FLOP/s, float32 outside the tensor cores
 HBM_BW = 3.35e12                # B/s
 HBM_BYTES = 80e9                # B of device memory
+# NVLink 4: 18 links of 25 GB/s each way, 900 GB/s both ways together (the
+# data sheet's figure); a collective's bytes leave a card at 450 GB/s, one
+# direction
+NVLINK_BW = 450e9               # B/s
 
 
 class Mesh:
@@ -91,3 +99,26 @@ def parse_layout(text: str) -> Mesh:
     except ValueError:
         raise ValueError(f"--mesh takes DxM (e.g. 1x1, 8x1), got {text!r}") from None
     return Mesh.abstract({"data": d, "model": m})
+
+
+@contextlib.contextmanager
+def device_mesh(mesh: Mesh):
+    """A ``DeviceMesh`` of ``mesh``'s shape and axis names for the block,
+    over a fake process group of world ``mesh.size`` in which this process
+    is rank 0: collectives return at once and move nothing, so a program
+    run on it does rank 0's share of the partitioned work.  The group is
+    destroyed on exit, error or not; one that is already up raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    # registers the ``fake`` backend (torch 2.11 and 2.13 keep it here)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized; the "
+                           "dry run's fake group needs the process to itself")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.shape.values()),
+                               mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()

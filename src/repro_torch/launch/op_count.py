@@ -29,21 +29,43 @@ products of the same size), and beside them the products of only the
 bytes (its math is elementwise).  The kept pairs follow from the masks'
 parameters with the positions a program gives on ``meta`` (queries at
 the last Sq of Sk positions, every key valid), since meta tensors hold no
-values.  XLA's collectives have no counterpart in one process: the counts
-have no collective term.
+values.
+
+A program whose state is placed on a fake ``DeviceMesh``
+(:func:`repro_torch.parallel.sharding.distribute`) runs as DTensors: the
+counter lets DTensor dispatch each op first (it returns
+``NotImplemented`` for DTensor arguments) and so counts the ops DTensor
+runs on rank 0's local shards, its sharding propagation (run under a fake
+tensor mode) left out.  That gives the partitioned program's work on one
+device, as the reference reads it from the partitioned HLO; the kernel
+wrappers' handlers take local shards too
+(:mod:`repro_torch.parallel.dtensor`).  The collectives DTensor issues
+(functional collectives on the local shards) are counted by kind, as the
+result bytes of each, the reference's ``hlo_analysis`` measure:
+``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all`` and
+``collective-permute`` (point to point).
+
+The counter also tracks ``peak_bytes``: the most bytes, at any op, of the
+storages that ops inside it allocated and that are still alive (a view
+shares its base's storage and counts once; the tensors autograd saves
+for the backward stay alive until the backward frees them).  State
+handed to the program (weights, moments, cache, inputs) is not in it.
 """
 
 from __future__ import annotations
 
 import contextvars
 import math
+import weakref
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.kernels import META_HANDLERS
+from repro_torch.parallel import dtensor as DT
 
 Tensor = torch.Tensor
 
@@ -53,10 +75,27 @@ _ACTIVE: contextvars.ContextVar["OpCounter | None"] = contextvars.ContextVar(
 #: ops that move no data of their own
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "_unsafe_view", "detach", "lift_fresh", "alias",
-         "_reshape_alias", "set_", "resize_"}
+         "_reshape_alias", "set_", "resize_", "wait_tensor",
+         "_wrap_tensor_autograd"}
+
+#: the collective ops DTensor issues, by the reference's kind names
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce", "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-permute", "broadcast_": "collective-permute",
+}
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
 
 
 def _nbytes(t: Tensor) -> int:
+    """Bytes of ``t``, or of rank 0's shard of a DTensor."""
+    t = DT.local(t)
     return t.numel() * t.element_size()
 
 
@@ -77,9 +116,9 @@ def _mm_flops(func, args, out) -> float:
 
 
 class OpCounter(TorchDispatchMode):
-    """Counts FLOPs and bytes of the aten ops run inside ``with
-    OpCounter() as c:`` (see the module docstring).  ``by_op`` holds each
-    op's (flops, bytes, calls)."""
+    """Counts FLOPs, bytes, collectives and the peak of live allocations of
+    the aten ops run inside ``with OpCounter() as c:`` (see the module
+    docstring).  ``by_op`` holds each op's (flops, bytes, calls)."""
 
     def __init__(self):
         super().__init__()
@@ -90,6 +129,13 @@ class OpCounter(TorchDispatchMode):
         self.attn_flops = 0.0
         self.attn_kept_flops = 0.0
         self.by_op: dict[str, list] = {}
+        #: result bytes of each collective kind
+        self.collectives: dict[str, float] = {}
+        #: storages allocated inside the counter and still alive: key ->
+        #: bytes; their sum, and its most so far
+        self._live: dict[int, int] = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0
         self._token = None
 
     def __enter__(self):
@@ -101,7 +147,8 @@ class OpCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def scale(self, k: int) -> None:
-        """Everything counted so far, ``k`` times (a repeated part)."""
+        """Everything counted so far, ``k`` times (a repeated part); the
+        peak stays, as a repeat reuses its memory."""
         self.flops *= k
         self.bytes *= k
         self.attn_flops *= k
@@ -110,6 +157,8 @@ class OpCounter(TorchDispatchMode):
             row[0] *= k
             row[1] *= k
             row[2] *= k
+        for kind in self.collectives:
+            self.collectives[kind] *= k
 
     def add(self, name: str, flops: float, nbytes: float) -> None:
         self.flops += flops
@@ -119,14 +168,44 @@ class OpCounter(TorchDispatchMode):
         row[1] += nbytes
         row[2] += 1
 
+    def add_collective(self, kind: str, nbytes: float) -> None:
+        self.collectives[kind] = self.collectives.get(kind, 0.0) + nbytes
+
+    def _free(self, key: int) -> None:
+        self.live_bytes -= self._live.pop(key)
+
+    def _track(self, ins: list, outs: list) -> None:
+        """Add the outputs' new storages (not an input's: a view or an
+        in-place result) to the live set, each until it dies (a storage
+        keeps its Python object while it lives, so a finalizer on that
+        object runs when the storage is freed); update the peak."""
+        seen = {id(t.untyped_storage()) for t in ins}
+        for t in outs:
+            st = t.untyped_storage()
+            key = id(st)
+            if key in seen or key in self._live:
+                continue
+            self._live[key] = st.nbytes()
+            self.live_bytes += st.nbytes()
+            weakref.finalize(st, self._free, key)
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented   # DTensor runs it on the local shards
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if torch._C._get_dispatch_mode(_FAKE) is not None:
+            return out              # DTensor's sharding propagation
         name = func.overloadpacket.__name__
-        if func.is_view or name in _FREE:
-            return out
         ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, Tensor)]
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, Tensor)]
+        self._track(ins, outs)
+        kind = COLLECTIVE_KINDS.get(name)
+        if kind is not None:
+            self.add_collective(kind, sum(map(_nbytes, outs)))
+        if func.is_view or name in _FREE:
+            return out
         first = outs[0] if outs else None
         flops = _mm_flops(func, args, first) if first is not None else 0.0
         self.add(name, flops, sum(map(_nbytes, ins)) + sum(map(_nbytes, outs)))
@@ -147,6 +226,9 @@ class OpCounter(TorchDispatchMode):
             "bytes": self.bytes,
             "ops": sum(r[2] for r in self.by_op.values()),
             "flops_by_op": {k: v[0] for k, v in top if v[0] > 0},
+            "collectives": dict(self.collectives),
+            "collective_bytes_total": sum(self.collectives.values()),
+            "peak_bytes": self.peak_bytes,
         }
 
 
@@ -212,7 +294,11 @@ class _MetaAttention(torch.autograd.Function):
 def meta_attention(q, k, v, q_pos, kv_pos, *, kv_mask, window, causal,
                    protected) -> Tensor:
     """:func:`repro_torch.kernels.flash_attention.flash_attention` on
-    ``meta`` tensors."""
+    ``meta`` tensors (DTensors: on rank 0's heads)."""
+    if DT.is_dtensor(q):
+        return DT.on_local_heads(meta_attention, q, k, v, q_pos, kv_pos,
+                                 kv_mask=kv_mask, window=window, causal=causal,
+                                 protected=protected)
     extra = _nbytes(q_pos) + _nbytes(kv_pos) + (0 if kv_mask is None else _nbytes(kv_mask))
     opts = dict(causal=causal, window=int(window), protected=int(protected))
     return _MetaAttention.apply(q, k, v, extra, opts)
@@ -220,7 +306,11 @@ def meta_attention(q, k, v, q_pos, kv_pos, *, kv_mask, window, causal,
 
 def meta_decode(q, k, v, kv_pos, *, window, protected, causal) -> Tensor:
     """:func:`repro_torch.kernels.decode_attention.decode_attention` on
-    ``meta`` tensors: one query a row over every slot of the cache, full."""
+    ``meta`` tensors: one query a row over every slot of the cache, full
+    (DTensors: :func:`repro_torch.parallel.dtensor.on_local_decode`)."""
+    if DT.is_dtensor(q):
+        return DT.on_local_decode(meta_decode, q, k, v, kv_pos, window=window,
+                                  protected=protected, causal=causal)
     b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
     q4 = q.reshape(b, 1, h, hd)
     dense, kept = _attention_work(q4, k, v, causal=causal, window=int(window),

@@ -13,7 +13,10 @@ point's work; under :class:`repro_torch.launch.op_count.OpCounter` that
 counts its FLOPs and bytes (:func:`repro_torch.launch.dryrun.count_program`).
 The train step accumulates gradients over ``train_microbatches`` equal
 microbatches, so its ``fn`` is one microbatch's loss and backward
-(``repeat`` of them) and its ``tail`` the one AdamW update.
+(``repeat`` of them) and its ``tail`` the one AdamW update.  On a
+partitioned layout (DTensors) each gradient is a share of the sum over
+the data axes until the update places it as its parameter, once: the
+data-parallel all-reduce, or the reduce-scatter of an fsdp-split one.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import InputShape, long_context_policy
 from repro_torch.models.model import Model, build_model
+from repro_torch.parallel import dtensor as DT
 from repro_torch.training import optimizer as opt
 from repro_torch.training.train_loop import trainable
 
@@ -100,8 +104,7 @@ def build_program(cfg: ModelConfig, shape: InputShape, dp: int = 16) -> Program:
     if shape.kind == "train":
         mu = train_microbatches(cfg, shape, dp)
         model = build_model(train_config(cfg), device="meta")
-        params = trainable(model)
-        state = opt.init_state(params)
+        state = opt.init_state(trainable(model))
         batch = {"tokens": _tokens(b, s), **_extras(cfg, b)}
 
         def microbatch(micro):
@@ -109,8 +112,9 @@ def build_program(cfg: ModelConfig, shape: InputShape, dp: int = 16) -> Program:
             loss.backward()
 
         def update():
-            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for n, p in params.items()}
+            params = dict(model.named_parameters())
+            grads = {n: DT.placed_like(p.grad, p) if p.grad is not None
+                     else torch.zeros_like(p) for n, p in params.items()}
             opt.apply_updates(opt.OptimizerConfig(), params, grads, state)
 
         micro = {k: v[: b // mu] for k, v in batch.items()}

@@ -23,7 +23,10 @@ axis, so its spec is the reference's without that leading None.
 Serving places only the data axis: parameters replicate
 (:class:`ParamReplicator`, one copy on each mesh device) and a fused batch
 splits into contiguous row blocks, one per device.  Tensor-parallel specs
-are for the dry run's per-device byte counts; a serving mesh whose
+are for the dry run: :func:`distribute` turns a program's ``meta`` state
+into DTensors placed by the specs (:func:`placements`) on a fake
+``DeviceMesh`` (:func:`repro_torch.launch.mesh.device_mesh`), so the
+program runs rank 0's share of the partitioned work; a serving mesh whose
 ``model`` axis is larger than 1 raises (:func:`serving_dp`).
 """
 
@@ -309,6 +312,100 @@ def shard_bytes(shape, itemsize: int, spec: Spec, mesh) -> float:
         for axis in ((part,) if isinstance(part, str) else (part or ())):
             parts *= mesh.shape[axis]
     return math.prod(shape) * itemsize / parts
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements: the dry run's partitioned programs
+# ---------------------------------------------------------------------------
+
+
+def placements(spec: Spec, device_mesh) -> list:
+    """A spec as DTensor placements on ``device_mesh``: ``Shard(dim)`` on
+    each mesh axis a dim names (a dim over two axes is split by the first,
+    then the second, as a ``PartitionSpec`` splits it), ``Replicate()`` on
+    the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = device_mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for dim, part in enumerate(spec):
+        for axis in ((part,) if isinstance(part, str) else (part or ())):
+            i = names.index(axis)
+            if device_mesh.size(i) > 1:    # a split in one part is whole
+                out[i] = Shard(dim)
+    return out
+
+
+def place(t: torch.Tensor, spec: Spec, device_mesh):
+    """A ``meta`` tensor as a DTensor of the same global shape placed by
+    ``spec``, whose local tensor is rank 0's shard (``meta`` too)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if isinstance(t, DTensor):
+        return t
+    pl = placements(spec, device_mesh)
+    local, _ = compute_local_shape_and_global_offset(t.shape, device_mesh, pl)
+    return DTensor.from_local(
+        torch.empty(local, dtype=t.dtype, device="meta"), device_mesh, pl,
+        run_check=False, shape=t.shape, stride=t.stride())
+
+
+def place_tree(tree: dict, specs: dict, device_mesh) -> None:
+    """Each tensor leaf of the nested dict ``tree`` placed by its spec, in
+    place."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            place_tree(v, specs[k], device_mesh)
+        elif isinstance(v, torch.Tensor):
+            tree[k] = place(v, specs[k], device_mesh)
+
+
+def place_module(module: nn.Module, specs: dict, device_mesh) -> None:
+    """``module``'s parameters placed by ``specs`` (parameter name ->
+    spec) on ``device_mesh``, each swapped on its owner, and its modules
+    routed through the local regions of a partitioned program
+    (:func:`repro_torch.parallel.dtensor.install`), in place."""
+    from repro_torch.parallel import dtensor
+
+    named = dict(module.named_parameters())
+    for name, spec in specs.items():
+        p = named[name]
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf,
+                nn.Parameter(place(p.detach(), spec, device_mesh),
+                             requires_grad=p.requires_grad))
+    dtensor.install(module)
+
+
+def distribute(program, rules: "ShardingRules", device_mesh) -> None:
+    """Place a dry-run program's ``meta`` state on ``device_mesh`` by
+    ``rules``, in place: the model's parameters (``param_pspec``; the
+    program reads them from the model when it runs, see
+    :func:`place_module`), AdamW's moments (``opt_pspec``), the cache
+    (``cache_pspec``, also of a cache the program builds with
+    ``init_cache``, as a prefill does), the batch and any other dict of
+    inputs in ``program.args`` (``batch_pspec``)."""
+    model = program.model
+    place_module(model, rules.param_pspec(dict(model.named_parameters())), device_mesh)
+    build = model.init_cache
+
+    def init_cache(batch: int, slots: int) -> dict:
+        cache = build(batch, slots)
+        place_tree(cache, rules.cache_pspec(cache), device_mesh)
+        return cache
+
+    model.init_cache = init_cache
+    state = program.state
+    if "opt" in state:
+        specs = rules.opt_pspec(state["opt"])
+        for m in ("m", "v"):
+            place_tree(state["opt"][m], specs[m], device_mesh)
+    if "cache" in state:
+        place_tree(state["cache"], rules.cache_pspec(state["cache"]), device_mesh)
+    for tree in (state["batch"], *program.args):
+        if isinstance(tree, dict) and tree is not state.get("cache"):
+            place_tree(tree, rules.batch_pspec(tree), device_mesh)
 
 
 # ---------------------------------------------------------------------------

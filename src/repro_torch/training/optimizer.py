@@ -22,7 +22,9 @@ the top-level vectors do not (``final_norm``, the encoder's ``norm``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import operator
 
 import torch
 
@@ -82,9 +84,12 @@ def init_state(params: dict) -> dict:
 
 
 def global_norm(tensors) -> Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tensors))
+    """sqrt of the sum of squares of every tensor, in float32 (summed from
+    the first term, not from 0: the same number, and a partitioned
+    gradient's share stays a share until the one reduction the sqrt
+    needs)."""
+    return torch.sqrt(functools.reduce(
+        operator.add, (torch.sum(torch.square(x.to(torch.float32))) for x in tensors)))
 
 
 @torch.no_grad()

@@ -212,7 +212,10 @@ def test_run_one_writes_its_record(tmp_path):
     assert not rec["fits_80gb"]
     assert rec["roofline_bound_s"]["flops_s"] == rec["flops"] / 989e12
     eight = dryrun.run_one("qwen2-1.5b", "decode_32k", "8x1", None)
-    assert "roofline_bound_s" not in eight and eight["mesh"] == "8x1"
+    # every layout has its per-device bound, and its collectives' term
+    bound = eight["roofline_bound_s"]
+    assert eight["mesh"] == "8x1" and bound["flops_s"] == eight["flops_per_device"] / 989e12
+    assert bound["collective_s"] == eight["collective_bytes_total"] / 450e9
     assert eight["state_bytes_per_device"]["cache"] < per["cache"] / 7
 
 
