@@ -6,7 +6,9 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    sources in the checkout (one ``nvcc`` each, in parallel, beside one
    ``nvcc -Xptxas -v`` of each for its registers and spills): the flash
    forward (its serving instances and the training instances that also
-   write the log-sum-exp), the flash backward and the decode kernel;
+   write the log-sum-exp), the flash backward, the decode kernel and the
+   row-invariant GEMM (``gemm.cu``: bf16 instances by TMA and by guarded
+   loads, the float32 one, the split-K sum; a spill at any of them fails);
 2. holds the Triton ``era_update`` kernel against its plain PyTorch version
    (max abs error <= 1e-5, the reference's fused-step tolerance) at the
    rows of qwen2-1.5b's, hymba-1.5b's, xlstm-350m's, whisper-base's and
@@ -104,7 +106,7 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    when the grid is in (time to ready, warmup wall, ``memory_reserved``
    growth); eight concurrent 1-row wire requests ride one 8-row replay
    (+280 ``flash_attention``, +7 ``era_update`` launches, no capture), each
-   bitwise its solo drain at the same bucket; a 429 and a 504 come back
+   bitwise its solo drain at the same bucket and at bucket 1; a 429 and a 504 come back
    typed from a held queue; ``/metrics`` parses; an open-loop stream of 32
    requests through ``AsyncBatchedSampler`` (p50/p99, throughput, batches,
    idle share); and the launcher's ``--listen`` default grid (batch 1, 8,
@@ -234,17 +236,37 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    activation part alone within 5% of the measured one; then one
    partitioned count on this host (the request at 2x4 on a fake process
    group), its collective bytes a card and its wall;
-16. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
+16. the determinism contract (``docs/serving.md``; run after phase 9, on
+   its denoiser): eight one-row requests (seq 256, nfe 10, seeds 0-7)
+   drained alone at batch bucket 1, in one 8-row replay and inside a
+   64-row replay among other seeds, each ``x0`` and ERS selection bitwise
+   the same in all three (the launches of these drains are the GEMM's,
+   rmsnorm's and ``row_sq_sums``'s main path, each checked non-zero); the
+   8-row and the 1-row replay's wall and busy time; a 200-position request
+   bitwise the same exact and padded to seq bucket 256; every solver
+   program of the registry bitwise at buckets 1 and 8; whisper-base's
+   denoiser (LayerNorm, counted) bitwise at buckets 1 and 8; then
+   ``gemm`` against ``gemm_plain`` at every ``Linear`` (K, N) of
+   qwen2-1.5b and llama3.2-1b and at the guarded-load shapes, at 1 to
+   16,384 rows with and without a bias (atol = rtol = 2^-6 in bf16; 1e-4 /
+   1e-5 in float32), rows of ``x[:m]`` bitwise those of ``x``; the Triton
+   ``rmsnorm`` / ``layernorm`` (2^-7) and ``row_sq_sums`` (1e-5 relative)
+   against their plain versions, prefix rows bitwise, ``row_sq_sums``
+   padding-invariant; each timed L2-warm and L2-cold beside its bound, its
+   plain version and ``torch.matmul`` / the fused PyTorch op;
+17. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
    ``{"frontdoor": {...}}`` line with phase 9's, one ``{"families":
    {...}}`` line with phases 10, 11 and 12's, one ``{"training": {...}}``
    line with phase 13's, one line with the mesh, the request's FLOPs, the
    int8 cache and the examples' walls, one ``{"dryrun_memory": {...}}``
-   line with phase 15's, and one ``{"kernels": [...]}`` line with each
+   line with phase 15's, one ``{"batch_invariance": {...}}`` line with
+   phase 16's, and one ``{"kernels": [...]}`` line with each
    kernel's launches (by path), error and times beside its bound, then
    the result line.
 
 ``python3 chip_smoke.py --era-ab PARENT/src`` instead times only the ERA
-path's host cost (one denoiser forward and a drain) with the
+path (one denoiser forward, drains at batch buckets 8 and 1, each with a
+replay's busy time) with the
 ``repro_torch`` under ``PARENT/src`` against this checkout's, in the
 order parent, this, this, parent, one process each.
 ``python3 chip_smoke.py --flash-ab PARENT/src`` instead compares flash
@@ -1162,6 +1184,42 @@ def decode_ptxas_report(text: str, kd, lib=None) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the sampling slice
 # ---------------------------------------------------------------------------
+
+
+def gemm_ptxas_report(text: str) -> dict:
+    """{instance: {registers, spill_stores, spill_loads}} of every kernel of
+    ``gemm.cu`` in ``nvcc -Xptxas -v`` output, and ptxas's warnings (a
+    wgmma it serialised); fails on a spill."""
+    import re
+
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            raw = m.group(1)
+            k = re.search(r"gemm_bf16_kernelILi(\d+)ELi(\d+)ELb([01])E", raw)
+            name = (f"bf16 BN {k.group(1)} stages {k.group(2)} "
+                    f"{'tma' if k.group(3) == '1' else 'ldg'}" if k else next(
+                        (n for n in ("gemm_f32_kernel", "gemm_reduce_kernel")
+                         if n in raw), None))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report.setdefault(name, {})["registers"] = int(m.group(1))
+    check(len(report) == 6, f"gemm.cu's ptxas report has {sorted(report)}")
+    for inst, r in report.items():
+        check(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0,
+              f"gemm {inst} spills: {r}")
+    report["warnings"] = [l.strip() for l in text.splitlines()
+                          if "warning" in l.lower()]
+    log(f"gemm.cu ptxas: {report}")
+    return report
 
 
 def reset_counts(*wrappers) -> None:
@@ -2366,9 +2424,8 @@ def phase_frontdoor(ku, kf, kd, dlm):
               f"fused wire batch launches {launches}")
         check(all(r.padded_batch == 8 for r, _ in out), "not one 8-row batch")
         # each against the same request drained alone at the same 8-row
-        # bucket (bitwise: the same GEMM shapes); its 1-row drain on the
-        # front door's engine runs other GEMM shapes, so how far that one
-        # lies is only reported
+        # bucket, and against its 1-row drain on the front door's engine
+        # (bucket 1): bitwise both (the determinism contract, phase 16)
         solo8 = build_engine(dlm, sched, EngineConfig(nfe=NFE,
                                                       batch_buckets=(8,)))
         solo8.warmup(seq_lens=(FD_SEQ,))
@@ -2389,6 +2446,10 @@ def phase_frontdoor(ku, kf, kd, dlm):
                                       one.aux["ers_selection_history"].cpu()),
                           one.batch_wall_s * 1e3))
         del solo8
+        check(all(c[0] == 0.0 and c[1] for c in cross),
+              f"a wire request's bucket-1 drain differs from its 8-row replay: "
+              f"max abs {max(c[0] for c in cross)}, ERS selections equal in "
+              f"{sum(c[1] for c in cross)} of 8")
         report.update(
             fused_wall_ms=fused_ms,
             fused_wire_ms=[round(w, 3) for _, w in out],
@@ -2400,9 +2461,9 @@ def phase_frontdoor(ku, kf, kd, dlm):
         log(f"frontdoor: 8 concurrent wire requests in one 8-row replay "
             f"(batch wall {out[0][0].batch_wall_s * 1e3:.1f} ms), {fused_ms:.1f} "
             f"ms for all; launches {launches}; each bitwise its solo drain at "
-            f"bucket 8; its 1-row drain (bucket 1) lies up to "
-            f"{report['bucket1_vs_bucket8_max_abs']:.3e} away, ERS selections "
-            f"equal in {report['bucket1_vs_bucket8_same_selections']} of 8; "
+            f"bucket 8 and its 1-row drain (bucket 1: max abs "
+            f"{report['bucket1_vs_bucket8_max_abs']}, ERS selections "
+            f"equal in {report['bucket1_vs_bucket8_same_selections']} of 8); "
             f"a 1-row replay takes {report['one_row_replay_ms']:.1f} ms "
             f"(median of 8)")
         for r, (res, wire_ms) in zip(reqs, out):
@@ -2460,6 +2521,436 @@ def phase_frontdoor(ku, kf, kd, dlm):
     del engine, ex
 
     report["default_grid"] = listen_default_grid(dlm)
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the determinism contract on the card (after phase 9)
+# ---------------------------------------------------------------------------
+
+#: the bf16 GEMM against cuBLAS (``gemm_plain``): each element's float32 sum
+#: runs in another order, so the bf16 result may lie a step or two of its
+#: magnitude away
+GEMM_ATOL = GEMM_RTOL = 2 ** -6
+#: the float32 GEMM against cuBLAS's float32 product (another order of K)
+GEMM_F32_ATOL, GEMM_F32_RTOL = 1e-4, 1e-5
+#: the bf16 norms against their plain versions: the output's rounding step
+#: (a float32 statistic a last bit apart can round the other way)
+NORM_ATOL = NORM_RTOL = 2 ** -7
+#: ``row_sq_sums`` against its plain version (float32 sums in another order)
+ROW_SQ_RTOL = 1e-5
+#: rows the kernels are held at, and the prefixes whose rows must be
+#: bitwise the full input's
+INV_MS = (1, 8, 200, 256, 2048, 16384)
+INV_PREFIX = (1, 7, 64, 255, 2048)
+#: the shapes whose row pitch breaks TMA's 16-byte rule (the guarded-load
+#: instance): hymba's dt_proj and x_proj, xLSTM's gates
+GEMM_LDG_SHAPES = ((100, 3200), (3200, 132), (2048, 4))
+#: qwen2-1.5b's products of the ERA path, timed at 8 x 256 and 1 x 256 rows
+GEMM_TIMED = (("wq", 1536, 1536), ("wk", 1536, 256), ("wg", 1536, 8960),
+              ("mlp_wo", 8960, 1536))
+INV_SEEDS = tuple(range(8))
+#: the 64-row replay: the eight one-row requests among seven 8-row ones
+INV_OTHERS = tuple(100 + i for i in range(7))
+INV_PAD = 200
+
+
+def held(y, ref, atol: float, rtol: float, what: str) -> float:
+    """Check |y - ref| <= atol + rtol |ref| elementwise (and y finite), in
+    chunks of rows; return the max abs error."""
+    worst, ok = 0.0, True
+    for i in range(0, max(1, y.shape[0]), 2048):
+        a, b = y[i:i + 2048].float(), ref[i:i + 2048].float()
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        ok = ok and bool(torch.isfinite(a).all()) and bool(
+            (diff <= atol + rtol * b.abs()).all())
+    check(ok, f"{what}: max abs error {worst} outside atol {atol} rtol {rtol}")
+    return worst
+
+
+def gemm_cases(kg) -> dict:
+    """``gemm`` against ``gemm_plain`` at every ``Linear`` (K, N) of
+    qwen2-1.5b and llama3.2-1b (bf16 and float32) and at the guarded-load
+    shapes, at each of ``INV_MS`` rows with and without a bias; rows of
+    ``x[:m]`` bitwise the same rows of ``x`` for m in ``INV_PREFIX``.
+    Returns the max abs error a shape."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    shapes = set()
+    for arch in ("qwen2-1.5b", "llama3.2-1b"):
+        shapes |= kg.linear_shapes(get_config(arch))
+    shapes |= {(k, n, torch.bfloat16) for k, n in GEMM_LDG_SHAPES}
+    errs = {}
+    for k, n, dt in sorted(shapes, key=lambda s: (str(s[2]), s[0], s[1])):
+        f32 = dt == torch.float32
+        atol, rtol = (GEMM_F32_ATOL, GEMM_F32_RTOL) if f32 else (GEMM_ATOL, GEMM_RTOL)
+        w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dt)
+        b = torch.randn(n, generator=gen, device="cuda").to(dt)
+        x = torch.randn(max(INV_MS), k, generator=gen, device="cuda").to(dt)
+        worst = 0.0
+        for m in INV_MS:
+            for bias in (None, b):
+                worst = max(worst, held(kg.gemm(x[:m], w, bias),
+                                        kg.gemm_plain(x[:m], w, bias), atol, rtol,
+                                        f"gemm {k}x{n} {dt} M={m}"))
+        full = kg.gemm(x, w, b)
+        for m in INV_PREFIX:
+            check(torch.equal(kg.gemm(x[:m], w, b), full[:m]),
+                  f"gemm {k}x{n} {dt}: the rows of x[:{m}] differ from the "
+                  f"same rows of x")
+        cfg = kg.gemm_config(k, n, dt)
+        errs[f"{k}x{n} {str(dt).split('.')[-1]}"] = worst
+        log(f"gemm {k}x{n} {dt} ({cfg.loader}, BN {cfg.bn}, split {cfg.split}): "
+            f"max abs error {worst:.3e} at M {INV_MS}, rows invariant at "
+            f"prefixes {INV_PREFIX}")
+    return errs
+
+
+def rownorm_cases(kr) -> dict:
+    """The Triton norms against their plain versions (bf16, qwen2's,
+    llama's and whisper's widths, ``INV_MS`` rows) and ``row_sq_sums``
+    (float32 64 x 256 x 1536 with per-row lengths, and rank 2); prefix rows
+    bitwise, and ``row_sq_sums`` of a 200-position batch bitwise the same
+    batch padded to 256 with junk in the masked positions."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    errs = {}
+    for d in (1536, 2048, 512):
+        x = (torch.randn(max(INV_MS), d, generator=gen, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        scale = torch.rand(d, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(d, generator=gen, device="cuda")
+        for name, fn, plain in (
+                ("rmsnorm", lambda t: kr.rmsnorm(t, scale),
+                 lambda t: kr.rmsnorm_plain(t, scale)),
+                ("layernorm", lambda t: kr.layernorm(t, scale, bias),
+                 lambda t: kr.layernorm_plain(t, scale, bias))):
+            worst = max(held(fn(x[:m]), plain(x[:m]), NORM_ATOL, NORM_RTOL,
+                             f"{name} d={d} rows={m}") for m in INV_MS)
+            full = fn(x)
+            for m in INV_PREFIX:
+                check(torch.equal(fn(x[:m]), full[:m]),
+                      f"{name} d={d}: the rows of x[:{m}] differ")
+            errs[f"{name} {d}"] = worst
+    dd = torch.randn(64, 256, 1536, generator=gen, device="cuda")
+    lengths = torch.randint(1, 257, (64,), generator=gen, device="cuda")
+    valid = torch.arange(256, device="cuda")[None] < lengths[:, None]
+    for what, args in (("row_sq_sums", (dd, valid)), ("row_sq_sums rank 2",
+                                                      (dd[:, 0], None))):
+        y, ref = kr.row_sq_sums(*args), kr.row_sq_sums_plain(*args)
+        rel = float(((y - ref).abs() / ref.abs()).max())
+        check(rel <= ROW_SQ_RTOL, f"{what}: relative error {rel}")
+        errs[what] = float((y - ref).abs().max())
+        for m in (1, 7, 8, 63):
+            a = args[1][:m] if args[1] is not None else None
+            check(torch.equal(kr.row_sq_sums(args[0][:m], a), y[:m]),
+                  f"{what}: the rows of d[:{m}] differ")
+    exact = kr.row_sq_sums(dd[:, :INV_PAD].contiguous(), None)
+    pad_valid = (torch.arange(256, device="cuda") < INV_PAD)[None].expand(64, 256)
+    check(torch.equal(kr.row_sq_sums(dd, pad_valid), exact),
+          f"row_sq_sums: {INV_PAD} positions padded to 256 differ from exact")
+    log(f"rownorm: max abs errors {errs}; rows invariant; row_sq_sums of "
+        f"{INV_PAD} positions bitwise the same padded to 256")
+    return errs
+
+
+@functools.cache
+def timing_stream():
+    """The one stream every timing graph is captured on: cuBLAS keeps a
+    workspace for each stream it has run on for the rest of the process
+    (32 MiB or more each), so a new stream a graph would hold on to about
+    a gigabyte by the end of phase 16."""
+    return torch.cuda.Stream()
+
+
+def graph_time_ms(body, replays: int = 5) -> float:
+    """CUDA-event time of one replay of a CUDA graph of ``body``, run once
+    first on the stream the graph is then captured on: builds, allocations
+    and cuBLAS's workspace for that stream all happen outside the
+    capture."""
+    side = timing_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        body()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def graph_ms(fn, *, cold: bool = False, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: CUDA events around replays of a
+    graph of ``reps`` calls, so no host time sits between the launches and
+    no profiler record can be lost (late in this script a trace has held a
+    fraction of a short kernel's launches).  ``cold`` writes
+    ``FLUSH_BYTES`` before each call and takes a graph of the flushes
+    alone off."""
+    flush = l2_flush() if cold else None
+
+    def body():
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+
+    total = graph_time_ms(body)
+    if flush is not None:
+        total -= graph_time_ms(lambda: [flush() for _ in range(reps)])
+    return total / reps
+
+
+def timed(fn, bound_ms: float, bound_by: str, plain=None, library=None) -> dict:
+    """Device time of ``fn`` (:func:`graph_ms`) L2-warm and L2-cold beside
+    its bound, its plain version's and a library call's."""
+    out = dict(ms=graph_ms(fn), ms_l2_cold=graph_ms(fn, cold=True),
+               bound_ms=bound_ms, bound_by=bound_by,
+               plain_ms=None if plain is None else graph_ms(plain),
+               library_ms=None if library is None else graph_ms(library),
+               library_ms_l2_cold=(None if library is None
+                                   else graph_ms(library, cold=True)))
+    out["kernel_over_bound"] = out["ms"] / bound_ms
+    return out
+
+
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    ops, mem = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def rowkernel_timings(kg, kr) -> dict:
+    """Device times (:func:`graph_ms`) at qwen2-1.5b's shapes: each ERA-path
+    product at 8 x 256 and 1 x 256 rows beside ``torch.matmul``, TimeMLP's
+    float32 product at 8 rows, rmsnorm over 8 x 256 rows of 1536, layernorm
+    over whisper's 8 x 256 rows of 512, and ``row_sq_sums`` over an 8 x 256
+    x 1536 float32 error with per-row lengths."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    out = {}
+    for rows in (2048, 256):
+        for name, k, n in GEMM_TIMED:
+            x = torch.randn(rows, k, generator=gen, device="cuda").bfloat16()
+            w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).bfloat16()
+            b_ms, b_by = bound(2.0 * rows * k * n, 2.0 * (rows * k + k * n + rows * n),
+                               PEAK_BF16_FLOPS)
+            out[f"{name} {rows}x{k}x{n}"] = timed(
+                lambda: kg.gemm(x, w), b_ms, b_by, plain=lambda: kg.gemm_plain(x, w),
+                library=lambda: torch.matmul(x, w))
+    x = torch.randn(8, 1536, generator=gen, device="cuda")
+    w = torch.randn(1536, 1536, generator=gen, device="cuda") * 1536 ** -0.5
+    b = torch.randn(1536, generator=gen, device="cuda")
+    b_ms, b_by = bound(2.0 * 8 * 1536 * 1536, 4.0 * (8 * 1536 + 1536 * 1536 + 1536 + 8 * 1536),
+                       PEAK_F32_FLOPS)
+    out["time_mlp_w2 f32 8x1536x1536"] = timed(
+        lambda: kg.gemm(x, w, b), b_ms, b_by, plain=lambda: kg.gemm_plain(x, w, b),
+        library=lambda: torch.addmm(b, x, w))
+    F = torch.nn.functional
+    for name, d in (("rmsnorm", 1536), ("layernorm", 512)):
+        x = torch.randn(8, 256, d, generator=gen, device="cuda").bfloat16()
+        scale = torch.rand(d, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(d, generator=gen, device="cuda")
+        b_ms, b_by = bound(0.0, 2.0 * 2 * x.numel() + 4.0 * 2 * d, PEAK_F32_FLOPS)
+        if name == "rmsnorm":
+            lib = (lambda: F.rms_norm(x, (d,), scale.bfloat16(), 1e-5)) if hasattr(
+                F, "rms_norm") else None
+            out[f"rmsnorm 2048x{d}"] = timed(
+                lambda: kr.rmsnorm(x, scale), b_ms, b_by,
+                plain=lambda: kr.rmsnorm_plain(x, scale), library=lib)
+        else:
+            out[f"layernorm 2048x{d}"] = timed(
+                lambda: kr.layernorm(x, scale, bias), b_ms, b_by,
+                plain=lambda: kr.layernorm_plain(x, scale, bias),
+                library=lambda: F.layer_norm(x, (d,), scale.bfloat16(),
+                                             bias.bfloat16(), 1e-5))
+    dd = torch.randn(8, 256, 1536, generator=gen, device="cuda")
+    valid = torch.arange(256, device="cuda")[None] < torch.tensor(
+        [256, 200, 256, 128, 256, 256, 1, 255], device="cuda")[:, None]
+    b_ms, b_by = bound(0.0, 4.0 * dd.numel() + valid.numel() + 4 * 8, PEAK_F32_FLOPS)
+    out["row_sq_sums 8x256x1536"] = timed(
+        lambda: kr.row_sq_sums(dd, valid), b_ms, b_by,
+        plain=lambda: kr.row_sq_sums_plain(dd, valid))
+    for name, t in out.items():
+        lib = "" if t["library_ms"] is None else f", library {t['library_ms']:.4f} ms"
+        log(f"timing {name}: {t['ms']:.4f} ms (L2-cold {t['ms_l2_cold']:.4f}), "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{t['kernel_over_bound']:.2f}x), plain {t['plain_ms']:.4f} ms{lib}")
+    return out
+
+
+def bucket_drains(dlm, solver: str | None, buckets=(1, 8, 64)) -> dict:
+    """The eight one-row requests (seeds ``INV_SEEDS``, seq 256, nfe 10) of
+    ``solver`` drained alone at batch bucket 1, fused into one 8-row
+    replay, and (with 64 in ``buckets``) inside a 64-row replay among other
+    seeds, each on an engine of that one bucket; returns {bucket: (the
+    eight results, the engine)}."""
+    from repro_torch.core import linear_schedule
+    from repro_torch.serving import EngineConfig, SampleRequest, build_engine
+
+    def engine(bucket):
+        return build_engine(dlm, linear_schedule(), EngineConfig(
+            solver=solver or "era", nfe=NFE, batch_buckets=(bucket,)))
+
+    reqs = [SampleRequest(batch=1, seq_len=256, nfe=NFE, seed=s) for s in INV_SEEDS]
+    out = {}
+    for bucket in buckets:
+        eng = engine(bucket)
+        if bucket == 1:
+            res = []
+            for r in reqs:
+                _, f = eng.submit_with_future(r)
+                eng.drain()
+                res.append(f.result())
+        else:
+            others = [SampleRequest(batch=8, seq_len=256, nfe=NFE, seed=s)
+                      for s in INV_OTHERS] if bucket == 64 else []
+            futs = [eng.submit_with_future(r)[1] for r in others[:4] + reqs + others[4:]]
+            eng.drain()
+            res = [f.result() for f in futs][len(others[:4]):][:len(reqs)]
+        check(all(r.padded_batch == bucket for r in res),
+              f"{solver or 'era'}: not padded to bucket {bucket}")
+        out[bucket] = (res, eng)
+    return out
+
+
+def same_results(a, b) -> bool:
+    """x0 and (ERA's) ERS selections bitwise equal."""
+    from repro_torch.serving import result_keys
+
+    key = result_keys.ERS_SELECTION_HISTORY
+    return torch.equal(a.x0, b.x0) and (
+        key not in a.aux or torch.equal(a.aux[key], b.aux[key]))
+
+
+def phase_batch_invariance(ku, kf, kd, kg, kr, dlm):
+    """The reference's determinism contract (``docs/serving.md``) on the
+    card at full width: a request's ``x0`` and ERS selections bitwise the
+    same at batch buckets 1, 8 and 64, a 200-position request bitwise the
+    same exact and padded to 256, every solver program bitwise at buckets 1
+    and 8, and whisper-base's denoiser (LayerNorm) at buckets 1 and 8; then
+    the kernels behind it held against their plain versions and timed.
+    Returns the launches of the served drains and a report."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import linear_schedule, solver_names
+    from repro_torch.serving import BatchedSampler, SampleRequest, result_keys
+
+    wrappers = (ku.era_update, kf.flash_attention, kd.decode_attention, kg.gemm,
+                kr.rmsnorm, kr.layernorm, kr.row_sq_sums)
+    names = ("era_update", "flash_attention", "decode_attention", "gemm",
+             "rmsnorm", "layernorm", "row_sq_sums")
+    t_phase = time.perf_counter()
+    report = {}
+
+    # ERA at buckets 1, 8 and 64: the main path of this phase, counted
+    reset_counts(*wrappers)
+    drains = bucket_drains(dlm, None)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in zip(names, wrappers)}
+    for n in ("era_update", "flash_attention", "gemm", "rmsnorm", "row_sq_sums"):
+        check(launches[n] > 0, f"the bucket drains launched no {n}")
+    check(launches["decode_attention"] == 0 and launches["layernorm"] == 0,
+          f"the ERA drains launched {launches}")
+    one = drains[1][0]
+    for bucket in (8, 64):
+        for i, (a, b) in enumerate(zip(one, drains[bucket][0])):
+            check(torch.equal(a.x0, b.x0),
+                  f"seed {i}: x0 at bucket {bucket} differs from bucket 1 by "
+                  f"{float((a.x0.float() - b.x0.float()).abs().max())}")
+            check(torch.equal(a.aux[result_keys.ERS_SELECTION_HISTORY],
+                              b.aux[result_keys.ERS_SELECTION_HISTORY]),
+                  f"seed {i}: ERS selections at bucket {bucket} differ")
+    log(f"invariance: 8 requests' x0 and ERS selections bitwise the same at "
+        f"batch buckets 1, 8 and 64; launches {launches} "
+        f"({time.perf_counter() - t_phase:.1f}s)")
+
+    # the 8-row and the 1-row replay: wall (after capture) and busy time
+    for bucket, rows in ((8, INV_SEEDS), (1, INV_SEEDS[:1])):
+        eng = drains[bucket][1]
+        reqs = [SampleRequest(batch=1, seq_len=256, nfe=NFE, seed=s) for s in rows]
+
+        def submit():
+            for r in reqs:
+                eng.submit_with_future(r)
+
+        walls = []
+        for _ in range(3):
+            submit()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.drain()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = sorted(walls)[1]
+        submit()
+        idle, _, _, busy = profile_device(eng.drain, f"ERA {bucket}x256 replay",
+                                          wall, NFE, "NFE")
+        report[f"era_{bucket}x256_replay"] = dict(wall_ms=wall, walls_ms=walls,
+                                                  busy_ms=busy, idle_share=idle)
+    del drains
+
+    # a 200-position request exact and padded to seq bucket 256
+    req = SampleRequest(batch=1, seq_len=INV_PAD, nfe=NFE, seed=21)
+    exact = BatchedSampler(dlm, linear_schedule(), batch_buckets=(1,))
+    padded = BatchedSampler(dlm, linear_schedule(), batch_buckets=(8,),
+                            seq_buckets=(256,))
+    res = []
+    for eng in (exact, padded):
+        _, f = eng.submit_with_future(req)
+        eng.drain()
+        res.append(f.result())
+    check(res[0].padded_seq_len == INV_PAD and res[1].padded_seq_len == 256,
+          "the padding case did not run exact and padded")
+    check(same_results(res[0], res[1]),
+          f"{INV_PAD} positions padded to 256 differ from exact by "
+          f"{float((res[0].x0.float() - res[1].x0.float()).abs().max())}")
+    log(f"invariance: a {INV_PAD}-position request bitwise the same exact "
+        f"(bucket 1) and padded to 256 (bucket 8)")
+    del exact, padded
+
+    # every solver program of the registry at buckets 1 and 8
+    for name in solver_names():
+        d = bucket_drains(dlm, name, buckets=(1, 8))
+        for i, (a, b) in enumerate(zip(d[1][0], d[8][0])):
+            check(same_results(a, b),
+                  f"{name} seed {i}: bucket 8 differs from bucket 1 by "
+                  f"{float((a.x0.float() - b.x0.float()).abs().max())}")
+        del d
+    report["solvers_bitwise"] = solver_names()
+    log(f"invariance: every solver program {solver_names()} bitwise the same "
+        f"at buckets 1 and 8 ({time.perf_counter() - t_phase:.1f}s)")
+
+    # whisper-base's denoiser (LayerNorm): buckets 1 and 8, counted
+    wh = build_dlm(get_config("whisper-base"))
+    reset_counts(*wrappers)
+    d = bucket_drains(wh, None, buckets=(1, 8))
+    torch.cuda.synchronize()
+    wh_launches = {n: w.launches for n, w in zip(names, wrappers)}
+    check(wh_launches["layernorm"] > 0 and wh_launches["gemm"] > 0,
+          f"whisper's drains launched {wh_launches}")
+    for i, (a, b) in enumerate(zip(d[1][0], d[8][0])):
+        check(same_results(a, b), f"whisper-base seed {i}: bucket 8 differs "
+              f"from bucket 1")
+    for n, v in wh_launches.items():
+        launches[n] += v
+    log(f"invariance: whisper-base's 8 requests bitwise the same at buckets 1 "
+        f"and 8; launches {wh_launches}")
+    del d, wh
+    reserved_mb()
+
+    report["gemm_max_abs_err"] = gemm_cases(kg)
+    report["rownorm_max_abs_err"] = rownorm_cases(kr)
+    report["timings"] = rowkernel_timings(kg, kr)
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 took {report['wall_s']:.1f}s")
     return launches, report
 
 
@@ -3864,9 +4355,14 @@ def train_families(kf) -> dict:
     out = {}
     for arch, (layers, batch) in TRAIN_FAMILIES.items():
         cfg = family_train_config(arch, layers)
-        out[arch] = {obj: train_objective(kf, cfg, obj, steps, profile=False,
-                                          batch_size=batch)
-                     for obj, steps in FAMILY_TRAIN_STEPS.items()}
+        out[arch] = {}
+        for obj, steps in FAMILY_TRAIN_STEPS.items():
+            out[arch][obj] = train_objective(kf, cfg, obj, steps, profile=False,
+                                             batch_size=batch)
+            # hand the cached blocks back before the next objective, as
+            # --train-fit does between its trials: deepseek's LM steps peak
+            # within 9 GB of the card
+            reserved_mb()
         out[arch]["flash_per_step"] = {
             obj: train_flash_launches(cfg, obj == "diffusion")
             for obj in FAMILY_TRAIN_STEPS}
@@ -3875,7 +4371,6 @@ def train_families(kf) -> dict:
         reduced += [f"batch {batch}"] if batch != TRAIN_BATCH else []
         if reduced:
             out[arch]["reduced"] = ", ".join(reduced)
-        reserved_mb()
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"families trained: {out['wall_s']:.1f}s")
     return out
@@ -4540,6 +5035,11 @@ def l2_flush():
     return lambda: buf.fill_(1.0)
 
 
+#: marker kernels each trace starts with, for the tracer to drop in place
+#: of the traced work's first records
+TRACER_WARMUP = 256
+
+
 def device_events(fn):
     """Run ``fn`` under torch.profiler; return ((device ms, count, name)
     rows sorted by time, device span ms (first device op to last),
@@ -4549,15 +5049,22 @@ def device_events(fn):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a moment for the tracer before the first launch: late in a long
-        # run a trace has come back without its first few dozen records
+        # a moment for the tracer before the first launch, and marker
+        # kernels for it to drop: late in a long run a trace has come back
+        # without its first few dozen records (in PR 27, the first layer of
+        # every whisper replay traced, five times in a row); the markers
+        # are left out of everything below
         time.sleep(0.01)
+        for _ in range(TRACER_WARMUP):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and MARKER_KERNEL not in e.name]
     check(bool(spans), "profiler traced no device op")
     span_ms = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3
     busy_us, end = 0.0, None
@@ -4572,7 +5079,8 @@ def device_events(fn):
     for evt in prof.key_averages():
         # device-side events only (kernels, memcpy, memset); the CPU-side
         # aten ops carry their kernels' time too and would count it twice
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or MARKER_KERNEL in evt.key):
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -4623,16 +5131,25 @@ def profile_device(fn, what: str, plain_wall_ms: float, per: int,
 def era_host(src: str) -> None:
     """Time the ERA path with the ``repro_torch`` package under ``src``:
     one denoiser forward at 8x256 (host time to issue it, its wall with a
-    sync, its device busy time) and three drains of the 8-row-bucket
-    request of phase 4; print them as one JSON line."""
+    sync, its device busy time), three drains of the 8-row-bucket request
+    of phase 4 and three of a 1-row request (bucket 1), each with one
+    traced replay's device busy time; print them as one JSON line."""
     import statistics
 
     sys.path.insert(0, str(Path(src).resolve()))
+    # this script imported this checkout's package at its top: drop it, so
+    # that the imports below load the one under ``src``
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
     from repro_torch.configs import get_config
     from repro_torch.core import linear_schedule
     from repro_torch.models import DiffusionLM
     from repro_torch.serving import BatchedSampler, SampleRequest
 
+    import repro_torch
+    check(Path(repro_torch.__file__).resolve().is_relative_to(Path(src).resolve()),
+          f"era_host: imported {repro_torch.__file__}, not the package under {src}")
     cfg = get_config("qwen2-1.5b")
     dlm = DiffusionLM(cfg, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -4652,21 +5169,27 @@ def era_host(src: str) -> None:
         wall.append((time.perf_counter() - t0) * 1e3)
     rows = device_events(lambda: dlm.eps(x, 0.5))[0]
     eng = BatchedSampler(dlm, linear_schedule())
-    req = SampleRequest(batch=3, seq_len=256, nfe=NFE, solver="era", seed=12)
-    drains = []
-    for _ in range(4):  # the first one warms the Triton kernel and cuBLAS
+    drains = {}
+    for batch in (3, 1):  # batch buckets 8 and 1
+        req = SampleRequest(batch=batch, seq_len=256, nfe=NFE, solver="era",
+                            seed=12)
+        drains[batch] = []
+        for _ in range(4):  # the first one warms the kernels (and captures)
+            eng.submit_with_future(req)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.drain()
+            torch.cuda.synchronize()
+            drains[batch].append((time.perf_counter() - t0) * 1e3 / NFE)
         eng.submit_with_future(req)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.drain()
-        torch.cuda.synchronize()
-        drains.append((time.perf_counter() - t0) * 1e3 / NFE)
+        drains[f"busy_{batch}"] = device_events(eng.drain)[3]
     print(json.dumps(dict(
         src=src, forward_issue_ms=statistics.median(issue),
         forward_wall_ms=statistics.median(wall),
         forward_busy_ms=sum(r[0] for r in rows),
         forward_ops=sum(r[1] for r in rows),
-        drain_ms_per_nfe=drains[1:],
+        drain_ms_per_nfe=drains[3][1:], replay_busy_ms=drains["busy_3"],
+        drain1_ms_per_nfe=drains[1][1:], replay1_busy_ms=drains["busy_1"],
     )), flush=True)
 
 
@@ -5122,12 +5645,15 @@ def main() -> None:
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import era_update as ku
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import rownorm as kr
 
     t0 = time.perf_counter()
     ptxas = ptxas_start(build, kf.SOURCE)
     dptxas_out, dptxas = ptxas_start(build, kd.SOURCE)
     bptxas_out, bptxas = ptxas_start(build, kf.BWD_SOURCE)
-    libs = build.build_all([kf.SOURCE, kd.SOURCE, kf.BWD_SOURCE])
+    gptxas_out, gptxas = ptxas_start(build, kg.SOURCE)
+    libs = build.build_all([kf.SOURCE, kd.SOURCE, kf.BWD_SOURCE, kg.SOURCE])
     log(f"built {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f}s")
     flash_ptxas = ptxas_report(ptxas, kf)
     text, _ = dptxas.communicate()
@@ -5140,6 +5666,10 @@ def main() -> None:
     bwd_ptxas = bwd_ptxas_report(text, kf.HEAD_DIM_PAIRS)
     bwd_ptxas["flash_fwd_kernel_lse"] = {
         k: v for k, v in flash_ptxas.items() if k.endswith(" lse")}
+    text, _ = gptxas.communicate()
+    gptxas_out.unlink(missing_ok=True)
+    check(gptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
+    gemm_ptxas = gemm_ptxas_report(text)
 
     def done(phase):
         log(f"phase {phase} done at {time.perf_counter() - t0:.1f}s")
@@ -5164,6 +5694,9 @@ def main() -> None:
     done(8)
     frontdoor_launches, frontdoor = phase_frontdoor(ku, kf, kd, dlm)
     done(9)
+    invariance_launches, invariance = phase_batch_invariance(ku, kf, kd, kg, kr,
+                                                             dlm)
+    done(16)
     del dlm
     reserved_mb()
     families_launches, families = phase_families(ku, kf, kd)
@@ -5268,6 +5801,46 @@ def main() -> None:
              hymba=bwd_t["hymba"], mla=bwd_t["mla"],
              paligemma=bwd_t["paligemma"], ptxas=bwd_ptxas),
     ]
+    inv_t = invariance["timings"]
+
+    def row_kernel(name, route, source, replaces, errs, shape, **extra):
+        t = inv_t[shape]
+        return dict(name=name, route=route, source=source, replaces=replaces,
+                    launches=invariance_launches[name],
+                    launches_by_path={"batch_invariance": invariance_launches[name]},
+                    max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+                    ms=t["ms"], kernel_ms=t["ms"], ms_l2_cold=t["ms_l2_cold"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=t["library_ms"],
+                    library_ms_l2_cold=t["library_ms_l2_cold"],
+                    kernel_over_bound=t["kernel_over_bound"], shape=shape, **extra)
+
+    gemm_errs = invariance["gemm_max_abs_err"]
+    norm_errs = invariance["rownorm_max_abs_err"]
+    kernels += [
+        row_kernel("gemm", "cuda", "src/repro_torch/csrc/gemm.cu",
+                   "none: the reference's products are XLA dots outside "
+                   "Pallas (src/repro/models/layers.py:119, linear)",
+                   gemm_errs, "wg 2048x1536x8960",
+                   timings={k: v for k, v in inv_t.items() if not k.startswith(
+                       ("rmsnorm", "layernorm", "row_sq"))},
+                   ptxas=gemm_ptxas),
+        row_kernel("rmsnorm", "triton", "src/repro_torch/kernels/rownorm.py",
+                   "none: the reference's rmsnorm is XLA ops outside Pallas "
+                   "(src/repro/models/layers.py:85)",
+                   {k: v for k, v in norm_errs.items() if k.startswith("rmsnorm")},
+                   "rmsnorm 2048x1536"),
+        row_kernel("layernorm", "triton", "src/repro_torch/kernels/rownorm.py",
+                   "none: the reference's layernorm is XLA ops outside Pallas "
+                   "(src/repro/models/layers.py:97)",
+                   {k: v for k, v in norm_errs.items() if k.startswith("layernorm")},
+                   "layernorm 2048x512"),
+        row_kernel("row_sq_sums", "triton", "src/repro_torch/kernels/rownorm.py",
+                   "none: the reference's _seq_sq_sums is XLA ops outside "
+                   "Pallas (src/repro/core/era.py:128)",
+                   {k: v for k, v in norm_errs.items() if k.startswith("row_sq")},
+                   "row_sq_sums 8x256x1536"),
+    ]
     log(f"ERA path: drain {drain_s:.3f}s, {per_nfe_ms:.2f} ms per NFE")
     log(f"bucketed ERA drain: {bucketed['drain_ms']:.1f} ms, device busy "
         f"{bucketed['busy_ms']:.1f} ms, idle share {bucketed['idle_share']:.3f}; "
@@ -5296,6 +5869,8 @@ def main() -> None:
     log(json.dumps({"mesh": mesh, "request_flops": request_flops,
                     "int8_cache": int8, "examples_s": examples}))
     log(json.dumps({"dryrun_memory": dryrun_memory}))
+    log(json.dumps({"batch_invariance": {k: v for k, v in invariance.items()
+                                         if k != "timings"}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

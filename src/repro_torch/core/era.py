@@ -59,6 +59,7 @@ from repro_torch.core.solver_base import (
     loop_grid,
 )
 from repro_torch.kernels.era_update import era_update
+from repro_torch.kernels.rownorm import row_sq_sums
 
 Tensor = torch.Tensor
 
@@ -81,16 +82,11 @@ class ERAConfig(SolverConfig):
 
 def _seq_sq_sums(d: Tensor, valid: Tensor | None) -> Tensor:
     """Per-row sum of squared entries, features first, then accumulated
-    position by position (``cumsum`` along the sequence) so zero-masked pad
-    positions only append exact ``+ 0`` steps.  Rank-2 inputs keep the
-    plain squared norm."""
-    d = d.to(torch.float32)
-    if d.dim() < 3:
-        return torch.sum(d.reshape(d.shape[0], -1) ** 2, dim=-1)
-    p = torch.sum(d.reshape(d.shape[0], d.shape[1], -1) ** 2, dim=-1)  # (B, S)
-    if valid is not None:
-        p = torch.where(valid, p, torch.zeros((), device=p.device))
-    return torch.cumsum(p, dim=1)[:, -1]
+    position by position so zero-masked pad positions only append exact
+    ``+ 0`` steps (:func:`repro_torch.kernels.rownorm.row_sq_sums`: on the
+    card a kernel whose order depends on the row's width alone, not on the
+    batch).  Rank-2 inputs keep the plain squared norm."""
+    return row_sq_sums(d, valid)
 
 
 def _delta_eps_batch(

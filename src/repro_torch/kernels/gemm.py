@@ -1,0 +1,276 @@
+"""Row-invariant GEMM: ``y = x @ w (+ b)`` for every ``Linear`` on the card.
+
+Replaces no TPU kernel: the reference's products are XLA dots outside any
+Pallas kernel.  It keeps the reference's determinism contract
+(``docs/serving.md``: a seeded request's ``x0`` depends only on the
+compiled shape): each output row depends only on its own input row and the
+weights, whatever the number of rows beside it.  cuBLAS chooses its kernel,
+tile and split of K from M, so through it a row's sums ran in another order
+at batch bucket 1 than at bucket 8.
+
+**The invariance rule.**  :func:`gemm_config` sets the tile (BM, BN, BK),
+the stages, the split of K and so the order of the K loop and of the sum
+over a split's partials from ``(K, N, dtype)`` alone; it takes no M.  The
+kernel (``src/repro_torch/csrc/gemm.cu``, whose header comment gives the
+design and its bound) uses no atomics, and the rows past M and the K past
+its end read as exact zeros.  Row i of ``gemm(x[:m], w)`` is then bitwise
+row i of ``gemm(x, w)`` for every m.
+
+bf16 (x and w bf16, float32 accumulation) rounds as ``x @ w + b`` rounds in
+PyTorch: the product to bf16, then the bias add again.  float32 (TimeMLP,
+no TF32) is a SIMT kernel: K in eight slices of one fmaf chain each, the
+slices summed in order.
+Built with ``nvcc`` for ``sm_90a`` at first use and bound with ctypes; the
+C entry point returns ``cudaGetLastError()`` and the wrapper raises if it
+is not 0.  Under autograd the wrapper is a ``torch.autograd.Function``
+whose backward computes ``dx = dy @ w^T`` and ``dw = x^T @ dy`` with
+``torch.matmul``, as the reference leaves them to XLA.
+
+CPU tensors take :func:`gemm_plain`.  An unsupported call on a CUDA tensor
+(another dtype, mixed dtypes, mismatched shapes) raises; nothing falls
+back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+Tensor = torch.Tensor
+SOURCE = "gemm.cu"
+
+#: rows and K of the bf16 instance's block tile (two warpgroups of 64 rows,
+#: one 128-byte swizzled row of bf16)
+BM, BK = 128, 64
+#: the bf16 kernel's (BN, stages) instances
+BF16_INSTANCES = ((64, 4), (128, 4))
+#: the float32 kernel's block: rows, columns, and the slices of K (a warp
+#: each) whose sums it adds in order
+F32_TILE = (16, 32, 8)
+#: most K splits, and the fewest K tiles a split takes
+MAX_SPLIT, MIN_SPLIT_TILES = 4, 8
+MAX_GRID_Y = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmConfig:
+    """One launch configuration: ``loader`` is ``"tma"`` (2-D tensor maps),
+    ``"ldg"`` (guarded loads into the same swizzled tiles, where a row pitch
+    is not a multiple of 16 bytes) or ``"simt"`` (the float32 kernel, whose
+    K tile is one value); ``k_per_split`` K tiles a split (``split`` of
+    them, summed in order)."""
+
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    split: int
+    k_per_split: int
+    loader: str
+
+
+@functools.cache
+def gemm_config(k: int, n: int, dtype: torch.dtype) -> GemmConfig:
+    """The launch configuration of a (K, N) product in ``dtype``: a
+    function of the weight's shape alone, never of M.  K splits (at most
+    :data:`MAX_SPLIT`, each of at least :data:`MIN_SPLIT_TILES` K tiles)
+    only where N gives at most two column tiles (qwen2's ``wk`` / ``wv``,
+    1536 -> 256), so that a few rows still spread over the card."""
+    if k < 1 or n < 1:
+        raise ValueError(f"gemm: K {k} and N {n} must be positive")
+    if dtype == torch.float32:
+        fm, fn, slices = F32_TILE
+        return GemmConfig(fm, fn, 1, 1, slices, -(-k // slices), "simt")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"gemm: no instance for {dtype} (bf16 and float32 only)")
+    bn = 64 if n <= 64 else 128
+    k_tiles = -(-k // BK)
+    split = 1
+    if -(-n // bn) <= 2:
+        split = max(1, min(MAX_SPLIT, k_tiles // MIN_SPLIT_TILES))
+    kps = -(-k_tiles // split)
+    loader = "tma" if k % 8 == 0 and n % 8 == 0 else "ldg"
+    return GemmConfig(BM, bn, BK, 4, split, kps, loader)
+
+
+def gemm_plain(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
+    """``x @ w (+ b)`` in PyTorch with the kernel's roundings: the product
+    in x's dtype, then the bias add.  x (M, K), w (K, N).  On the CPU a lone
+    row goes through the GEMM beside a copy of itself: at one row PyTorch's
+    CPU matmul takes a matrix-vector path, whose sums run in another order
+    than its GEMM's, and the row would then differ from the same row
+    among others."""
+    if x.shape[0] == 1 and x.device.type == "cpu":
+        return gemm_plain(torch.cat([x, x]), w, b)[:1]
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _check(x: Tensor, w: Tensor, b: Tensor | None) -> None:
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"gemm: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "must be (M, K) and (K, N)")
+    if b is not None and b.shape != (w.shape[1],):
+        raise ValueError(f"gemm: bias {tuple(b.shape)} must be ({w.shape[1]},)")
+    for name, t in (("w", w), ("b", b)):
+        if t is not None and (t.dtype != x.dtype or t.device != x.device):
+            raise ValueError(f"gemm: {name} is {t.dtype} on {t.device}, x is "
+                             f"{x.dtype} on {x.device}")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    lib.repro_gemm_bf16.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.repro_gemm_bf16.restype = ctypes.c_int
+    lib.repro_gemm_f32.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.repro_gemm_f32.restype = ctypes.c_int
+    consts = (ctypes.c_int * 5)()
+    lib.repro_gemm_constants(consts)
+    if tuple(consts) != (BM, BK, *F32_TILE):
+        raise RuntimeError(f"gemm: the library's tiles {tuple(consts)} are not "
+                           f"the wrapper's {(BM, BK, *F32_TILE)}")
+    return lib
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` contiguous at a 16-byte aligned address (TMA's rule; a copy
+    changes no value)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x: Tensor, w: Tensor, b: Tensor | None) -> Tensor:
+    """One kernel call on CUDA tensors (checked by :func:`gemm`)."""
+    m, k = x.shape
+    n = w.shape[1]
+    y = x.new_empty(m, n)
+    if m == 0:
+        return y
+    cfg = gemm_config(k, n, x.dtype)
+    x, w = _aligned(x), _aligned(w)
+    b = None if b is None else _aligned(b)
+    if -(-m // cfg.bm) > MAX_GRID_Y:
+        raise ValueError(f"gemm: {m} rows exceed {MAX_GRID_Y} row tiles")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bias = None if b is None else b.data_ptr()
+    if cfg.loader == "simt":
+        err = _library().repro_gemm_f32(x.data_ptr(), w.data_ptr(), bias,
+                                        y.data_ptr(), m, k, n, stream)
+    else:
+        ws = (torch.empty(cfg.split, m, n, dtype=torch.float32, device=x.device)
+              if cfg.split > 1 else None)
+        err = _library().repro_gemm_bf16(
+            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, k, n, cfg.bn,
+            cfg.stages, cfg.split, cfg.k_per_split, int(cfg.loader == "tma"),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"gemm launch failed: cudaError {err}")
+    gemm.launches += 1
+    return y
+
+
+class _Gemm(torch.autograd.Function):
+    """The kernel under autograd; the backward's products are
+    ``torch.matmul``, as the reference computes them with XLA."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return _launch(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dy @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x.t() @ dy if ctx.needs_input_grad[1] else None
+        db = dy.sum(0) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def gemm(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
+    """``x (M, K) @ w (K, N) (+ b (N,))`` in x's dtype.  CPU tensors take
+    :func:`gemm_plain`; CUDA tensors launch the kernel (bf16 or float32, at
+    :func:`gemm_config`'s configuration) or raise (``Linear`` gives
+    ``meta`` tensors the plain product itself).  Differentiable on CUDA
+    through :class:`_Gemm`."""
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return gemm_plain(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"gemm: x is on {x.device}, not cuda")
+    gemm_config(x.shape[1], w.shape[1], x.dtype)   # raises on another dtype
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b)):
+        return _Gemm.apply(x, w, b)
+    return _launch(x, w, b)
+
+
+gemm.launches = 0
+
+
+def linear_shapes(cfg) -> set[tuple[int, int, torch.dtype]]:
+    """Every ``Linear``'s (d_in, d_out, compute dtype) in the diffusion
+    denoiser and the AR model of ``cfg``, by config arithmetic (nothing is
+    built): the product shapes :func:`gemm` takes on that model's paths."""
+    d, dt, f32 = cfg.d_model, cfg.dtype, torch.float32
+    hd = cfg.resolved_head_dim
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    out = {(256, d, f32), (d, d, f32),       # TimeMLP
+           (d, d, dt)}                       # in_proj, eps_head
+    if not cfg.tie_embeddings:
+        out.add((d, cfg.padded_vocab, dt))
+
+    def attention():
+        out.update({(d, h * hd, dt), (d, kvh * hd, dt), (h * hd, d, dt)})
+
+    def mlp(d_ff):
+        out.update({(d, d_ff, dt), (d_ff, d, dt)})
+
+    def moe():
+        m = cfg.moe
+        out.add((d, m.num_experts, f32))     # the router (used as a matrix)
+        if m.num_shared:
+            mlp(m.d_ff_expert * m.num_shared)
+
+    for kind, _ in cfg.blocks:
+        if kind in ("dense", "enc", "xdec"):
+            attention()
+            mlp(cfg.d_ff)
+        elif kind == "moe":
+            attention()
+            moe()
+        elif kind == "mla_moe":
+            a = cfg.mla
+            out.update({(d, h * (a.qk_nope_head_dim + a.qk_rope_head_dim), dt),
+                        (d, a.kv_lora_rank + a.qk_rope_head_dim, dt),
+                        (a.kv_lora_rank, h * (a.qk_nope_head_dim + a.v_head_dim), dt),
+                        (h * a.v_head_dim, d, dt)})
+            moe()
+        elif kind in ("hymba_full", "hymba_swa"):
+            attention()
+            mlp(cfg.d_ff)
+            s = cfg.ssm
+            di = s.expand * d
+            dt_rank = s.dt_rank or -(-d // 16)
+            out.update({(d, 2 * di, dt), (di, dt_rank + 2 * s.state_dim, dt),
+                        (dt_rank, di, dt), (di, d, dt)})
+        elif kind == "mlstm":
+            di = 2 * d
+            out.update({(d, 2 * di, dt), (di, di, dt), (di, h, dt), (di, d, dt)})
+        elif kind == "slstm":
+            out.add((d, d, dt))
+        else:
+            raise ValueError(f"linear_shapes: unknown block kind {kind!r}")
+    return out

@@ -20,6 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import rownorm
+from repro_torch.kernels.gemm import gemm
+
 Tensor = torch.Tensor
 
 
@@ -49,7 +52,10 @@ def init_tensor(
 
 class Linear(nn.Module):
     """``y = x @ w + b`` with ``w`` stored (d_in, d_out) like the reference
-    (so weights map across without a transpose)."""
+    (so weights map across without a transpose).  The product is
+    :func:`~repro_torch.kernels.gemm.gemm` (on the card its row-invariant
+    kernel, on the CPU its plain version); ``meta`` tensors (the dry run)
+    take the plain product, whose ops the counter counts."""
 
     def __init__(
         self, d_in: int, d_out: int, *, bias: bool = False, init: str = "fan_in",
@@ -67,10 +73,13 @@ class Linear(nn.Module):
         )
 
     def forward(self, x: Tensor) -> Tensor:
-        y = x @ self.w.to(x.dtype)
-        if self.b is not None:
-            y = y + self.b.to(x.dtype)
-        return y
+        w = self.w.to(x.dtype)
+        b = None if self.b is None else self.b.to(x.dtype)
+        if x.device.type == "meta":
+            y = x @ w
+            return y if b is None else y + b
+        y = gemm(x.reshape(-1, x.shape[-1]), w, b)
+        return y.reshape(*x.shape[:-1], w.shape[1])
 
 
 class RMSNorm(nn.Module):
@@ -87,11 +96,9 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
-    dt = x.dtype
-    x = x.to(torch.float32)
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * scale.to(torch.float32)).to(dt)
+    """RMS norm over the last axis, statistics in float32
+    (:func:`repro_torch.kernels.rownorm.rmsnorm`)."""
+    return rownorm.rmsnorm(x, scale, eps)
 
 
 class LayerNorm(nn.Module):
@@ -114,14 +121,9 @@ class LayerNorm(nn.Module):
 
 
 def layernorm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
-    dt = x.dtype
-    x = x.to(torch.float32)
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    xc = x - mu
-    var = torch.mean(xc * xc, dim=-1, keepdim=True)
-    x = xc * torch.rsqrt(var + eps)
-    out = x * scale.to(torch.float32) + bias.to(torch.float32)
-    return out.to(dt)
+    """LayerNorm over the last axis, statistics in float32
+    (:func:`repro_torch.kernels.rownorm.layernorm`)."""
+    return rownorm.layernorm(x, scale, bias, eps)
 
 
 def gelu(x: Tensor) -> Tensor:

@@ -71,6 +71,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
     assert "repro_torch.core.era" in out["imported"]
     assert "repro_torch.kernels.flash_attention" in out["imported"]
     assert "repro_torch.kernels.decode_attention" in out["imported"]
+    assert "repro_torch.kernels.gemm" in out["imported"]
+    assert "repro_torch.kernels.rownorm" in out["imported"]
     assert "repro_torch.launch.serve" in out["imported"]
     assert "repro_torch.serving.executor" in out["imported"]
     assert "repro_torch.core.program" in out["imported"]
