@@ -8,7 +8,8 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    forward (its serving instances and the training instances that also
    write the log-sum-exp), the flash backward, the decode kernel and the
    row-invariant GEMM (``gemm.cu``: bf16 instances by TMA and by guarded
-   loads, the float32 one, the split-K sum; a spill at any of them fails);
+   loads, the float32 one, the split-K sum, each also batched for
+   ``bgemm``; a spill at any of them fails);
 2. holds the Triton ``era_update`` kernel against its plain PyTorch version
    (max abs error <= 1e-5, the reference's fused-step tolerance) at the
    rows of qwen2-1.5b's, hymba-1.5b's, xlstm-350m's, whisper-base's and
@@ -224,9 +225,9 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    against 1,024) and its decode ms a step beside the bf16 cache's; and
    ``Engine(mesh=make_sampler_mesh())`` generating bitwise the tokens of
    the engine without a mesh; then each ``examples/torch_*.py`` at its
-   tiny defaults on the card in a subprocess of its own (quickstart,
-   solver comparison, AR serving over the families); a failure fails the
-   phase;
+   tiny defaults on the card in a subprocess of its own, the three
+   started together (quickstart, solver comparison, AR serving over the
+   families); a failure fails the phase;
 15. the dry run's memory against the card's: the qwen2-1.5b ERA request
    at 8x256 (nfe 10), run eagerly through the program's loop, and one
    qwen2-1.5b diffusion training step at 8x256, each from a clean
@@ -245,15 +246,33 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    8-row and the 1-row replay's wall and busy time; a 200-position request
    bitwise the same exact and padded to seq bucket 256; every solver
    program of the registry bitwise at buckets 1 and 8; whisper-base's
-   denoiser (LayerNorm, counted) bitwise at buckets 1 and 8; then
+   denoiser (LayerNorm, counted) bitwise at buckets 1 and 8; the families
+   whose products do not all go through ``Linear`` (MoE experts and
+   router, the mLSTM / sLSTM products: ``bgemm``; Mamba's readout an einsum), one
+   at a time at full width: deepseek-v2-lite-16b, mixtral-8x7b cut to 4 of
+   its 32 layers, hymba-1.5b and xlstm-350m, each with a forward hook on
+   every module over one ``eps`` call of 8 rows and of their first row
+   alone (no module's output may differ) and eight requests' ``x0`` and
+   ERS selections bitwise at buckets 1, 8 and 64 (counted: ``gemm`` launches,
+   and ``bgemm`` in all but hymba; the MoE families get no seq-padding check, their
+   capacity comes from the padded length in both packages); then
    ``gemm`` against ``gemm_plain`` at every ``Linear`` (K, N) of
    qwen2-1.5b and llama3.2-1b and at the guarded-load shapes, at 1 to
    16,384 rows with and without a bias (atol = rtol = 2^-6 in bf16; 1e-4 /
-   1e-5 in float32), rows of ``x[:m]`` bitwise those of ``x``; the Triton
+   1e-5 in float32), rows of ``x[:m]`` bitwise those of ``x``; ``bgemm``
+   against ``bgemm_plain`` at every ``bgemm_shapes`` entry of the four
+   families (and the split-K and guarded-load shapes) at G 1-8 and M
+   1-640 with and without a bias (the same tolerances), rows of
+   ``x[:, :m]`` and batches of ``x[:g]`` bitwise those of ``x``, and
+   ``gemm(x, w)`` bitwise ``bgemm(x[None], w[None])[0]`` at every qwen2
+   ``Linear`` shape; Mamba's readout einsum bitwise for the first row at
+   1 to 64 rows of 256 and 128 positions; the Triton
    ``rmsnorm`` / ``layernorm`` (2^-7) and ``row_sq_sums`` (1e-5 relative)
    against their plain versions, prefix rows bitwise, ``row_sq_sums``
    padding-invariant; each timed L2-warm and L2-cold beside its bound, its
-   plain version and ``torch.matmul`` / the fused PyTorch op;
+   plain version and ``torch.matmul`` / the fused PyTorch op (``bgemm``
+   beside ``torch.bmm`` at the experts', Mamba's readout's, the mLSTM's
+   and the sLSTM's shapes; the readout also beside its einsum);
 17. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
    ``{"frontdoor": {...}}`` line with phase 9's, one ``{"families":
    {...}}`` line with phases 10, 11 and 12's, one ``{"training": {...}}``
@@ -266,9 +285,12 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 ``python3 chip_smoke.py --era-ab PARENT/src`` instead times only the ERA
 path (one denoiser forward, drains at batch buckets 8 and 1, each with a
-replay's busy time) with the
+replay's busy time) and reads phase 16's probe (the modules that differ,
+each bucket's ``|x0|`` difference from bucket 1 at buckets 8 and 64;
+nothing checked) with the
 ``repro_torch`` under ``PARENT/src`` against this checkout's, in the
-order parent, this, this, parent, one process each.
+order parent, this, this, parent, one process each; ``--era-arch`` names
+the denoisers (default qwen2-1.5b; ``families`` for phase 16's four).
 ``python3 chip_smoke.py --flash-ab PARENT/src`` instead compares flash
 kernels in one process: the one under ``PARENT/src`` (through its own
 wrapper), this checkout's and tile variants of it, each checked and then
@@ -1188,8 +1210,8 @@ def decode_ptxas_report(text: str, kd, lib=None) -> dict:
 
 def gemm_ptxas_report(text: str) -> dict:
     """{instance: {registers, spill_stores, spill_loads}} of every kernel of
-    ``gemm.cu`` in ``nvcc -Xptxas -v`` output, and ptxas's warnings (a
-    wgmma it serialised); fails on a spill."""
+    ``gemm.cu`` in ``nvcc -Xptxas -v`` output (each unbatched and batched),
+    and ptxas's warnings (a wgmma it serialised); fails on a spill."""
     import re
 
     report, name = {}, None
@@ -1197,11 +1219,16 @@ def gemm_ptxas_report(text: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw = m.group(1)
-            k = re.search(r"gemm_bf16_kernelILi(\d+)ELi(\d+)ELb([01])E", raw)
-            name = (f"bf16 BN {k.group(1)} stages {k.group(2)} "
-                    f"{'tma' if k.group(3) == '1' else 'ldg'}" if k else next(
-                        (n for n in ("gemm_f32_kernel", "gemm_reduce_kernel")
-                         if n in raw), None))
+            k = re.search(r"gemm_bf16_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", raw)
+            o = re.search(r"(gemm_f32_kernel|gemm_reduce_kernel)ILb([01])E", raw)
+            if k:
+                name = (f"bf16 BN {k.group(1)} stages {k.group(2)} "
+                        f"{'tma' if k.group(3) == '1' else 'ldg'}"
+                        f"{' batched' if k.group(4) == '1' else ''}")
+            elif o:
+                name = o.group(1) + (" batched" if o.group(2) == "1" else "")
+            else:
+                name = None
             continue
         if name is None:
             continue
@@ -1212,7 +1239,7 @@ def gemm_ptxas_report(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             report.setdefault(name, {})["registers"] = int(m.group(1))
-    check(len(report) == 6, f"gemm.cu's ptxas report has {sorted(report)}")
+    check(len(report) == 12, f"gemm.cu's ptxas report has {sorted(report)}")
     for inst, r in report.items():
         check(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0,
               f"gemm {inst} spills: {r}")
@@ -2787,6 +2814,159 @@ def rowkernel_timings(kg, kr) -> dict:
     return out
 
 
+#: the batched GEMM's batches and rows at each shape; the rows and batches
+#: whose prefixes must be bitwise the whole input's
+BGEMM_GS = (1, 3, 8)
+BGEMM_MS = (1, 30, 80, 240, 640)
+BGEMM_ROW_PREFIX = (1, 7, 30, 129)
+BGEMM_BATCH_PREFIX = (1, 2, 5)
+#: shapes beside the families' that reach the split of K (qwen2's wk / wv)
+#: and the guarded-load loader (hymba's dt_proj, xLSTM's gates)
+BGEMM_EXTRA = ((1536, 256, torch.bfloat16), (100, 3200, torch.bfloat16),
+               (2048, 4, torch.bfloat16))
+
+
+def bgemm_cases(kg) -> dict:
+    """``bgemm`` against ``bgemm_plain`` (``torch.bmm``) at every
+    ``bgemm_shapes`` entry of the four families at 256 and 128 positions
+    (and at ``BGEMM_EXTRA``), at G in ``BGEMM_GS`` and M in ``BGEMM_MS``,
+    with and without a bias; rows of ``x[:, :m]`` and batches of
+    ``x[:g]`` bitwise the same of ``x``.  Returns the max abs error a
+    shape."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    shapes = set(BGEMM_EXTRA)
+    for name, layers in INV_FAMILIES:
+        for seq in (256, 128):
+            shapes |= kg.bgemm_shapes(family_config(name, layers), seq)
+    gmax, mmax = max(BGEMM_GS), max(BGEMM_MS)
+    errs = {}
+    for k, n, dt in sorted(shapes, key=lambda s: (str(s[2]), s[0], s[1])):
+        f32 = dt == torch.float32
+        atol, rtol = (GEMM_F32_ATOL, GEMM_F32_RTOL) if f32 else (GEMM_ATOL, GEMM_RTOL)
+        w = (torch.randn(gmax, k, n, generator=gen, device="cuda") * k ** -0.5).to(dt)
+        b = torch.randn(gmax, n, generator=gen, device="cuda").to(dt)
+        x = torch.randn(gmax, mmax, k, generator=gen, device="cuda").to(dt)
+        worst = 0.0
+        for g in BGEMM_GS:
+            for m in BGEMM_MS:
+                for bias in (None, b[:g]):
+                    args = (x[:g, :m], w[:g], bias)
+                    worst = max(worst, held(
+                        kg.bgemm(*args).flatten(0, 1), kg.bgemm_plain(*args).flatten(0, 1),
+                        atol, rtol, f"bgemm {g}x{m}x{k}x{n} {dt}"))
+        full = kg.bgemm(x, w, b)
+        for m in BGEMM_ROW_PREFIX:
+            check(torch.equal(kg.bgemm(x[:, :m], w, b), full[:, :m]),
+                  f"bgemm {k}x{n} {dt}: the rows of x[:, :{m}] differ from the "
+                  f"same rows of x")
+        for g in BGEMM_BATCH_PREFIX:
+            check(torch.equal(kg.bgemm(x[:g], w[:g], b[:g]), full[:g]),
+                  f"bgemm {k}x{n} {dt}: the batches of x[:{g}] differ")
+        cfg = kg.gemm_config(k, n, dt)
+        errs[f"{k}x{n} {str(dt).split('.')[-1]}"] = worst
+        log(f"bgemm {k}x{n} {dt} ({cfg.loader}, BN {cfg.bn}, split {cfg.split}): "
+            f"max abs error {worst:.3e} at G {BGEMM_GS} x M {BGEMM_MS}; rows "
+            f"invariant at {BGEMM_ROW_PREFIX}, batches at {BGEMM_BATCH_PREFIX}")
+    return errs
+
+
+def gemm_is_bgemm_of_one(kg) -> int:
+    """``gemm(x, w, b) == bgemm(x[None], w[None], b[None])[0]`` bitwise at
+    every ``Linear`` shape of qwen2-1.5b, 2,048 and 7 rows, with and
+    without a bias: the 2-D launch and the batched one compute alike.
+    Returns the shapes held."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    shapes = sorted(kg.linear_shapes(get_config("qwen2-1.5b")), key=str)
+    for k, n, dt in shapes:
+        w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dt)
+        b = torch.randn(n, generator=gen, device="cuda").to(dt)
+        x = torch.randn(2048, k, generator=gen, device="cuda").to(dt)
+        for m in (2048, 7):
+            for bias in (None, b):
+                one = kg.bgemm(x[None, :m], w[None], None if bias is None else bias[None])
+                check(torch.equal(kg.gemm(x[:m], w, bias), one[0]),
+                      f"gemm {k}x{n} {dt} M={m}: the 2-D launch differs from "
+                      f"the batched one")
+    log(f"gemm == bgemm of one batch, bitwise, at qwen2's {len(shapes)} "
+        f"Linear shapes")
+    return len(shapes)
+
+
+def bgemm_timings(kg) -> dict:
+    """Device times (:func:`graph_ms`) of ``bgemm`` at the main path's
+    shapes beside ``torch.bmm`` (its plain version and the library call):
+    deepseek-v2-lite's and mixtral's expert products at batch buckets 8
+    and 1 (G = E, M = groups x capacity), the mLSTM's score, inter-chunk
+    and ``den`` products at xlstm's 8 x 256 and the sLSTM's step at batch
+    8; and Mamba's readout at hymba's 8 x 256 chunk as the batched GEMM
+    would run it (G = B x L, M = d_inner, K = 16, N = 1) beside the einsum
+    the model runs (``ssm.mamba_readout``)."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = (("experts_wg deepseek", 64, 240, 2048, 1408, bf),
+             ("experts_wg deepseek 1-row", 64, 30, 2048, 1408, bf),
+             ("experts_wg mixtral", 8, 640, 4096, 14336, bf),
+             ("experts_wo mixtral 1-row", 8, 80, 14336, 4096, bf),
+             ("mamba_readout hymba", 2048, 3200, 16, 1, f32),
+             ("mlstm_scores xlstm", 32, 256, 512, 256, f32),
+             ("mlstm_inter xlstm", 32, 256, 512, 512, f32),
+             ("mlstm_den xlstm", 8192, 1, 512, 1, f32),
+             ("slstm_step xlstm", 4, 8, 256, 1024, f32))
+    out = {}
+    for name, g, m, k, n, dt in cases:
+        x = torch.randn(g, m, k, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(g, k, n, generator=gen, device="cuda") * k ** -0.5).to(dt)
+        size = 2 if dt == bf else 4
+        b_ms, b_by = bound(2.0 * g * m * k * n, size * g * (m * k + k * n + m * n),
+                           PEAK_BF16_FLOPS if dt == bf else PEAK_F32_FLOPS)
+        key = f"bgemm {name} {g}x{m}x{k}x{n}"
+        out[key] = timed(lambda: kg.bgemm(x, w), b_ms, b_by,
+                         plain=lambda: kg.bgemm_plain(x, w),
+                         library=lambda: torch.bmm(x, w))
+        if name.startswith("mamba"):
+            hh = x.view(8, 256, m, k)
+            c = w.view(8, 256, k)
+            out[key]["einsum_ms"] = graph_ms(lambda: ssm.mamba_readout(hh, c))
+    for name, t in out.items():
+        extra = f", einsum {t['einsum_ms']:.4f} ms" if "einsum_ms" in t else ""
+        log(f"timing {name}: {t['ms']:.4f} ms (L2-cold {t['ms_l2_cold']:.4f}), "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{t['kernel_over_bound']:.2f}x), torch.bmm {t['library_ms']:.4f} ms{extra}")
+    return out
+
+
+def readout_invariance() -> list:
+    """Mamba's readout (``ssm.mamba_readout``, an einsum: cuBLAS picks its
+    kernel) at hymba's widths: the first row's output bitwise the same at
+    1 to 64 rows of a 256- and a 128-position chunk.  The model keeps the
+    einsum on this evidence; a change of the library's choice fails here.
+    Returns the (positions, rows) held."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("hymba-1.5b")
+    d_inner, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    held = []
+    for seq in (256, 128):
+        hh = torch.randn(64, seq, d_inner, n, generator=gen, device="cuda")
+        c = torch.randn(64, seq, n, generator=gen, device="cuda")
+        one = ssm.mamba_readout(hh[:1], c[:1])
+        for rows in (2, 3, 8, 16, 64):
+            check(torch.equal(ssm.mamba_readout(hh[:rows], c[:rows])[:1], one),
+                  f"Mamba's readout: the first row at {rows} rows of {seq} "
+                  f"positions differs from the row alone")
+            held.append((seq, rows))
+        del hh, c
+    log(f"Mamba's readout einsum: the first row bitwise alone and among "
+        f"{sorted({r for _, r in held})} rows at 256 and 128 positions")
+    return held
+
+
 def bucket_drains(dlm, solver: str | None, buckets=(1, 8, 64)) -> dict:
     """The eight one-row requests (seeds ``INV_SEEDS``, seq 256, nfe 10) of
     ``solver`` drained alone at batch bucket 1, fused into one 8-row
@@ -2831,22 +3011,145 @@ def same_results(a, b) -> bool:
         key not in a.aux or torch.equal(a.aux[key], b.aux[key]))
 
 
+#: the families whose products do not all go through ``Linear``, each with
+#: the depth phase 16 runs it at (mixtral cut to 4 of its 32 layers, as
+#: phase 10 runs it; the others whole)
+INV_FAMILIES = (("deepseek-v2-lite-16b", None), ("mixtral-8x7b", 4),
+                ("hymba-1.5b", None), ("xlstm-350m", None))
+#: the seed of the module probe's 8 rows
+PROBE_SEED = 71
+
+
+def family_config(name: str, layers: int | None):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return cfg if layers is None else cfg.with_(num_layers=layers)
+
+
+def module_probe(dlm) -> list:
+    """One ``eps`` call on 8 rows of 256 positions and one on the first row
+    alone, each with a forward hook on every module of the denoiser: the
+    modules whose output for that row differs between the two calls, in
+    the order their hooks fired (a module's children before it), each with
+    its class and largest difference.  A module's part for the first row is
+    the prefix of its output along the first axis whose size differs
+    between the calls (the batch, or the token groups of an expert
+    buffer)."""
+    gen = torch.Generator(device="cuda").manual_seed(PROBE_SEED)
+    x = torch.randn(8, 256, dlm.config.d_model, generator=gen, device="cuda")
+    runs, records = [], []
+
+    def hook(name):
+        def fn(mod, args, out):
+            t = out[0] if isinstance(out, tuple) else out
+            if isinstance(t, torch.Tensor):
+                records.append((name, type(mod).__name__, t.detach().clone()))
+        return fn
+
+    handles = [m.register_forward_hook(hook(n))
+               for n, m in dlm.named_modules() if n]
+    try:
+        for rows in (x[:1], x):
+            records.clear()
+            with torch.no_grad():
+                dlm.eps(rows, 0.5)
+            runs.append(list(records))
+    finally:
+        for h in handles:
+            h.remove()
+    check([r[0] for r in runs[0]] == [r[0] for r in runs[1]],
+          "module probe: the two calls ran other modules")
+    out = []
+    for (name, cls, one), (_, _, eight) in zip(*runs):
+        if one.dim() == eight.dim():
+            for d in range(one.dim()):
+                if one.shape[d] != eight.shape[d]:
+                    eight = eight.narrow(d, 0, one.shape[d])
+                    break
+        if one.shape != eight.shape:
+            out.append(dict(module=name, cls=cls, shapes=[list(one.shape),
+                                                          list(eight.shape)]))
+        elif not torch.equal(one, eight):
+            out.append(dict(module=name, cls=cls, max_abs=float(
+                (one.float() - eight.float()).abs().max())))
+    del runs, records
+    return out
+
+
+def bucket_reading(dlm, buckets=(1, 8, 64)) -> dict:
+    """The eight one-row requests of :func:`bucket_drains` at ``buckets``
+    (1 first): each later bucket's largest ``|x0|`` difference from bucket
+    1, its requests and ERS selection entries that differ; the largest
+    difference and the differing requests over all of them.  Nothing is
+    checked."""
+    from repro_torch.serving import result_keys
+
+    d = bucket_drains(dlm, None, buckets=buckets)
+    torch.cuda.synchronize()
+    key = result_keys.ERS_SELECTION_HISTORY
+    out = dict(by_bucket={},
+               ers_entries=int(d[1][0][0].aux[key].numel()) * len(d[1][0]))
+    for bucket in buckets[1:]:
+        dx, sel, reqs = 0.0, 0, 0
+        for a, b in zip(d[1][0], d[bucket][0]):
+            diff = float((a.x0.float() - b.x0.float()).abs().max())
+            dx = max(dx, diff)
+            n_sel = int((a.aux[key] != b.aux[key]).sum())
+            sel += n_sel
+            reqs += int(diff > 0 or n_sel > 0)
+        out["by_bucket"][bucket] = dict(max_abs_dx0=dx, requests_differ=reqs,
+                                        ers_entries_differ=sel)
+    out["max_abs_dx0"] = max(r["max_abs_dx0"] for r in out["by_bucket"].values())
+    out["requests_differ"] = sum(r["requests_differ"] for r in out["by_bucket"].values())
+    del d
+    return out
+
+
+def family_invariance(name: str, layers: int | None, counted: dict) -> dict:
+    """One family's denoiser at full width (``layers`` cut when given): the
+    module probe (:func:`module_probe`), then :func:`bucket_reading` at
+    batch buckets 1, 8 and 64 with the drains' launches of each wrapper of
+    ``counted`` ({name: wrapper}), counted from 0; fails unless every
+    request and every module is bitwise the same."""
+    t0 = time.perf_counter()
+    dlm = build_dlm(family_config(name, layers))
+    probe = module_probe(dlm)
+    reset_counts(*counted.values())
+    report = bucket_reading(dlm)
+    report.update(modules_differ=len(probe), first_modules=probe[:6])
+    report["launches"] = {n: w.launches for n, w in counted.items()}
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"invariance {name}{'' if layers is None else f' ({layers} layers)'}: "
+        f"against bucket 1 {json.dumps(report['by_bucket'])} of "
+        f"{report['ers_entries']} ERS entries; {report['modules_differ']} "
+        f"modules differ, first {json.dumps(report['first_modules'])}; "
+        f"launches {report['launches']} ({report['wall_s']:.1f}s)")
+    check(report["requests_differ"] == 0 and not report["modules_differ"],
+          f"{name}: x0 differs across batch buckets: {report['by_bucket']}; "
+          f"modules {report['first_modules']}")
+    del dlm
+    reserved_mb()
+    return report
+
+
 def phase_batch_invariance(ku, kf, kd, kg, kr, dlm):
     """The reference's determinism contract (``docs/serving.md``) on the
     card at full width: a request's ``x0`` and ERS selections bitwise the
     same at batch buckets 1, 8 and 64, a 200-position request bitwise the
     same exact and padded to 256, every solver program bitwise at buckets 1
-    and 8, and whisper-base's denoiser (LayerNorm) at buckets 1 and 8; then
-    the kernels behind it held against their plain versions and timed.
+    and 8, whisper-base's denoiser (LayerNorm) at buckets 1 and 8, and the
+    families of ``INV_FAMILIES`` at buckets 1, 8 and 64; then the kernels
+    behind it held against their plain versions and timed.
     Returns the launches of the served drains and a report."""
     from repro_torch.configs import get_config
     from repro_torch.core import linear_schedule, solver_names
     from repro_torch.serving import BatchedSampler, SampleRequest, result_keys
 
     wrappers = (ku.era_update, kf.flash_attention, kd.decode_attention, kg.gemm,
-                kr.rmsnorm, kr.layernorm, kr.row_sq_sums)
+                kr.rmsnorm, kr.layernorm, kr.row_sq_sums, kg.bgemm)
     names = ("era_update", "flash_attention", "decode_attention", "gemm",
-             "rmsnorm", "layernorm", "row_sq_sums")
+             "rmsnorm", "layernorm", "row_sq_sums", "bgemm")
     t_phase = time.perf_counter()
     report = {}
 
@@ -2857,8 +3160,8 @@ def phase_batch_invariance(ku, kf, kd, kg, kr, dlm):
     launches = {n: w.launches for n, w in zip(names, wrappers)}
     for n in ("era_update", "flash_attention", "gemm", "rmsnorm", "row_sq_sums"):
         check(launches[n] > 0, f"the bucket drains launched no {n}")
-    check(launches["decode_attention"] == 0 and launches["layernorm"] == 0,
-          f"the ERA drains launched {launches}")
+    check(launches["decode_attention"] == 0 and launches["layernorm"] == 0
+          and launches["bgemm"] == 0, f"the ERA drains launched {launches}")
     one = drains[1][0]
     for bucket in (8, 64):
         for i, (a, b) in enumerate(zip(one, drains[bucket][0])):
@@ -2946,9 +3249,30 @@ def phase_batch_invariance(ku, kf, kd, kg, kr, dlm):
     del d, wh
     reserved_mb()
 
+    # the MoE, Mamba and xLSTM families (their products through bgemm): a
+    # module probe and 8 requests at buckets 1, 8 and 64, counted
+    report["families"] = {}
+    for name, layers in INV_FAMILIES:
+        r = family_invariance(name, layers, dict(zip(names, wrappers)))
+        for n, v in r["launches"].items():
+            launches[n] += v
+        uses_bgemm = bool(kg.bgemm_shapes(family_config(name, layers), 256))
+        check((r["launches"]["bgemm"] > 0) == uses_bgemm and r["launches"]["gemm"] > 0,
+              f"{name}'s drains launched {r['launches']}")
+        if name.startswith(("deepseek", "mixtral")):
+            log(f"invariance {name}: no seq-padding check: a MoE layer's "
+                f"capacity comes from the padded length in both packages "
+                f"(ROADMAP queue 3, mirrored)")
+        report["families"][name] = r
+    log(f"invariance: {[n for n, _ in INV_FAMILIES]} bitwise at buckets 1, 8 "
+        f"and 64 ({time.perf_counter() - t_phase:.1f}s)")
+
     report["gemm_max_abs_err"] = gemm_cases(kg)
+    report["bgemm_max_abs_err"] = bgemm_cases(kg)
+    report["gemm_is_bgemm_of_one"] = gemm_is_bgemm_of_one(kg)
+    report["readout_rows_held"] = readout_invariance()
     report["rownorm_max_abs_err"] = rownorm_cases(kr)
-    report["timings"] = rowkernel_timings(kg, kr)
+    report["timings"] = rowkernel_timings(kg, kr) | bgemm_timings(kg)
     report["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 16 took {report['wall_s']:.1f}s")
     return launches, report
@@ -4765,21 +5089,43 @@ EXAMPLES = ("torch_quickstart", "torch_compare_solvers", "torch_serve_multi_arch
 
 def phase_examples() -> dict:
     """Each ``examples/torch_*.py`` at its tiny defaults on the card, in a
-    subprocess of its own; a failure fails the phase."""
+    subprocess of its own, the three started together (each wall from the
+    common start to its exit); a failure fails the phase."""
+    import tempfile
+
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    walls = {}
-    for name in EXAMPLES:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py")],
-                              cwd=ROOT, env=env, capture_output=True, text=True,
-                              timeout=300)
-        walls[name] = time.perf_counter() - t0
-        check(proc.returncode == 0, f"example {name} failed:\n{proc.stdout[-3000:]}"
-                                    f"\n{proc.stderr[-3000:]}")
-        for line in proc.stdout.strip().splitlines()[-3:]:
+    t0 = time.perf_counter()
+    procs, walls = {}, {}
+    try:
+        for name in EXAMPLES:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py")], cwd=ROOT,
+                env=env, stdout=out, stderr=err, text=True), out, err)
+        while len(walls) < len(procs):
+            for name, (proc, _, _) in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            check(time.perf_counter() - t0 < 300, f"examples still running: "
+                  f"{[n for n in procs if n not in walls]}")
+            time.sleep(0.1)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (proc, out, err) in procs.items():
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+        out.close()
+        err.close()
+        check(proc.returncode == 0, f"example {name} failed:\n{stdout[-3000:]}"
+                                    f"\n{stderr[-3000:]}")
+        for line in stdout.strip().splitlines()[-3:]:
             log(f"  {name}: {line}")
     log(f"examples: {', '.join(f'{k} {v:.1f}s' for k, v in walls.items())}; "
-        f"together {sum(walls.values()):.1f}s")
+        f"together {max(walls.values()):.1f}s")
     return walls
 
 
@@ -5128,29 +5474,56 @@ def profile_device(fn, what: str, plain_wall_ms: float, per: int,
 # ---------------------------------------------------------------------------
 
 
-def era_host(src: str) -> None:
-    """Time the ERA path with the ``repro_torch`` package under ``src``:
-    one denoiser forward at 8x256 (host time to issue it, its wall with a
-    sync, its device busy time), three drains of the 8-row-bucket request
-    of phase 4 and three of a 1-row request (bucket 1), each with one
-    traced replay's device busy time; print them as one JSON line."""
-    import statistics
+#: ``--era-arch families``: the families phase 16 added, each with its cut
+ERA_FAMILIES = ",".join(n if l is None else f"{n}:{l}" for n, l in INV_FAMILIES)
 
+
+def use_package(src: str) -> None:
+    """Make the ``repro_torch`` under ``src`` the one later imports load:
+    this script imported this checkout's at its top, so drop it."""
     sys.path.insert(0, str(Path(src).resolve()))
-    # this script imported this checkout's package at its top: drop it, so
-    # that the imports below load the one under ``src``
     for name in [m for m in sys.modules
                  if m == "repro_torch" or m.startswith("repro_torch.")]:
         del sys.modules[name]
+    import repro_torch
+    check(Path(repro_torch.__file__).resolve().is_relative_to(Path(src).resolve()),
+          f"imported {repro_torch.__file__}, not the package under {src}")
+
+
+def era_host(src: str, archs: str = "qwen2-1.5b") -> None:
+    """Time the ERA path with the ``repro_torch`` package under ``src``, for
+    each of ``archs`` (comma-separated ``name`` or ``name:layers``, one
+    full-width denoiser on the card at a time): one denoiser forward at
+    8x256 (host time to issue it, its wall with a sync, its device busy
+    time), three drains of the 8-row-bucket request of phase 4 and three of
+    a 1-row request (bucket 1), each with one traced replay's device busy
+    time; then phase 16's probe (:func:`module_probe`,
+    :func:`bucket_reading`); print one JSON line an arch."""
+    import gc
+
+    use_package(src)
     from repro_torch.configs import get_config
     from repro_torch.core import linear_schedule
     from repro_torch.models import DiffusionLM
     from repro_torch.serving import BatchedSampler, SampleRequest
 
-    import repro_torch
-    check(Path(repro_torch.__file__).resolve().is_relative_to(Path(src).resolve()),
-          f"era_host: imported {repro_torch.__file__}, not the package under {src}")
-    cfg = get_config("qwen2-1.5b")
+    for arch in archs.split(","):
+        name, _, layers = arch.partition(":")
+        cfg = get_config(name)
+        if layers:
+            cfg = cfg.with_(num_layers=int(layers))
+        era_host_arch(src, cfg, DiffusionLM, linear_schedule, BatchedSampler,
+                      SampleRequest)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def era_host_arch(src, cfg, DiffusionLM, linear_schedule, BatchedSampler,
+                  SampleRequest) -> None:
+    """:func:`era_host` for one config, with the classes of the package
+    under ``src``."""
+    import statistics
+
     dlm = DiffusionLM(cfg, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(3)
     w = torch.randn(cfg.d_model, cfg.d_model, generator=gen, device="cuda")
@@ -5183,26 +5556,35 @@ def era_host(src: str) -> None:
             drains[batch].append((time.perf_counter() - t0) * 1e3 / NFE)
         eng.submit_with_future(req)
         drains[f"busy_{batch}"] = device_events(eng.drain)[3]
+    del eng
+    probe = module_probe(dlm)
+    reading = bucket_reading(dlm)
     print(json.dumps(dict(
-        src=src, forward_issue_ms=statistics.median(issue),
+        src=src, arch=cfg.name, layers=cfg.num_layers,
+        forward_issue_ms=statistics.median(issue),
         forward_wall_ms=statistics.median(wall),
         forward_busy_ms=sum(r[0] for r in rows),
         forward_ops=sum(r[1] for r in rows),
         drain_ms_per_nfe=drains[3][1:], replay_busy_ms=drains["busy_3"],
         drain1_ms_per_nfe=drains[1][1:], replay1_busy_ms=drains["busy_1"],
+        modules_differ=len(probe), first_modules=probe[:6], **reading,
     )), flush=True)
 
 
-def era_ab(parent_src: str) -> None:
+def era_ab(parent_src: str, archs: str = "qwen2-1.5b") -> None:
     """:func:`era_host` for ``parent_src`` and this checkout's ``src`` in
-    the order parent, this, this, parent, each in a process of its own."""
+    the order parent, this, this, parent, each in a process of its own
+    that times every arch of ``archs``."""
     this_src = str(ROOT / "src")
     for src in (parent_src, this_src, this_src, parent_src):
         out = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--era-host", src],
-            capture_output=True, text=True, timeout=600, check=True,
+            [sys.executable, str(Path(__file__).resolve()), "--era-host", src,
+             "--era-arch", archs],
+            capture_output=True, text=True, timeout=1500, check=True,
         )
-        log(out.stdout.strip().splitlines()[-1])
+        for line in out.stdout.strip().splitlines():
+            if line.startswith("{"):
+                log(line)
 
 
 # variants of the shipped flash kernel that --flash-ab times beside it: name
@@ -5615,18 +5997,23 @@ def main() -> None:
     ap.add_argument("--mesh-only", action="store_true",
                     help="only the mesh checks, data parallel over every "
                          "local card")
+    ap.add_argument("--era-arch", default="qwen2-1.5b",
+                    help="the denoisers --era-ab times, comma-separated "
+                         "name or name:layers; 'families' for "
+                         f"{ERA_FAMILIES}")
     ap.add_argument("--era-host", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    archs = ERA_FAMILIES if args.era_arch == "families" else args.era_arch
     if args.era_host:
-        return era_host(args.era_host)
+        return era_host(args.era_host, archs)
     smi = nvidia_smi()
     log(smi)
     if args.era_ab:
-        return era_ab(args.era_ab)
+        return era_ab(args.era_ab, archs)
     if args.flash_ab:
         return flash_ab(args.flash_ab)
     if args.decode_ab:
@@ -5823,8 +6210,16 @@ def main() -> None:
                    "Pallas (src/repro/models/layers.py:119, linear)",
                    gemm_errs, "wg 2048x1536x8960",
                    timings={k: v for k, v in inv_t.items() if not k.startswith(
-                       ("rmsnorm", "layernorm", "row_sq"))},
+                       ("rmsnorm", "layernorm", "row_sq", "bgemm"))},
                    ptxas=gemm_ptxas),
+        row_kernel("bgemm", "cuda", "src/repro_torch/csrc/gemm.cu",
+                   "none: the reference's batched products are XLA einsums "
+                   "outside Pallas (src/repro/models/moe.py:72, "
+                   "src/repro/models/ssm.py:119 and :268-297, slstm's :436)",
+                   invariance["bgemm_max_abs_err"],
+                   "bgemm experts_wg deepseek 64x240x2048x1408",
+                   timings={k: v for k, v in inv_t.items() if k.startswith("bgemm")},
+                   gemm_is_bgemm_of_one=invariance["gemm_is_bgemm_of_one"]),
         row_kernel("rmsnorm", "triton", "src/repro_torch/kernels/rownorm.py",
                    "none: the reference's rmsnorm is XLA ops outside Pallas "
                    "(src/repro/models/layers.py:85)",

@@ -88,6 +88,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// a box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // orders this thread's shared-memory accesses through ordinary loads and
 // stores with the async proxy's (TMA) that follow
 __device__ __forceinline__ void fence_proxy_async() {
@@ -494,6 +505,24 @@ inline bool encode_map_2d(CUtensorMap* map, const void* base, int inner, int out
   const cuuint32_t box[2] = {64, cuuint32_t(box_outer)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the 3-D map of `batch` row-major (outer, inner) bf16 matrices stored one
+// after another, box (64, box_outer, 1) in 128-byte swizzled rows:
+// coordinates past `inner` or `outer` read as zeros inside their own
+// matrix, never the next one's.  The same rules as encode_map_2d.
+inline bool encode_map_3d(CUtensorMap* map, const void* base, int inner, int outer, int batch,
+                          int box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(inner), cuuint64_t(outer), cuuint64_t(batch)};
+  const cuuint64_t strides[2] = {cuuint64_t(inner) * 2, cuuint64_t(inner) * outer * 2};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_outer), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

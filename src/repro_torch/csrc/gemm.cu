@@ -41,13 +41,33 @@
 // eight slices (a warp each, one fmaf chain over its slice in order), the
 // slices summed in order.
 //
+// Batched instances (bgemm: y[g] = x[g] @ w[g] (+ b[g]), x (G, M, K), w (G,
+// K, N)): the same kernels with the batch g as a further grid axis (y of
+// the bf16 grid, z of the float32 one), at the same gemm_config(K, N,
+// dtype), which takes neither M nor G; so row i of batch g depends only on
+// row i of x[g] and on w[g].  Tiles past M or K read zeros inside their own
+// batch: TMA through 3-D maps over (G, M, K) and (G, K, N), whose edges
+// are per batch (a 2-D map over (G*K, N) would read batch g+1's K rows
+// into batch g's sums), or guarded loads from batch g's base.  A split
+// block writes its partial to its own batch's slice of the workspace
+// (split, G, M, N), summed in split order as before.  The MoE experts
+// (bf16, G = E), the mLSTM products and the sLSTM's recurrent product
+// (float32, G = the batch times the heads, or the heads) run here: each was
+// a cuBLAS bmm whose kernel chose by the batch.  The float32 instance keeps
+// its 16 x 32 tile, so it is slow at these shapes (the mLSTM's N = 1 dot,
+// its 256- and 512-wide products: 5.5-24x torch.bmm on the H100).
+//
 // Bound (NVIDIA H100 80GB HBM3: 989 TFLOP/s bf16, 67 TFLOP/s float32
 // outside the tensor cores, 3.35 TB/s): qwen2-1.5b's ERA request at 8 x
 // 256 (M = 2048): wg / wi (1536 -> 8960) 56.4 GFLOP, 0.0570 ms
 // (operations); wo (8960 -> 1536) the same; wq (1536 -> 1536) 9.7 GFLOP,
 // 0.0098 ms; wk / wv (1536 -> 256) 1.6 GFLOP against 7.3 MB: 0.0022 ms
 // (bytes).  At M = 256 (a 1-row request) every shape is bound by bytes
-// (the weight's): wg 27.5 MB, 0.0082 ms.  The design spends its time
+// (the weight's): wg 27.5 MB, 0.0082 ms.  Batched: deepseek-v2-lite's
+// experts at an 8 x 256 request (G 64, M 240, 2048 -> 1408) 0.1419 ms
+// (bytes, the weights'), mixtral's (G 8, M 640, 4096 -> 14336) 0.6080 ms
+// (operations); xlstm's mLSTM scores in float32 (G 32, M 256, 512 -> 256)
+// 0.0321 ms (operations).  The design spends its time
 // where a simple kernel does: one tile a block (no persistence), the
 // epilogue not overlapped with the next tile's loads.
 
@@ -68,13 +88,14 @@ constexpr int GROUP_M = 8;          // row tiles a group of the grid walks toget
 constexpr size_t SMEM_MAX = 232448;
 
 struct Params {
-  CUtensorMap ta, tb;  // x (M, K), box (64, BM); w (K, N), box (64, BK)
+  CUtensorMap ta, tb;  // x (M, K), box (64, BM); w (K, N), box (64, BK); each
+                       // 3-D over the batch in a batched launch
   const bf16* x;
   const bf16* w;
   const bf16* bias;    // (N,) or null
   bf16* y;             // (M, N)
-  float* ws;           // (split, M, N) partials of a split launch, else null
-  int M, K, N;
+  float* ws;           // (split, G, M, N) partials of a split launch, else null
+  int G, M, K, N;      // G matrices of (M, K) @ (K, N); G = 1 unbatched
   int k_tiles;         // ceil(K / BK)
   int kps;             // K tiles of a split
 };
@@ -108,7 +129,7 @@ __device__ __forceinline__ bf16 epilogue(float acc, const bf16* bias, int col) {
   return y;
 }
 
-template <int BN, int STAGES, bool TMA>
+template <int BN, int STAGES, bool TMA, bool BATCHED>
 __global__ void __launch_bounds__(NTHREADS, 1) gemm_bf16_kernel(const __grid_constant__ Params p) {
   using L = Smem<BN, STAGES>;
   extern __shared__ unsigned char smem_raw[];
@@ -131,6 +152,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_bf16_kernel(const __grid_con
   const int m0 = (first_m + (blockIdx.x % in_group) % group_m) * BM;
   const int kt0 = blockIdx.z * p.kps;
   const int nk = min(p.k_tiles, kt0 + p.kps) - kt0;  // >= 1: gemm_config's rule
+  // this block's batch, and its matrices
+  const int gb = BATCHED ? int(blockIdx.y) : 0;
+  const size_t mn = size_t(p.M) * p.N;
+  const bf16* x = p.x + size_t(gb) * p.M * p.K;
+  const bf16* w = p.w + size_t(gb) * p.K * p.N;
+  const bf16* bias = p.bias == nullptr ? nullptr : p.bias + size_t(gb) * p.N;
+  bf16* y = p.y + size_t(gb) * mn;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -151,24 +179,31 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_bf16_kernel(const __grid_con
       if constexpr (TMA) {
         if (lane == 0) {
           mbar_expect_tx(&full[s], L::STAGE);
-          tma_load_2d(a_tile(s), &p.ta, &full[s], k0, m0);
+          if constexpr (BATCHED) {
+            tma_load_3d(a_tile(s), &p.ta, &full[s], k0, m0, gb);
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c)
-            tma_load_2d(b_tile(s) + c * (BK * 128), &p.tb, &full[s], n0 + 64 * c, k0);
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_3d(b_tile(s) + c * (BK * 128), &p.tb, &full[s], n0 + 64 * c, k0, gb);
+          } else {
+            tma_load_2d(a_tile(s), &p.ta, &full[s], k0, m0);
+#pragma unroll
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_2d(b_tile(s) + c * (BK * 128), &p.tb, &full[s], n0 + 64 * c, k0);
+          }
         }
       } else {
         unsigned char* at = a_tile(s);
         for (int i = lane; i < BM * BK; i += 32) {
           const int r = i / BK, c = i % BK;
           const int row = m0 + r, k = k0 + c;
-          const bf16 v = row < p.M && k < p.K ? p.x[size_t(row) * p.K + k] : round_bf16(0.f);
+          const bf16 v = row < p.M && k < p.K ? x[size_t(row) * p.K + k] : round_bf16(0.f);
           *reinterpret_cast<bf16*>(at + swizzled(r, c)) = v;
         }
         unsigned char* bt = b_tile(s);
         for (int i = lane; i < BK * BN; i += 32) {
           const int r = i / BN, c = i % BN;
           const int k = k0 + r, col = n0 + c;
-          const bf16 v = k < p.K && col < p.N ? p.w[size_t(k) * p.N + col] : round_bf16(0.f);
+          const bf16 v = k < p.K && col < p.N ? w[size_t(k) * p.N + col] : round_bf16(0.f);
           *reinterpret_cast<bf16*>(bt + (c / 64) * (BK * 128) + swizzled(r, c % 64)) = v;
         }
         fence_proxy_async();  // the generic stores, before wgmma reads them
@@ -218,7 +253,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_bf16_kernel(const __grid_con
       if (col >= p.N) continue;
       const float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
       if (p.ws != nullptr) {
-        float* out = p.ws + (size_t(blockIdx.z) * p.M + row) * p.N + col;
+        float* out = p.ws + (size_t(blockIdx.z) * p.G + gb) * mn + size_t(row) * p.N + col;
         if (pairs) {
           *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
         } else {
@@ -226,13 +261,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_bf16_kernel(const __grid_con
           if (col + 1 < p.N) out[1] = v1;
         }
       } else {
-        bf16* out = p.y + size_t(row) * p.N + col;
-        const bf16 y0 = epilogue(v0, p.bias, col);
+        bf16* out = y + size_t(row) * p.N + col;
+        const bf16 y0 = epilogue(v0, bias, col);
         if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(out) = __halves2bfloat162(y0, epilogue(v1, p.bias, col + 1));
+          *reinterpret_cast<__nv_bfloat162*>(out) = __halves2bfloat162(y0, epilogue(v1, bias, col + 1));
         } else {
           out[0] = y0;
-          if (col + 1 < p.N) out[1] = epilogue(v1, p.bias, col + 1);
+          if (col + 1 < p.N) out[1] = epilogue(v1, bias, col + 1);
         }
       }
     }
@@ -240,15 +275,21 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_bf16_kernel(const __grid_con
 }
 
 // y = the split partials summed in split order (ws[0] + ws[1] + ...),
-// rounded to bf16, then the bias added and rounded again
-__global__ void gemm_reduce_kernel(const float* ws, const bf16* bias, bf16* y, int M, int N,
-                                   int split) {
-  const size_t total = size_t(M) * N;
+// rounded to bf16, then the bias (batch g's row, batched) added and
+// rounded again
+template <bool BATCHED>
+__global__ void gemm_reduce_kernel(const float* ws, const bf16* bias, bf16* y, int G, int M,
+                                   int N, int split) {
+  const size_t mn = size_t(M) * N, total = mn * G;
   for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
        i += size_t(gridDim.x) * blockDim.x) {
     float acc = ws[i];
     for (int z = 1; z < split; ++z) acc += ws[size_t(z) * total + i];
-    y[i] = epilogue(acc, bias, int(i % N));
+    const bf16* b = bias;
+    if constexpr (BATCHED) {
+      if (b != nullptr) b += (i / mn) * N;
+    }
+    y[i] = epilogue(acc, b, int(i % N));
   }
 }
 
@@ -256,15 +297,24 @@ __global__ void gemm_reduce_kernel(const float* ws, const bf16* bias, bf16* y, i
 // take one slice of K (ceil(K / F_KS) values), one fmaf chain over the
 // slice in order an output, eight w loads in flight; then each output's
 // slices are summed in slice order and the bias added.  All of it is fixed
-// by K, so a row's result does not depend on M.
+// by K, so a row's result does not depend on M (nor, batched, on G: the
+// block's batch is blockIdx.z).
 constexpr int F_BM = 16, F_BN = 32, F_KS = 8;
 
+template <bool BATCHED>
 __global__ void __launch_bounds__(F_BN* F_KS) gemm_f32_kernel(const float* __restrict__ x,
                                                               const float* __restrict__ w,
                                                               const float* __restrict__ bias,
                                                               float* __restrict__ y, int M,
                                                               int K, int N) {
   __shared__ float part[F_KS][F_BM][F_BN + 1];
+  if constexpr (BATCHED) {
+    const size_t gb = blockIdx.z;
+    x += gb * M * K;
+    w += gb * K * N;
+    y += gb * M * N;
+    if (bias != nullptr) bias += gb * N;
+  }
   const int c = threadIdx.x % F_BN, ks = threadIdx.x / F_BN;
   const int col = blockIdx.x * F_BN + c;
   const int m0 = blockIdx.y * F_BM;
@@ -307,8 +357,12 @@ __global__ void __launch_bounds__(F_BN* F_KS) gemm_f32_kernel(const float* __res
 
 constexpr int MAX_DEVICES = 64;
 
+// the (BN, STAGES) pairs with an instance, each with a TMA and a guarded-load
+// loader, unbatched and batched
+#define GEMM_INSTANCES(X) X(64, 4) X(128, 4)
+
 // Raise the instance's dynamic shared-memory cap, once per card.
-template <int BN, int STAGES, bool TMA>
+template <int BN, int STAGES, bool TMA, bool BATCHED>
 cudaError_t allow_smem() {
   static int done[MAX_DEVICES] = {0};
   int dev = 0;
@@ -316,30 +370,78 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(gemm_bf16_kernel<BN, STAGES, TMA>,
+  err = cudaFuncSetAttribute(gemm_bf16_kernel<BN, STAGES, TMA, BATCHED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(Smem<BN, STAGES>::BYTES));
   if (err == cudaSuccess) done[dev] = 1;
   return err;
 }
 
-template <int BN, int STAGES, bool TMA>
+template <int BN, int STAGES, bool TMA, bool BATCHED>
 cudaError_t launch(Params& p, int split, cudaStream_t stream) {
-  cudaError_t err = allow_smem<BN, STAGES, TMA>();
+  cudaError_t err = allow_smem<BN, STAGES, TMA, BATCHED>();
   if (err != cudaSuccess) return err;
-  if constexpr (TMA) {
+  if constexpr (TMA && BATCHED) {
+    if (!encode_map_3d(&p.ta, p.x, p.K, p.M, p.G, BM) ||
+        !encode_map_3d(&p.tb, p.w, p.N, p.K, p.G, BK))
+      return cudaErrorInvalidValue;
+  } else if constexpr (TMA) {
     if (!encode_map_2d(&p.ta, p.x, p.K, p.M, BM) || !encode_map_2d(&p.tb, p.w, p.N, p.K, BK))
       return cudaErrorInvalidValue;
   }
-  // one block a (row tile, column tile); the row tiles' count is checked
-  // by the wrapper (the grid's x extent)
-  const dim3 grid(((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN), 1, split);
-  gemm_bf16_kernel<BN, STAGES, TMA><<<grid, NTHREADS, Smem<BN, STAGES>::BYTES, stream>>>(p);
+  // one block a (row tile, column tile) of a batch; the row tiles' count
+  // and the batch are checked by the wrapper (the grid's x and y extents)
+  const dim3 grid(((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN), p.G, split);
+  gemm_bf16_kernel<BN, STAGES, TMA, BATCHED>
+      <<<grid, NTHREADS, Smem<BN, STAGES>::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
-// the (BN, STAGES) pairs with an instance, each with a TMA and a guarded-load loader
-#define GEMM_INSTANCES(X) X(64, 4) X(128, 4)
+// the bf16 launch (and the split sum) of G (M, K) @ (K, N) products
+template <bool BATCHED>
+int bf16_products(const void* x, const void* w, const void* bias, void* y, float* ws, int G,
+                  int M, int K, int N, int bn, int stages, int split, int kps, int tma,
+                  void* stream) {
+  Params p;
+  p.x = static_cast<const bf16*>(x);
+  p.w = static_cast<const bf16*>(w);
+  p.bias = static_cast<const bf16*>(bias);
+  p.y = static_cast<bf16*>(y);
+  p.ws = split > 1 ? ws : nullptr;
+  p.G = G;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.k_tiles = (K + BK - 1) / BK;
+  p.kps = kps;
+  if (G < 1 || G > 65535 || split < 1 || kps < 1 || (split - 1) * kps >= p.k_tiles ||
+      (split > 1 && ws == nullptr))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+#define GEMM_LAUNCH(B, S)                                                  \
+  if (bn == B && stages == S)                                              \
+    err = tma ? launch<B, S, true, BATCHED>(p, split, s)                   \
+              : launch<B, S, false, BATCHED>(p, split, s);
+  GEMM_INSTANCES(GEMM_LAUNCH)
+#undef GEMM_LAUNCH
+  if (err != cudaSuccess || split == 1) return int(err);
+  const size_t total = size_t(G) * M * N;
+  const int blocks = int(std::min<size_t>((total + 255) / 256, 132 * 16));
+  gemm_reduce_kernel<BATCHED><<<blocks, 256, 0, s>>>(ws, p.bias, p.y, G, M, N, split);
+  return int(cudaGetLastError());
+}
+
+// the float32 launch of G (M, K) @ (K, N) products
+template <bool BATCHED>
+int f32_products(const float* x, const float* w, const float* bias, float* y, int G, int M,
+                 int K, int N, void* stream) {
+  if (G < 1 || G > 65535) return int(cudaErrorInvalidValue);
+  const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM, G);
+  gemm_f32_kernel<BATCHED><<<grid, F_BN * F_KS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, w, bias, y, M, K, N);
+  return int(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -354,40 +456,30 @@ cudaError_t launch(Params& p, int split, cudaStream_t stream) {
 extern "C" int repro_gemm_bf16(const void* x, const void* w, const void* bias, void* y,
                                float* ws, int M, int K, int N, int bn, int stages, int split,
                                int kps, int tma, void* stream) {
-  Params p;
-  p.x = static_cast<const bf16*>(x);
-  p.w = static_cast<const bf16*>(w);
-  p.bias = static_cast<const bf16*>(bias);
-  p.y = static_cast<bf16*>(y);
-  p.ws = split > 1 ? ws : nullptr;
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  p.k_tiles = (K + BK - 1) / BK;
-  p.kps = kps;
-  if (split < 1 || kps < 1 || (split - 1) * kps >= p.k_tiles || (split > 1 && ws == nullptr))
-    return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-#define GEMM_LAUNCH(B, S)                                                        \
-  if (bn == B && stages == S)                                                    \
-    err = tma ? launch<B, S, true>(p, split, s) : launch<B, S, false>(p, split, s);
-  GEMM_INSTANCES(GEMM_LAUNCH)
-#undef GEMM_LAUNCH
-  if (err != cudaSuccess || split == 1) return int(err);
-  const size_t total = size_t(M) * N;
-  const int blocks = int(std::min<size_t>((total + 255) / 256, 132 * 16));
-  gemm_reduce_kernel<<<blocks, 256, 0, s>>>(ws, p.bias, p.y, M, N, split);
-  return int(cudaGetLastError());
+  return bf16_products<false>(x, w, bias, y, ws, 1, M, K, N, bn, stages, split, kps, tma,
+                              stream);
 }
 
 // float32: y (M, N) = x (M, K) @ w (K, N) (+ bias (N,)).
 extern "C" int repro_gemm_f32(const float* x, const float* w, const float* bias, float* y, int M,
                               int K, int N, void* stream) {
-  const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
-  gemm_f32_kernel<<<grid, F_BN * F_KS, 0, static_cast<cudaStream_t>(stream)>>>(x, w, bias, y, M,
-                                                                             K, N);
-  return int(cudaGetLastError());
+  return f32_products<false>(x, w, bias, y, 1, M, K, N, stream);
+}
+
+// Batched, G = 1..65535 products: y (G, M, N) = x (G, M, K) @ w (G, K, N)
+// (+ bias (G, N)), all contiguous, each product as the unbatched entry
+// points compute it (the same arguments from gemm_config; `ws` holds
+// split * G * M * N partials).
+extern "C" int repro_bgemm_bf16(const void* x, const void* w, const void* bias, void* y,
+                                float* ws, int G, int M, int K, int N, int bn, int stages,
+                                int split, int kps, int tma, void* stream) {
+  return bf16_products<true>(x, w, bias, y, ws, G, M, K, N, bn, stages, split, kps, tma,
+                             stream);
+}
+
+extern "C" int repro_bgemm_f32(const float* x, const float* w, const float* bias, float* y,
+                               int G, int M, int K, int N, void* stream) {
+  return f32_products<true>(x, w, bias, y, G, M, K, N, stream);
 }
 
 // The bf16 instance's tile constants and the float32 instance's, for the

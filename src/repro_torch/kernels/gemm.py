@@ -29,6 +29,16 @@ whose backward computes ``dx = dy @ w^T`` and ``dw = x^T @ dy`` with
 CPU tensors take :func:`gemm_plain`.  An unsupported call on a CUDA tensor
 (another dtype, mixed dtypes, mismatched shapes) raises; nothing falls
 back.
+
+:func:`bgemm` is the batched instance, ``y[g] = x[g] @ w[g] (+ b[g])`` for
+x (G, M, K) and w (G, K, N): the same kernels with the batch as a grid
+axis, at the same :func:`gemm_config` (no M, no G), so row i of batch g
+depends on row i of x[g] and on w[g] alone.  It runs the products that do
+not go through ``Linear``: the MoE experts (bf16, G = the experts), the
+mLSTM products and the sLSTM's recurrent product (float32, G = the batch
+times the heads, or the heads).  Under cuBLAS each was a ``bmm`` whose
+kernel chose by the batch.  :func:`bgemm_shapes` lists the (K, N, dtype) a
+config gives it.
 """
 
 from __future__ import annotations
@@ -134,6 +144,12 @@ def _library() -> ctypes.CDLL:
     lib.repro_gemm_f32.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.repro_gemm_f32.restype = ctypes.c_int
+    lib.repro_bgemm_bf16.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    lib.repro_bgemm_bf16.restype = ctypes.c_int
+    lib.repro_bgemm_f32.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.repro_bgemm_f32.restype = ctypes.c_int
     consts = (ctypes.c_int * 5)()
     lib.repro_gemm_constants(consts)
     if tuple(consts) != (BM, BK, *F32_TILE):
@@ -220,6 +236,130 @@ def gemm(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
 gemm.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# the batched instance
+# ---------------------------------------------------------------------------
+
+#: most batches of one launch (the grid's y extent, or its z extent); a
+#: larger batch runs as several launches, each of whole batches
+MAX_BATCH = 65535
+
+
+def bgemm_plain(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
+    """``x @ w (+ b)`` batched, in PyTorch with the kernel's roundings:
+    ``torch.bmm`` in x's dtype, then the bias add.  x (G, M, K), w (G, K,
+    N), b (G, N).  On the CPU a lone row goes through the product beside a
+    copy of itself, as in :func:`gemm_plain`, and so does a lone batch
+    (``bmm`` of one batch is a plain matrix product, whose sums at N = 1
+    run in another order)."""
+    if x.device.type == "cpu" and x.shape[0] == 1:
+        two = None if b is None else torch.cat([b, b])
+        return bgemm_plain(torch.cat([x, x]), torch.cat([w, w]), two)[:1]
+    if x.shape[1] == 1 and x.device.type == "cpu":
+        return bgemm_plain(torch.cat([x, x], dim=1), w, b)[:, :1]
+    y = torch.bmm(x, w)
+    if b is not None:
+        y = y + b[:, None, :]
+    return y
+
+
+def _check_batched(x: Tensor, w: Tensor, b: Tensor | None) -> None:
+    if (x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]
+            or x.shape[2] != w.shape[1]):
+        raise ValueError(f"bgemm: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "must be (G, M, K) and (G, K, N)")
+    if b is not None and b.shape != (w.shape[0], w.shape[2]):
+        raise ValueError(f"bgemm: bias {tuple(b.shape)} must be "
+                         f"({w.shape[0]}, {w.shape[2]})")
+    for name, t in (("w", w), ("b", b)):
+        if t is not None and (t.dtype != x.dtype or t.device != x.device):
+            raise ValueError(f"bgemm: {name} is {t.dtype} on {t.device}, x is "
+                             f"{x.dtype} on {x.device}")
+
+
+def _launch_batched(x: Tensor, w: Tensor, b: Tensor | None) -> Tensor:
+    """The kernel on CUDA tensors (checked by :func:`bgemm`): one launch
+    for each ``MAX_BATCH`` batches.  Each batch's sums are its own, so
+    where the launches split the batch changes no value."""
+    g, m, k = x.shape
+    n = w.shape[2]
+    if g == 0 or m == 0:
+        return x.new_empty(g, m, n)
+    cfg = gemm_config(k, n, x.dtype)
+    if -(-m // cfg.bm) > MAX_GRID_Y:
+        raise ValueError(f"bgemm: {m} rows exceed {MAX_GRID_Y} row tiles")
+    ys = [_launch_batch(x[i:i + MAX_BATCH], w[i:i + MAX_BATCH],
+                        None if b is None else b[i:i + MAX_BATCH], cfg)
+          for i in range(0, g, MAX_BATCH)]
+    return ys[0] if len(ys) == 1 else torch.cat(ys)
+
+
+def _launch_batch(x: Tensor, w: Tensor, b: Tensor | None, cfg) -> Tensor:
+    """One kernel launch over at most ``MAX_BATCH`` batches."""
+    g, m, k = x.shape
+    n = w.shape[2]
+    y = x.new_empty(g, m, n)
+    x, w = _aligned(x), _aligned(w)
+    b = None if b is None else _aligned(b)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bias = None if b is None else b.data_ptr()
+    if cfg.loader == "simt":
+        err = _library().repro_bgemm_f32(x.data_ptr(), w.data_ptr(), bias,
+                                         y.data_ptr(), g, m, k, n, stream)
+    else:
+        ws = (torch.empty(cfg.split, g, m, n, dtype=torch.float32, device=x.device)
+              if cfg.split > 1 else None)
+        err = _library().repro_bgemm_bf16(
+            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(),
+            None if ws is None else ws.data_ptr(), g, m, k, n, cfg.bn,
+            cfg.stages, cfg.split, cfg.k_per_split, int(cfg.loader == "tma"),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"bgemm launch failed: cudaError {err}")
+    bgemm.launches += 1
+    return y
+
+
+class _BGemm(torch.autograd.Function):
+    """The batched kernel under autograd; the backward's products are
+    ``torch.bmm``, as :class:`_Gemm`'s are ``torch.matmul``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return _launch_batched(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = torch.bmm(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        dw = torch.bmm(x.transpose(1, 2), dy) if ctx.needs_input_grad[1] else None
+        db = dy.sum(1) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def bgemm(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
+    """``x (G, M, K) @ w (G, K, N) (+ b (G, N))`` in x's dtype, a product a
+    batch.  CPU tensors take :func:`bgemm_plain`; CUDA tensors launch the
+    kernel at :func:`gemm_config`'s configuration (bf16 or float32) or
+    raise; the models keep their own ops on ``meta``.  Differentiable on
+    CUDA through :class:`_BGemm`."""
+    _check_batched(x, w, b)
+    if x.device.type == "cpu":
+        return bgemm_plain(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"bgemm: x is on {x.device}, not cuda")
+    gemm_config(x.shape[2], w.shape[2], x.dtype)   # raises on another dtype
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b)):
+        return _BGemm.apply(x, w, b)
+    return _launch_batched(x, w, b)
+
+
+bgemm.launches = 0
+
+
 def linear_shapes(cfg) -> set[tuple[int, int, torch.dtype]]:
     """Every ``Linear``'s (d_in, d_out, compute dtype) in the diffusion
     denoiser and the AR model of ``cfg``, by config arithmetic (nothing is
@@ -273,4 +413,31 @@ def linear_shapes(cfg) -> set[tuple[int, int, torch.dtype]]:
             out.add((d, d, dt))
         else:
             raise ValueError(f"linear_shapes: unknown block kind {kind!r}")
+    return out
+
+
+def bgemm_shapes(cfg, seq_len: int) -> set[tuple[int, int, torch.dtype]]:
+    """Every (K, N, compute dtype) :func:`bgemm` takes on a forward of the
+    denoiser or the AR model of ``cfg`` over ``seq_len`` positions, by
+    config arithmetic (nothing is built): the MoE experts' three products,
+    the mLSTM's seven products over a chunk of ``L = min(chunk, seq_len)``
+    positions (inter-chunk, scores, intra-chunk, normaliser, the ``den``
+    dot and the two carry products) and the sLSTM's recurrent product.
+    Empty for a family whose products all go through ``Linear``, and for
+    hymba (Mamba's readout stays an einsum, ``models/ssm.py::mamba_readout``)."""
+    d, dt, f32 = cfg.d_model, cfg.dtype, torch.float32
+    out = set()
+    for kind, _ in cfg.blocks:
+        if kind in ("moe", "mla_moe"):
+            ff = cfg.moe.d_ff_expert
+            out.update({(d, ff, dt), (ff, d, dt)})
+        elif kind == "mlstm":
+            hd = 2 * d // cfg.num_heads
+            chunk = cfg.ssm.chunk if cfg.ssm else 256
+            n = max(min(chunk, seq_len), 1)
+            out.update({(hd, hd, f32), (hd, n, f32), (n, hd, f32),
+                        (hd, 1, f32), (n, 1, f32)})
+        elif kind == "slstm":
+            hd = d // cfg.num_heads
+            out.add((hd, 4 * hd, f32))
     return out

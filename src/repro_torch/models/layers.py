@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import rownorm
-from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels.gemm import bgemm, gemm
 
 Tensor = torch.Tensor
 
@@ -80,6 +80,40 @@ class Linear(nn.Module):
             return y if b is None else y + b
         y = gemm(x.reshape(-1, x.shape[-1]), w, b)
         return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def contract(eq: str, a: Tensor, b: Tensor) -> Tensor:
+    """``torch.einsum(eq, a, b)`` of two operands as one
+    :func:`~repro_torch.kernels.gemm.bgemm`: the letters of both operands
+    and the output are its batch, those of ``a`` and the output its rows,
+    those of both operands alone its sum (K), those of ``b`` and the output
+    its columns.  Each operand is permuted into that order (a copy changes
+    no value), so on the card every output element is one sum in an order
+    fixed by (K, N), whatever the batch (cuBLAS's ``bmm`` picked its kernel
+    by the batch).  ``meta`` tensors (the dry run) take ``torch.einsum``
+    itself, whose ops the counter counts."""
+    if a.device.type == "meta":
+        return torch.einsum(eq, a, b)
+    ins, out = eq.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+    batch = [c for c in sa if c in sb and c in out]
+    rows = [c for c in sa if c not in sb]
+    ksum = [c for c in sa if c in sb and c not in out]
+    cols = [c for c in sb if c not in sa]
+    if any(c not in out for c in rows + cols):
+        raise ValueError(f"contract: {eq!r} sums a letter of one operand alone")
+    size = dict(zip(sa, a.shape)) | dict(zip(sb, b.shape))
+
+    def shape(letters):
+        return math.prod(size[c] for c in letters)
+
+    x = a.permute([sa.index(c) for c in batch + rows + ksum]).reshape(
+        shape(batch), shape(rows), shape(ksum))
+    w = b.permute([sb.index(c) for c in batch + ksum + cols]).reshape(
+        shape(batch), shape(ksum), shape(cols))
+    order = batch + rows + cols
+    y = bgemm(x, w).reshape([size[c] for c in order])
+    return y.permute([order.index(c) for c in out])
 
 
 class RMSNorm(nn.Module):

@@ -27,6 +27,15 @@ in a CUDA graph.
 
 The router's weight stays float32 and its math runs in float32 (bf16
 routers destabilize top-k), as in the reference.
+
+A token's output does not depend on the rows beside it (the reference's
+determinism contract, ``docs/serving.md``): the router is a ``Linear``
+(the row-invariant GEMM, float32), the experts' products are
+:func:`~repro_torch.kernels.gemm.bgemm` (G = E; a token's row in its
+expert's buffer meets the same weights at any G·cap), and the two sums
+over k (the top-k renormalisation and a token's k outputs) are folds in
+index order (:func:`fold_sum`).  ``meta`` tensors keep ``torch.bmm`` and
+``sum``, which the dry run counts.
 """
 
 from __future__ import annotations
@@ -37,9 +46,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.gemm import bgemm
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
+
+
+def fold_sum(t: Tensor, dim: int) -> Tensor:
+    """``t.sum(dim)``, as PyTorch sums it (in float32, rounded once to
+    t's dtype), but added in index order by elementwise ops: PyTorch's
+    reduce kernel splits a sum by the tensor's shape, so a row's sum could
+    depend on the rows beside it.  For the short sums over k (k <= 6).
+    ``meta`` tensors keep ``sum``."""
+    if t.device.type == "meta":
+        return t.sum(dim=dim)
+    parts = t.unbind(dim)
+    acc = parts[0].to(torch.float32, copy=True)
+    for part in parts[1:]:
+        acc.add_(part)
+    return acc.to(t.dtype)
 
 
 @dataclasses.dataclass
@@ -70,10 +95,13 @@ class Experts(nn.Module):
                 requires_grad=False))
 
     def forward(self, xs: Tensor) -> Tensor:
-        """xs: (E, C, d) -> (E, C, d), one batched product per weight."""
-        h = (F.silu(torch.bmm(xs, self.wg.to(xs.dtype)))
-             * torch.bmm(xs, self.wi.to(xs.dtype)))
-        return torch.bmm(h, self.wo.to(xs.dtype))
+        """xs: (E, C, d) -> (E, C, d), one batched product per weight
+        (:func:`~repro_torch.kernels.gemm.bgemm`; ``torch.bmm`` on
+        ``meta``)."""
+        bmm = torch.bmm if xs.device.type == "meta" else bgemm
+        h = (F.silu(bmm(xs, self.wg.to(xs.dtype)))
+             * bmm(xs, self.wi.to(xs.dtype)))
+        return bmm(h, self.wo.to(xs.dtype))
 
 
 class MoE(nn.Module):
@@ -101,10 +129,10 @@ class MoE(nn.Module):
         """Top-k routing of ``x`` (..., d) in float32: (weights, ids) of
         shape (..., k) and the aux losses averaged over ``token_dims``."""
         m = self.cfg.moe
-        logits = x.to(torch.float32) @ self.router.w
+        logits = self.router(x.to(torch.float32))
         probs = torch.softmax(logits, dim=-1)
         weights, ids = torch.topk(probs, m.top_k, dim=-1)
-        weights = weights / weights.sum(dim=-1, keepdim=True)
+        weights = weights / fold_sum(weights, -1)[..., None]
         experts = torch.arange(m.num_experts, device=x.device)
         member = (ids[..., None] == experts).to(torch.float32)  # (..., k, E)
         density = member.sum(dim=-2).mean(dim=token_dims) / m.top_k
@@ -157,7 +185,7 @@ class MoE(nn.Module):
         gathered = out_buf.reshape(dump, d).index_select(0, row.reshape(-1))
         scale = (p.keep.to(x.dtype) * p.weights.reshape(ng, g * k).to(x.dtype))
         gathered = gathered * scale.reshape(-1, 1)
-        out = gathered.view(ng, g, k, d).sum(dim=2)
+        out = fold_sum(gathered.view(ng, g, k, d), 2)
         return out.reshape(b, s, d), p.aux
 
     def _dense_mix(self, x: Tensor) -> tuple[Tensor, dict]:

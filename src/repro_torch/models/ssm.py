@@ -25,8 +25,18 @@ reference's names and its chunking:
   ``torch.cummax``.
 * The sLSTM's recurrence is sequential, one step per position, as in the
   reference; its four recurrent products are one batched product a step
-  (``baddbmm`` over the stacked ``rz, ri, rf, ro``), with the state kept
-  head-major inside the loop.
+  (over the stacked ``rz, ri, rf, ro``), with the state kept head-major
+  inside the loop.
+
+The xLSTM's products outside a ``Linear`` (the mLSTM's seven products,
+the sLSTM's recurrent one) are each one
+:func:`~repro_torch.kernels.gemm.bgemm` over the batch (and heads): on
+the card a row's sums then run in an order fixed by its (K, N), not by
+the batch, so a request's output does not depend on the rows beside it
+(``docs/serving.md``; under cuBLAS, xlstm-350m's x0 moved across batch
+buckets).  Mamba's readout (:func:`mamba_readout`) stays an einsum on the
+card, whose cuBLAS kernel was measured not to move with the batch.  ``meta`` tensors
+keep the einsums and ``baddbmm``, which the dry run counts.
 
 Every scan's padding is an identity step, as in the reference (``a`` = 1,
 ``dt`` = 0, ``i_pre`` = -1e30 with ``logf`` = 0), so the last state of a
@@ -43,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.gemm import bgemm
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -191,6 +202,23 @@ def chunked_linear_scan(a: Tensor, b: Tensor, h0: Tensor, chunk: int):
 # ---------------------------------------------------------------------------
 
 
+def mamba_readout(hh: Tensor, c: Tensor) -> Tensor:
+    """Mamba's readout ``y[b, s, d] = sum_n hh[b, s, d, n] c[b, s, n]`` (hh
+    (B, L, d, N), c (B, L, N)): the einsum, a ``bmm`` over B·L.  On the
+    H100 its cuBLAS kernel gives a row the same bits at every batch bucket
+    (hymba-1.5b at buckets 1, 8 and 64; ``chip_smoke.py`` phase 16 holds
+    it at 1 to 64 rows of 256 and 128 positions), where the batched GEMM's
+    float32 instance took 9 times as long (PERF.md).  The CPU's einsum
+    picks its path by the batch, so on the CPU the states are folded in
+    index order (elementwise ops, the same bits at every batch)."""
+    if hh.device.type != "cpu":
+        return torch.einsum("bsdn,bsn->bsd", hh, c)
+    y = hh[..., 0] * c[:, :, None, 0]
+    for i in range(1, hh.shape[-1]):
+        y.addcmul_(hh[..., i], c[:, :, None, i])
+    return y
+
+
 def chunked_ssm_outputs(
     dt32: Tensor, x32: Tensor, a: Tensor, bmat: Tensor, c: Tensor,
     h0: Tensor, chunk: int,
@@ -212,7 +240,7 @@ def chunked_ssm_outputs(
         bx = (dtj * xj)[..., None] * bj[:, :, None, :]
         bx[:, 0] += a_bar[:, 0] * h
         hh = _scan_(a_bar, bx)
-        ys.append(torch.einsum("bsdn,bsn->bsd", hh, cj))
+        ys.append(mamba_readout(hh, cj))
         h = hh[:, -1]
     return torch.cat(ys, dim=1)[:, :s], h
 
@@ -322,7 +350,7 @@ def mlstm_chunkwise(q, k, v, i_pre, logf, state: dict, chunk: int):
         m_all = cum + torch.maximum(m0[:, None], g)   # (B, L, nh)
         # inter-chunk: exp(cum_j + m0 - m_j) * q_j C_0
         inter_w = torch.exp(cum + m0[:, None] - m_all)
-        h_inter = torch.einsum("blnd,bnde->blne", qj, c0) * inter_w[..., None]
+        h_inter = L.contract("blnd,bnde->blne", qj, c0) * inter_w[..., None]
         n_inter = n0[:, None] * inter_w[..., None]
         # intra-chunk: scores[j, i] = exp(cum_j - cum_i + logi_i - m_j) q_j.k_i,
         # masked before the exp
@@ -330,22 +358,22 @@ def mlstm_chunkwise(q, k, v, i_pre, logf, state: dict, chunk: int):
                 - m_all[:, :, None])                  # (B, Lq, Lk, nh)
         logw = torch.where(mask, logw, NEG)
         w_intra = torch.exp(torch.clamp(logw, max=60.0))
-        scores = torch.einsum("blnd,bind->blin", qj, kj) * w_intra
-        h_intra = torch.einsum("blin,bind->blnd", scores, vj)
-        n_intra = torch.einsum("blin,bind->blnd", w_intra, kj)
+        scores = L.contract("blnd,bind->blin", qj, kj) * w_intra
+        h_intra = L.contract("blin,bind->blnd", scores, vj)
+        n_intra = L.contract("blin,bind->blnd", w_intra, kj)
         num = h_inter + h_intra
         n_all = n_inter + n_intra
         den = torch.maximum(
-            torch.abs(torch.einsum("blnd,blnd->bln", n_all, qj)),
+            torch.abs(L.contract("blnd,blnd->bln", n_all, qj)),
             torch.exp(-m_all))
         hs.append(num / den[..., None])
         # carry update, stabilized at m_last
         m_last, cum_l = m_all[:, -1], cum[:, -1]
         wc = torch.exp(cum_l + m0 - m_last)
         wi = torch.exp(cum_l[:, None] - cum + ij - m_last[:, None])
-        c0 = c0 * wc[..., None, None] + torch.einsum(
+        c0 = c0 * wc[..., None, None] + L.contract(
             "blnd,blne->bnde", kj * wi[..., None], vj)
-        n0 = n0 * wc[..., None] + torch.einsum("blnd,bln->bnd", kj, wi)
+        n0 = n0 * wc[..., None] + L.contract("blnd,bln->bnd", kj, wi)
         m0 = m_last
     h = torch.cat(hs, dim=1)[:, :s]
     return h, {"c": c0, "n": n0, "m": m0}
@@ -465,9 +493,11 @@ def slstm_scan(pre: Tensor, rt: Tensor, state: dict):
     hd), last state)."""
     hd = rt.shape[1]
     h, c, n, m = (state[k].transpose(0, 1) for k in ("h", "c", "n", "m"))
+    meta = pre.device.type == "meta"
     hs = []
     for t in range(pre.shape[0]):
-        g = torch.baddbmm(pre[t], h, rt)               # (nh, B, 4 hd)
+        # pre + h @ r^T, the reference's order      # (nh, B, 4 hd)
+        g = torch.baddbmm(pre[t], h, rt) if meta else pre[t] + bgemm(h, rt)
         gz, gi, gf, go = g.split(hd, dim=-1)
         z = torch.tanh(gz)
         o = torch.sigmoid(go)

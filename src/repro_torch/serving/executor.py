@@ -107,7 +107,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.era_update import era_update
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels.gemm import bgemm, gemm
 from repro_torch.kernels.rownorm import layernorm, rmsnorm, row_sq_sums
 from repro_torch.models.diffusion import DiffusionLM
 from repro_torch.parallel.sharding import ParamReplicator, round_to_dp, serving_dp
@@ -129,7 +129,7 @@ DEFAULT_MAX_SEQ_LEN = 8192
 #: the kernel wrappers whose ``launches`` count launches on the device; a
 #: graph's capture records its launches and each replay adds them
 COUNTED_KERNELS = (era_update, flash_attention, decode_attention, gemm, rmsnorm,
-                   layernorm, row_sq_sums)
+                   layernorm, row_sq_sums, bgemm)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,8 +14,20 @@ weight's shape or the row's width alone; ``chip_smoke.py``'s
   ``layernorm`` and ``_seq_sq_sums`` (numpy inputs from a seed);
 * ``row_sq_sums`` bitwise padding- and batch-invariant, ``gemm_plain``
   row-invariant (the lone row too);
-* the smoke qwen2 and llama engines bitwise equal at batch buckets 1, 8
-  and 64, and within tolerance of the reference's ``BatchedSampler``;
+* the smoke qwen2 and llama engines, and those of the families whose
+  products do not all go through ``Linear`` (deepseek-v2-lite, mixtral,
+  hymba, xlstm: the MoE experts and the mLSTM / sLSTM products run the
+  batched GEMM, ``bgemm``; Mamba's readout stays an einsum on the card,
+  whose cuBLAS kernel phase 16 holds invariant, and folds its states on
+  the CPU), bitwise equal at batch
+  buckets 1, 8 and 64, and within tolerance of the reference's
+  ``BatchedSampler``;
+* ``bgemm_plain`` and ``layers.contract`` against the reference's
+  ``jnp.matmul`` / ``jnp.einsum``, Mamba's readout against the reference's einsum,
+  ``bgemm_shapes`` against the products a smoke forward of each of those
+  families hands ``bgemm``, and a recorder that fails if any matrix
+  product of those forwards runs outside the wrappers' plain versions
+  (on the card each would be a cuBLAS kernel chosen by the batch);
 * a call that asks for a CUDA tensor raises instead of falling back.
 """
 
@@ -25,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import ERAConfig as JERAConfig
 from repro.core import era as jera
@@ -35,9 +48,12 @@ from repro.serving import SampleRequest as JSampleRequest
 from repro_torch.configs import get_config
 from repro_torch.configs.registry import arch_names
 from repro_torch.core import linear_schedule
+from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import gemm as kg
 from repro_torch.kernels import rownorm as kr
 from repro_torch.models import DiffusionLM, build_model
+from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
 from repro_torch.models import layers as L
 from repro_torch.serving import BatchedSampler, SampleRequest
 from repro_torch.serving import result_keys as K
@@ -45,6 +61,8 @@ from test_torch_models import build_pair
 from test_torch_serving import reference_noise
 
 ARCHS = arch_names()
+#: the families whose products do not all go through ``Linear``
+BATCHED_ARCHS = ("deepseek-v2-lite-16b", "mixtral-8x7b", "hymba-1.5b", "xlstm-350m")
 #: float32 products and norms against the reference (summation order)
 F32_RTOL, F32_ATOL = 1e-5, 1e-5
 #: bf16 products: the two frameworks may round a sum one bf16 step apart
@@ -209,6 +227,190 @@ def test_gemm_plain_row_invariant(k, n):
 
 
 # ---------------------------------------------------------------------------
+# the batched instance: bgemm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("g,m,k,n,bias", [(1, 1, 64, 96, True), (3, 37, 128, 40, False),
+                                          (8, 30, 16, 1, False), (4, 5, 100, 132, True)])
+def test_bgemm_plain_matches_reference(g, m, k, n, bias):
+    rng = np.random.default_rng(g * 1000 + m + k + n)
+    x = rng.standard_normal((g, m, k), np.float32)
+    w = rng.standard_normal((g, k, n), np.float32) * k ** -0.5
+    b = rng.standard_normal((g, n), np.float32) if bias else None
+    tb = None if b is None else torch.from_numpy(b)
+    got = kg.bgemm(torch.from_numpy(x), torch.from_numpy(w), tb)
+    for ref in (jnp.matmul(jnp.asarray(x), jnp.asarray(w)),
+                jnp.einsum("gmk,gkn->gmn", jnp.asarray(x), jnp.asarray(w))):
+        ref = np.asarray(ref) + (b[:, None, :] if bias else 0.0)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=F32_RTOL, atol=F32_ATOL)
+    # bf16: the product rounded, then the bias add rounded again
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    refb = jnp.matmul(jx, jw)
+    if bias:
+        refb = refb + jnp.asarray(b, jnp.bfloat16)[:, None, :]
+    gotb = kg.bgemm(torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(),
+                    None if tb is None else tb.bfloat16()).float()
+    np.testing.assert_allclose(gotb.numpy(), np.asarray(refb.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("k,n,rows", [(128, 128, True), (64, 300, True),
+                                      (16, 1, False), (512, 1, False)])
+def test_bgemm_plain_row_and_batch_invariant(k, n, rows):
+    """Batches at every shape; rows at the expert products' widths, the
+    only products whose M the models vary with the batch (Mamba's readout
+    and the mLSTM's N = 1 products keep M and vary G; at N = 1 and a few
+    rows the CPU's product takes another path, the card's kernel does
+    not)."""
+    rng = np.random.default_rng(k + n)
+    x = torch.from_numpy(rng.standard_normal((6, 200, k), np.float32))
+    w = torch.from_numpy(rng.standard_normal((6, k, n), np.float32))
+    b = torch.from_numpy(rng.standard_normal((6, n), np.float32))
+    full = kg.bgemm(x, w, b)
+    for m in (1, 2, 7, 64, 199) if rows else ():
+        assert torch.equal(kg.bgemm(x[:, :m], w, b), full[:, :m]), m
+    for g in (1, 2, 5):
+        assert torch.equal(kg.bgemm(x[:g], w[:g], b[:g]), full[:g]), g
+
+
+@pytest.mark.parametrize("g,max_batch,m,k,n", [
+    (8, 3, 5, 16, 7), (3, 3, 2, 8, 4), (kg.MAX_BATCH + 5, kg.MAX_BATCH, 1, 8, 1)])
+def test_bgemm_launches_split_the_batch(g, max_batch, m, k, n, monkeypatch):
+    """A batch past ``MAX_BATCH`` (the grid's batch axis) runs as launches
+    of whole batches, at most ``MAX_BATCH`` each, joined in order: xlstm's
+    ``den`` dot at 64 rows of 256 positions is 65,536 batches.  The launch
+    is recorded here and computed by the plain version."""
+    monkeypatch.setattr(kg, "MAX_BATCH", max_batch)
+    sizes = []
+
+    def launch(x, w, b, cfg):
+        sizes.append(x.shape[0])
+        assert cfg == kg.gemm_config(k, n, x.dtype)
+        return kg.bgemm_plain(x, w, b)
+
+    monkeypatch.setattr(kg, "_launch_batch", launch)
+    rng = np.random.default_rng(g)
+    x = torch.from_numpy(rng.standard_normal((g, m, k), np.float32))
+    w = torch.from_numpy(rng.standard_normal((g, k, n), np.float32))
+    b = torch.from_numpy(rng.standard_normal((g, n), np.float32))
+    y = kg._launch_batched(x, w, b)
+    assert sizes == [min(max_batch, g - i) for i in range(0, g, max_batch)]
+    assert torch.equal(y, kg.bgemm_plain(x, w, b))
+
+
+@pytest.mark.parametrize("eq,a,b", [
+    ("blnd,bnde->blne", (2, 5, 3, 4), (2, 3, 4, 4)),
+    ("blnd,bind->blin", (2, 5, 3, 4), (2, 5, 3, 4)),
+    ("blnd,blnd->bln", (2, 5, 3, 4), (2, 5, 3, 4)),
+    ("blnd,bln->bnd", (2, 5, 3, 4), (2, 5, 3)),
+    ("bsdn,bsn->bsd", (2, 6, 7, 16), (2, 6, 16))])
+def test_contract_matches_reference_einsum(eq, a, b):
+    """``layers.contract`` (one bgemm over the batch letters) against the
+    reference's ``jnp.einsum``; on ``meta`` it is ``torch.einsum``."""
+    rng = np.random.default_rng(len(eq))
+    na, nb = rng.standard_normal(a, np.float32), rng.standard_normal(b, np.float32)
+    ref = np.asarray(jnp.einsum(eq, jnp.asarray(na), jnp.asarray(nb)))
+    got = L.contract(eq, torch.from_numpy(na), torch.from_numpy(nb))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=F32_RTOL, atol=F32_ATOL)
+    meta = L.contract(eq, torch.from_numpy(na).to("meta"), torch.from_numpy(nb).to("meta"))
+    assert meta.device.type == "meta" and meta.shape == got.shape
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 7, 16), (1, 3, 5, 4)])
+def test_mamba_readout_fold_matches_reference_einsum(shape):
+    """The readout (on the CPU an in-order fold over the states; on the card
+    the einsum) against the reference's ``jnp.einsum("bsdn,bsn->bsd")``,
+    and bitwise row-invariant."""
+    rng = np.random.default_rng(sum(shape))
+    hh = rng.standard_normal(shape, np.float32)
+    c = rng.standard_normal((shape[0], shape[1], shape[3]), np.float32)
+    ref = np.asarray(jnp.einsum("bsdn,bsn->bsd", jnp.asarray(hh), jnp.asarray(c)))
+    got = SSM.mamba_readout(torch.from_numpy(hh), torch.from_numpy(c))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=F32_RTOL, atol=F32_ATOL)
+    one = SSM.mamba_readout(torch.from_numpy(hh[:1]), torch.from_numpy(c[:1]))
+    assert torch.equal(one, got[:1])
+
+
+def _smoke_forward(arch: str, seq: int):
+    """A smoke denoiser of ``arch`` on the CPU (attention through the flash
+    wrapper, as on the card), and a call of its ``eps`` on 3 rows of
+    ``seq`` positions."""
+    cfg = get_config(arch, smoke=True).with_(attention_impl="flash")
+    dlm = DiffusionLM(cfg, device="cpu", seed=4)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, seq, cfg.d_model), np.float32))
+    return cfg, lambda: dlm.eps(x, 0.5)
+
+
+@pytest.mark.parametrize("seq", [24, 64])
+@pytest.mark.parametrize("arch", BATCHED_ARCHS)
+def test_bgemm_shapes_are_the_forward_products(arch, seq, monkeypatch):
+    """``bgemm_shapes``'s arithmetic is what a smoke forward hands
+    ``bgemm`` (24 positions: the mLSTM in one chunk shorter than its 32;
+    64: two whole chunks)."""
+    cfg, forward = _smoke_forward(arch, seq)
+    seen, plain = set(), kg.bgemm_plain
+
+    def recorded(x, w, b=None):
+        seen.add((x.shape[2], w.shape[2], x.dtype))
+        return plain(x, w, b)
+
+    monkeypatch.setattr(kg, "bgemm_plain", recorded)
+    with torch.no_grad():
+        forward()
+    assert seen == kg.bgemm_shapes(cfg, seq)
+    # hymba's only product outside Linear, Mamba's readout, is no bgemm
+    assert bool(seen) == (arch != "hymba-1.5b")
+
+
+PRODUCTS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+            torch.ops.aten.baddbmm, torch.ops.aten.mv, torch.ops.aten.dot}
+
+
+class _ProductRecorder(TorchDispatchMode):
+    """Records every matrix product that runs while ``inside`` is 0: on the
+    card those would be cuBLAS kernels, chosen by the batch."""
+
+    def __init__(self):
+        super().__init__()
+        self.inside, self.outside = 0, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in PRODUCTS and not self.inside:
+            self.outside.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", BATCHED_ARCHS)
+def test_no_product_outside_the_kernel_wrappers(arch, monkeypatch):
+    """Every matrix product of a smoke forward of these families runs inside
+    ``gemm``'s, ``bgemm``'s or the flash kernel's plain version, or the
+    CPU's SDPA (MLA asks for impl "auto", which CUDA tensors send to the
+    flash kernel): what the CPU runs for the card's kernels.  None runs as
+    a bare PyTorch product (Mamba's readout, an einsum on the card, folds
+    on the CPU)."""
+    _, forward = _smoke_forward(arch, 24)
+    rec = _ProductRecorder()
+
+    def inside(fn):
+        def wrapped(*args, **kwargs):
+            rec.inside += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec.inside -= 1
+        return wrapped
+
+    for mod, name in ((kg, "gemm_plain"), (kg, "bgemm_plain"),
+                      (kf, "flash_attention_plain"), (A, "_naive_sdpa"),
+                      (A, "_chunked_sdpa")):
+        monkeypatch.setattr(mod, name, inside(getattr(mod, name)))
+    with torch.no_grad(), rec:
+        forward()
+    assert rec.outside == []
+
+
+# ---------------------------------------------------------------------------
 # the engines: bitwise across batch buckets, and against the reference
 # ---------------------------------------------------------------------------
 
@@ -224,7 +426,7 @@ def _drain(tdlm, bucket: int, reqs):
     return [f.result() for f in futs]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3.2-1b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3.2-1b", *BATCHED_ARCHS])
 def test_x0_bitwise_across_batch_buckets(arch):
     jdlm, params, tdlm = build_pair(arch, "naive", "auto", seed=3,
                                     head_scale=0.05)
@@ -288,6 +490,20 @@ def test_cuda_call_raises_instead_of_falling_back(dtype):
     # and a CUDA call in a dtype without an instance raises before any launch
     with pytest.raises(TypeError, match="no instance"):
         kg.gemm(_cuda(x.half()), _cuda(w.half()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bgemm_cuda_call_raises_instead_of_falling_back(dtype):
+    x, w = torch.ones(3, 4, 64, dtype=dtype), torch.ones(3, 64, 32, dtype=dtype)
+    launches = kg.bgemm.launches
+    with pytest.raises((RuntimeError, AssertionError, ImportError)):
+        kg.bgemm(_cuda(x), _cuda(w))
+    assert kg.bgemm.launches == launches
+    with pytest.raises(TypeError, match="no instance"):
+        kg.bgemm(_cuda(x.half()), _cuda(w.half()))
+    # a meta tensor is no CUDA tensor either: the models keep their own ops
+    with pytest.raises(ValueError, match="not cuda"):
+        kg.bgemm(x.to("meta"), w.to("meta"))
 
 
 def test_norm_under_autograd_keeps_the_kernel_value_and_plain_gradient():
