@@ -248,31 +248,35 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    program of the registry bitwise at buckets 1 and 8; whisper-base's
    denoiser (LayerNorm, counted) bitwise at buckets 1 and 8; the families
    whose products do not all go through ``Linear`` (MoE experts and
-   router, the mLSTM / sLSTM products: ``bgemm``; Mamba's readout an einsum), one
+   router, the mLSTM / sLSTM products, Mamba's readout: ``bgemm``), one
    at a time at full width: deepseek-v2-lite-16b, mixtral-8x7b cut to 4 of
    its 32 layers, hymba-1.5b and xlstm-350m, each with a forward hook on
    every module over one ``eps`` call of 8 rows and of their first row
    alone (no module's output may differ) and eight requests' ``x0`` and
-   ERS selections bitwise at buckets 1, 8 and 64 (counted: ``gemm`` launches,
-   and ``bgemm`` in all but hymba; the MoE families get no seq-padding check, their
+   ERS selections bitwise at buckets 1, 8 and 64 (counted: ``gemm`` and
+   ``bgemm`` launches in each; the MoE families get no seq-padding check, their
    capacity comes from the padded length in both packages); then
    ``gemm`` against ``gemm_plain`` at every ``Linear`` (K, N) of
    qwen2-1.5b and llama3.2-1b and at the guarded-load shapes, at 1 to
-   16,384 rows with and without a bias (atol = rtol = 2^-6 in bf16; 1e-4 /
+   16,384 rows (among them counts at the grid's edges: fewer tiles than
+   SMs, one wave, one tile over, many waves) with and without
+   a bias (atol = rtol = 2^-6 in bf16; 1e-4 /
    1e-5 in float32), rows of ``x[:m]`` bitwise those of ``x``; ``bgemm``
    against ``bgemm_plain`` at every ``bgemm_shapes`` entry of the four
-   families (and the split-K and guarded-load shapes) at G 1-8 and M
-   1-640 with and without a bias (the same tolerances), rows of
+   families (and the split-K and guarded-load shapes) at G 1-24 (one
+   wave of the grid and one over among them) and M 1-640 with
+   and without a bias (the same tolerances), rows of
    ``x[:, :m]`` and batches of ``x[:g]`` bitwise those of ``x``, and
    ``gemm(x, w)`` bitwise ``bgemm(x[None], w[None])[0]`` at every qwen2
-   ``Linear`` shape; Mamba's readout einsum bitwise for the first row at
-   1 to 64 rows of 256 and 128 positions; the Triton
+   ``Linear`` shape; Mamba's readout bitwise for the first row at 1 to 64
+   rows of 256 and 128 positions; the Triton
    ``rmsnorm`` / ``layernorm`` (2^-7) and ``row_sq_sums`` (1e-5 relative)
    against their plain versions, prefix rows bitwise, ``row_sq_sums``
    padding-invariant; each timed L2-warm and L2-cold beside its bound, its
    plain version and ``torch.matmul`` / the fused PyTorch op (``bgemm``
    beside ``torch.bmm`` at the experts', Mamba's readout's, the mLSTM's
-   and the sLSTM's shapes; the readout also beside its einsum);
+   and the sLSTM's shapes; the readout also beside the einsum); the
+   ``gemm`` / ``bgemm`` launches of every path read by path;
 17. prints one ``{"solvers": {...}}`` line with phase 8's figures, one
    ``{"frontdoor": {...}}`` line with phase 9's, one ``{"families":
    {...}}`` line with phases 10, 11 and 12's, one ``{"training": {...}}``
@@ -1208,27 +1212,28 @@ def decode_ptxas_report(text: str, kd, lib=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def gemm_ptxas_report(text: str) -> dict:
+def gemm_kernels(kg) -> int:
+    """gemm.cu's kernels: the bf16 kernel at each (BN, stages) pair with
+    both loaders, unbatched and batched; the float32 tiled kernel at both
+    load widths, unbatched and batched; the dot kernels (a warp or a thread
+    a row) at both load widths; the split sums in bf16 and float32,
+    unbatched and batched."""
+    return 4 * len(kg.BF16_INSTANCES) + 4 + 4 + 4
+
+
+def gemm_ptxas_report(text: str, kernels: int) -> dict:
     """{instance: {registers, spill_stores, spill_loads}} of every kernel of
-    ``gemm.cu`` in ``nvcc -Xptxas -v`` output (each unbatched and batched),
-    and ptxas's warnings (a wgmma it serialised); fails on a spill."""
+    ``gemm.cu`` in ``nvcc -Xptxas -v`` output (an instance is the kernel's
+    name and its mangled template arguments), and ptxas's warnings (a wgmma
+    it serialised); fails on a spill."""
     import re
 
     report, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            raw = m.group(1)
-            k = re.search(r"gemm_bf16_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", raw)
-            o = re.search(r"(gemm_f32_kernel|gemm_reduce_kernel)ILb([01])E", raw)
-            if k:
-                name = (f"bf16 BN {k.group(1)} stages {k.group(2)} "
-                        f"{'tma' if k.group(3) == '1' else 'ldg'}"
-                        f"{' batched' if k.group(4) == '1' else ''}")
-            elif o:
-                name = o.group(1) + (" batched" if o.group(2) == "1" else "")
-            else:
-                name = None
+            k = re.search(r"(gemm_\w+?_kernel)I(.+?)EEv", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else None
             continue
         if name is None:
             continue
@@ -1239,7 +1244,7 @@ def gemm_ptxas_report(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             report.setdefault(name, {})["registers"] = int(m.group(1))
-    check(len(report) == 12, f"gemm.cu's ptxas report has {sorted(report)}")
+    check(len(report) == kernels, f"gemm.cu's ptxas report has {sorted(report)}")
     for inst, r in report.items():
         check(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0,
               f"gemm {inst} spills: {r}")
@@ -1249,15 +1254,34 @@ def gemm_ptxas_report(text: str) -> dict:
     return report
 
 
+#: the kernels whose launches every path reads (:func:`read_counts`): the
+#: three TPU kernels' ports and the row-invariant GEMM (``gemm``, ``bgemm``)
+COUNTED = ("era_update", "flash_attention", "decode_attention", "gemm", "bgemm")
+
+
 def reset_counts(*wrappers) -> None:
-    for counted in wrappers:
+    """Zero the wrappers' counts, and the GEMM's (``gemm``, ``bgemm``)."""
+    from repro_torch.kernels import gemm as kg
+
+    for counted in (*wrappers, kg.gemm, kg.bgemm):
         counted.launches = 0
 
 
 def read_counts(ku, kf, kd) -> dict:
+    """The :data:`COUNTED` kernels' launches since :func:`reset_counts`."""
+    from repro_torch.kernels import gemm as kg
+
     return {"era_update": ku.era_update.launches,
             "flash_attention": kf.flash_attention.launches,
-            "decode_attention": kd.decode_attention.launches}
+            "decode_attention": kd.decode_attention.launches,
+            "gemm": kg.gemm.launches, "bgemm": kg.bgemm.launches}
+
+
+def launches_are(launches: dict, want: dict) -> bool:
+    """Each kernel ``want`` names launched exactly as often as it says; the
+    GEMM's counts, which follow the model's products, are read beside them
+    and held only where ``want`` names them."""
+    return all(launches[k] == v for k, v in want.items())
 
 
 def reserved_mb() -> float:
@@ -1818,8 +1842,9 @@ def phase_ar(ku, kf, kd):
     check(tuple(toks.shape) == (AR_BATCH, AR_GEN), "generated shape")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "a generated token is outside the vocabulary")
-    check(launches == {"era_update": 0, "flash_attention": cfg.num_layers,
-                       "decode_attention": cfg.num_layers * (AR_GEN - 1)},
+    check(launches_are(launches, {
+              "era_update": 0, "flash_attention": cfg.num_layers,
+              "decode_attention": cfg.num_layers * (AR_GEN - 1)}),
           f"AR launches {launches}")
 
     # the same generation step by step, timed: prefill, then the decode
@@ -1989,9 +2014,9 @@ def phase_bucketed(ku, kf, kd, dlm):
     log(f"bucketed drain: {len(reqs)} requests in {batches:.0f} fused batches, "
         f"{drain_ms:.1f} ms, launches {launches}")
     check(batches == 2, f"bucketed drain ran {batches} batches, not 2")
-    check(launches == {"era_update": 2 * (NFE - K + 1),
-                       "flash_attention": 2 * cfg.num_layers * NFE,
-                       "decode_attention": 0},
+    check(launches_are(launches, {"era_update": 2 * (NFE - K + 1),
+                                  "flash_attention": 2 * cfg.num_layers * NFE,
+                                  "decode_attention": 0}),
           f"bucketed drain launches {launches}")
     check(eng.compile_stats()["fresh"] == 2, "the bucketed drain captured a graph")
     for req, res in zip(reqs, results):
@@ -2059,7 +2084,7 @@ def phase_solvers(ku, kf, kd, dlm):
     check(solver_names() == sorted(BASELINES + ("era",)),
           f"the port's solvers are {solver_names()}")
     flash_per_batch = cfg.num_layers * NFE
-    total = {"era_update": 0, "flash_attention": 0, "decode_attention": 0}
+    total = dict.fromkeys(COUNTED, 0)
 
     def served(drain) -> dict:
         """Drive one drain of the main path with the counts set to 0, and
@@ -2087,8 +2112,9 @@ def phase_solvers(ku, kf, kd, dlm):
         launches = served(eng.drain)
         replay_ms = (time.perf_counter() - t0) * 1e3
         res = fut.result()
-        check(launches == {"era_update": 0, "flash_attention": flash_per_batch,
-                           "decode_attention": 0},
+        check(launches_are(launches, {"era_update": 0,
+                                      "flash_attention": flash_per_batch,
+                                      "decode_attention": 0}),
               f"{name} launches {launches}")
         check(tuple(res.x0.shape) == (8, 256, cfg.d_model),
               f"{name} x0 shape {tuple(res.x0.shape)}")
@@ -2445,9 +2471,9 @@ def phase_frontdoor(ku, kf, kd, dlm):
         check(batches.value() - b0 == 1,
               f"8 wire requests ran {batches.value() - b0:.0f} batches, not 1")
         check(ex.compile_stats()["fresh"] == fresh0, "a capture after ready")
-        check(launches == {"era_update": NFE - K + 1,
-                           "flash_attention": cfg.num_layers * NFE,
-                           "decode_attention": 0},
+        check(launches_are(launches, {"era_update": NFE - K + 1,
+                                      "flash_attention": cfg.num_layers * NFE,
+                                      "decode_attention": 0}),
               f"fused wire batch launches {launches}")
         check(all(r.padded_batch == 8 for r, _ in out), "not one 8-row batch")
         # each against the same request drained alone at the same 8-row
@@ -2567,9 +2593,14 @@ NORM_ATOL = NORM_RTOL = 2 ** -7
 #: ``row_sq_sums`` against its plain version (float32 sums in another order)
 ROW_SQ_RTOL = 1e-5
 #: rows the kernels are held at, and the prefixes whose rows must be
-#: bitwise the full input's
-INV_MS = (1, 8, 200, 256, 2048, 16384)
-INV_PREFIX = (1, 7, 64, 255, 2048)
+#: bitwise the full input's.  Beside the path's counts, rows at the edges
+#: of the bf16 grid's waves (a block a tile, one block an SM of the H100's
+#: 132 at a time) at qwen2's widths: at wq (12 column tiles) 1,408 rows
+#: are 11 row tiles, exactly one wave, 1,409 one row tile over; at wk / wv
+#: (2 column tiles x 3 splits) 2,816 rows are one wave, 2,817 one over; 256
+#: rows leave most SMs without a tile, 16,384 are many waves
+INV_MS = (1, 8, 200, 256, 1408, 1409, 2048, 2816, 2817, 16384)
+INV_PREFIX = (1, 7, 64, 255, 1408, 1409, 2048, 2817)
 #: the shapes whose row pitch breaks TMA's 16-byte rule (the guarded-load
 #: instance): hymba's dt_proj and x_proj, xLSTM's gates
 GEMM_LDG_SHAPES = ((100, 3200), (3200, 132), (2048, 4))
@@ -2815,11 +2846,14 @@ def rowkernel_timings(kg, kr) -> dict:
 
 
 #: the batched GEMM's batches and rows at each shape; the rows and batches
-#: whose prefixes must be bitwise the whole input's
-BGEMM_GS = (1, 3, 8)
+#: whose prefixes must be bitwise the whole input's.  At deepseek's expert
+#: widths (11 column tiles) 240 rows are 22 tiles a batch: 6 batches are
+#: exactly one wave of the bf16 grid, 7 one over, 24 four waves; 30 rows
+#: are 11 tiles a batch, so 24 batches are two waves
+BGEMM_GS = (1, 3, 6, 7, 8, 24)
 BGEMM_MS = (1, 30, 80, 240, 640)
 BGEMM_ROW_PREFIX = (1, 7, 30, 129)
-BGEMM_BATCH_PREFIX = (1, 2, 5)
+BGEMM_BATCH_PREFIX = (1, 2, 5, 6, 7, 13)
 #: shapes beside the families' that reach the split of K (qwen2's wk / wv)
 #: and the guarded-load loader (hymba's dt_proj, xLSTM's gates)
 BGEMM_EXTRA = ((1536, 256, torch.bfloat16), (100, 3200, torch.bfloat16),
@@ -2900,11 +2934,8 @@ def bgemm_timings(kg) -> dict:
     deepseek-v2-lite's and mixtral's expert products at batch buckets 8
     and 1 (G = E, M = groups x capacity), the mLSTM's score, inter-chunk
     and ``den`` products at xlstm's 8 x 256 and the sLSTM's step at batch
-    8; and Mamba's readout at hymba's 8 x 256 chunk as the batched GEMM
-    would run it (G = B x L, M = d_inner, K = 16, N = 1) beside the einsum
-    the model runs (``ssm.mamba_readout``)."""
-    from repro_torch.models import ssm
-
+    8; and Mamba's readout at hymba's 8 x 256 chunk (G = B x L, M =
+    d_inner, K = 16, N = 1) beside the einsum cuBLAS ran it as before."""
     gen = torch.Generator(device="cuda").manual_seed(32)
     bf, f32 = torch.bfloat16, torch.float32
     cases = (("experts_wg deepseek", 64, 240, 2048, 1408, bf),
@@ -2930,7 +2961,8 @@ def bgemm_timings(kg) -> dict:
         if name.startswith("mamba"):
             hh = x.view(8, 256, m, k)
             c = w.view(8, 256, k)
-            out[key]["einsum_ms"] = graph_ms(lambda: ssm.mamba_readout(hh, c))
+            out[key]["einsum_ms"] = graph_ms(
+                lambda: torch.einsum("bsdn,bsn->bsd", hh, c))
     for name, t in out.items():
         extra = f", einsum {t['einsum_ms']:.4f} ms" if "einsum_ms" in t else ""
         log(f"timing {name}: {t['ms']:.4f} ms (L2-cold {t['ms_l2_cold']:.4f}), "
@@ -2940,11 +2972,10 @@ def bgemm_timings(kg) -> dict:
 
 
 def readout_invariance() -> list:
-    """Mamba's readout (``ssm.mamba_readout``, an einsum: cuBLAS picks its
-    kernel) at hymba's widths: the first row's output bitwise the same at
-    1 to 64 rows of a 256- and a 128-position chunk.  The model keeps the
-    einsum on this evidence; a change of the library's choice fails here.
-    Returns the (positions, rows) held."""
+    """Mamba's readout (``ssm.mamba_readout``: ``bgemm``'s dot instance at
+    N = 1) at hymba's widths: the first row's output bitwise the same at 1
+    to 64 rows of a 256- and a 128-position chunk.  Returns the (positions,
+    rows) held."""
     from repro_torch.configs import get_config
     from repro_torch.models import ssm
 
@@ -2962,7 +2993,7 @@ def readout_invariance() -> list:
                   f"positions differs from the row alone")
             held.append((seq, rows))
         del hh, c
-    log(f"Mamba's readout einsum: the first row bitwise alone and among "
+    log(f"Mamba's readout: the first row bitwise alone and among "
         f"{sorted({r for _, r in held})} rows at 256 and 128 positions")
     return held
 
@@ -3358,7 +3389,7 @@ def family_era(ku, kf, kd, dlm, seq_buckets, *, fuse=False, profile=False,
     from repro_torch.serving import BatchedSampler, SampleRequest, result_keys
 
     cfg = dlm.config
-    total = {"era_update": 0, "flash_attention": 0, "decode_attention": 0}
+    total = dict.fromkeys(COUNTED, 0)
     want = {"era_update": NFE - K + 1, "flash_attention": attn_layers(cfg) * NFE,
             "decode_attention": 0}
 
@@ -3369,7 +3400,7 @@ def family_era(ku, kf, kd, dlm, seq_buckets, *, fuse=False, profile=False,
         counts = read_counts(ku, kf, kd)
         for k, v in counts.items():
             total[k] += v
-        check(counts == want, f"{cfg.name}: launches {counts} != {want}")
+        check(launches_are(counts, want), f"{cfg.name}: launches {counts} != {want}")
         return counts
 
     eng = BatchedSampler(dlm, linear_schedule(), batch_buckets=(8,),
@@ -3575,7 +3606,7 @@ def family_ar(ku, kf, kd, model, gen: int, plant=drop_newest_prompt_entry,
     gen_s = time.perf_counter() - t0
     launches = read_counts(ku, kf, kd)
     want = ar_launches(cfg, gen)
-    check(launches == want, f"{cfg.name} AR launches {launches} != {want}")
+    check(launches_are(launches, want), f"{cfg.name} AR launches {launches} != {want}")
     check(tuple(toks.shape) == (AR_BATCH, gen), f"{cfg.name} generated shape")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"{cfg.name}: a generated token is outside the vocabulary")
@@ -3665,7 +3696,7 @@ def phase_families(ku, kf, kd):
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
-    total = {"era_update": 0, "flash_attention": 0, "decode_attention": 0}
+    total = dict.fromkeys(COUNTED, 0)
     report = {}
 
     def add(counts):
@@ -3923,7 +3954,7 @@ def phase_ssm_hybrid(ku, kf, kd):
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
-    total = {"era_update": 0, "flash_attention": 0, "decode_attention": 0}
+    total = dict.fromkeys(COUNTED, 0)
     report = {}
 
     def add(counts):
@@ -3996,7 +4027,7 @@ def phase_audio_vlm(ku, kf, kd):
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
-    total = {"era_update": 0, "flash_attention": 0, "decode_attention": 0}
+    total = dict.fromkeys(COUNTED, 0)
     report = {}
 
     def add(counts):
@@ -4474,6 +4505,7 @@ def train_objective(kf, cfg, objective: str, steps: int | None = None,
     one more step profiled and AdamW's update timed alone."""
     from repro_torch.core import linear_schedule
     from repro_torch.launch import train as lt
+    from repro_torch.kernels import gemm as kg
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import batch_to_device
 
@@ -4492,8 +4524,8 @@ def train_objective(kf, cfg, objective: str, steps: int | None = None,
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_step = train_flash_launches(cfg, diffusion)
     losses, walls = [], []
-    # the flash launches of every step, read from the counters after it
-    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    # the flash and GEMM launches of every step, read from the counters after it
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0, "gemm": 0, "bgemm": 0}
 
     def count_step(what):
         check(kf.flash_attention.launches == per_step
@@ -4503,6 +4535,8 @@ def train_objective(kf, cfg, objective: str, steps: int | None = None,
               f"launches, not {per_step} each")
         launches["flash_attention"] += kf.flash_attention.launches
         launches["flash_attention_bwd"] += kf.flash_attention_bwd.launches
+        launches["gemm"] += kg.gemm.launches
+        launches["bgemm"] += kg.bgemm.launches
 
     for i in range(steps):
         batch = batch_to_device(next(batches), "cuda")
@@ -4605,6 +4639,7 @@ def checkpoint_round_trip(kf, cfg) -> dict:
     import shutil
 
     from repro_torch.interop import params_from_jax
+    from repro_torch.kernels import gemm as kg
     from repro_torch.launch import train as lt
     from repro_torch.models import DiffusionLM
     from repro_torch.training import checkpoint as ckpt
@@ -4623,6 +4658,7 @@ def checkpoint_round_trip(kf, cfg) -> dict:
     check(all(n == 2 * CKPT_LAYERS for n in launches.values()),
           f"checkpoint round trip's 2 steps: flash launches {launches}, not "
           f"{2 * CKPT_LAYERS} each")
+    launches |= {"gemm": kg.gemm.launches, "bgemm": kg.bgemm.launches}
     path = ckpt.latest(str(ckpt_dir))
     tree, st = ckpt.restore(path)
     check(st == 2 and int(tree["opt"]["step"]) == 2, f"checkpoint step {st}")
@@ -4656,7 +4692,7 @@ def phase_training(kf) -> tuple[dict, dict]:
     runs += [f[obj] for f in figures["families"].values() if isinstance(f, dict)
              for obj in FAMILY_TRAIN_STEPS]
     launches = {name: sum(f["flash_launches"][name] for f in runs)
-                for name in ("flash_attention", "flash_attention_bwd")}
+                for name in ("flash_attention", "flash_attention_bwd", "gemm", "bgemm")}
     return {**launches, "era_update": 0, "decode_attention": 0}, figures
 
 
@@ -4786,7 +4822,8 @@ def phase_mesh(ku, kf, kd, dlm) -> tuple[dict, dict]:
         del eng
     want = {"era_update": dp * (NFE - K + 1),
             "flash_attention": dp * dlm.config.num_layers * NFE, "decode_attention": 0}
-    check(launches["mesh"] == want, f"mesh launches {launches['mesh']} != {want}")
+    check(launches_are(launches["mesh"], want),
+          f"mesh launches {launches['mesh']} != {want}")
     same = all(
         torch.equal(a.x0, b.x0) and set(a.aux) == set(b.aux)
         and all(torch.equal(a.aux[k], b.aux[k]) for k in a.aux)
@@ -4859,7 +4896,7 @@ def mesh_engine(ku, kf, kd) -> dict:
         f"{worst:.3e} of the whole batch's (bound {MESH_LOGIT_RTOL}); 16 "
         f"tokens, {agree:.3f} of them equal to those without a mesh, "
         f"{mesh_ms:.1f} ms against {plain_ms:.1f}; launches {launches}")
-    check(launches == want, f"mesh generate launches {launches} != {want}")
+    check(launches_are(launches, want), f"mesh generate launches {launches} != {want}")
     check(worst <= MESH_LOGIT_RTOL, f"mesh prefill logits {worst} off")
     check(tuple(meshed.shape) == (AR_BATCH, 16), f"tokens {tuple(meshed.shape)}")
     if dp == 1:
@@ -4988,7 +5025,7 @@ def phase_int8(ku, kf, kd) -> tuple[dict, dict]:
     check(tuple(toks.shape) == (AR_BATCH, INT8_GEN), f"tokens {tuple(toks.shape)}")
     want = {"era_update": 0, "flash_attention": cfg.num_layers,
             "decode_attention": cfg.num_layers * (INT8_GEN - 1)}
-    check(launches == want, f"int8 generate launches {launches} != {want}")
+    check(launches_are(launches, want), f"int8 generate launches {launches} != {want}")
 
     prompt_slots = slice(0, AR_PROMPT)
     decode_slots = slice(AR_PROMPT, AR_PROMPT + INT8_GEN - 1)
@@ -5191,6 +5228,7 @@ def phase_dryrun_memory(ku, kf, kd) -> tuple[dict, dict]:
     wall.  Returns the launches of the two runs and the figures."""
     from repro_torch.configs import get_config
     from repro_torch.core import ERAConfig, get_program, linear_schedule
+    from repro_torch.kernels import gemm as kg
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as lt
     from repro_torch.training import optimizer as opt
@@ -5198,14 +5236,14 @@ def phase_dryrun_memory(ku, kf, kd) -> tuple[dict, dict]:
 
     cfg = get_config("qwen2-1.5b")
     out = {}
-    launches = {"era_update": 0, "flash_attention": 0, "decode_attention": 0,
-                "flash_attention_bwd": 0}
+    launches = dict.fromkeys((*COUNTED, "flash_attention_bwd"), 0)
 
     def add_launches():
         for name, fn in (("era_update", ku.era_update),
                          ("flash_attention", kf.flash_attention),
                          ("decode_attention", kd.decode_attention),
-                         ("flash_attention_bwd", kf.flash_attention_bwd)):
+                         ("flash_attention_bwd", kf.flash_attention_bwd),
+                         ("gemm", kg.gemm), ("bgemm", kg.bgemm)):
             launches[name] += fn.launches
 
     # the ERA request, eagerly
@@ -5307,7 +5345,11 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
     A trace that holds fewer than half of them is taken again, up to three
     times, each time over half as many calls (late in a long run a trace
     has held 23 or 27 of 60 launches, the same count three times in a
-    row).  With ``by`` (a kernel name to a key), a dict instead: each key's
+    row).  A trace that holds none of the call's kernels is taken again
+    too; where three hold none and the whole call is timed (no ``pick``, no
+    ``by``), CUDA events around each call give its time (an L2-cold trace
+    of SDPA's backward once held none of its kernels, only the flush's).
+    With ``by`` (a kernel name to a key), a dict instead: each key's
     mean device time a launch, from a trace that holds ``kernels`` keys,
     each with a quarter of its launches or more."""
     flush = l2_flush() if cold else None
@@ -5337,15 +5379,18 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
         if by is not None:
             ok = len(counts) >= kernels and min(counts.values(), default=0) * 4 >= n
         else:
-            ok = not kernels or 2 * held >= n * kernels
+            ok = bool(rows) and (not kernels or 2 * held >= n * kernels)
         if ok:
             break
         log(f"device_ms: trace {attempt} holds {held} of the {n * kernels} "
             f"kernels timed ({counts}); traced again over {max(5, n // 2)} calls")
         n = max(5, n // 2)
     else:
+        if pick is None and by is None:
+            log("device_ms: no trace holds the call's kernels; timed by CUDA "
+                "events around each call instead")
+            return events_ms(fn, iters, flush)
         raise RuntimeError("chip_smoke: FAILED: no trace holds the timed kernels")
-    check(bool(rows), "no device time for the timed call")
     if by is not None:
         split = {}
         for ms, count, name in rows:
@@ -5356,6 +5401,23 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, *, cold: bool = False,
     if kernels:
         return sum(r[0] for r in rows) / held * kernels
     return sum(r[0] for r in rows) / n
+
+
+def events_ms(fn, iters: int, flush=None) -> float:
+    """Mean device time of one call, from CUDA events around each call
+    alone (``flush``, where given, runs before each, outside the events)."""
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def traced(fn) -> list:
@@ -5999,7 +6061,7 @@ def main() -> None:
                          "local card")
     ap.add_argument("--era-arch", default="qwen2-1.5b",
                     help="the denoisers --era-ab times, comma-separated "
-                         "name or name:layers; 'families' for "
+                         "name or name:layers; 'families' stands for "
                          f"{ERA_FAMILIES}")
     ap.add_argument("--era-host", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6007,7 +6069,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    archs = ERA_FAMILIES if args.era_arch == "families" else args.era_arch
+    archs = ",".join(ERA_FAMILIES if a == "families" else a
+                     for a in args.era_arch.split(","))
     if args.era_host:
         return era_host(args.era_host, archs)
     smi = nvidia_smi()
@@ -6056,7 +6119,7 @@ def main() -> None:
     text, _ = gptxas.communicate()
     gptxas_out.unlink(missing_ok=True)
     check(gptxas.returncode == 0, f"nvcc -Xptxas -v failed:\n{text}")
-    gemm_ptxas = gemm_ptxas_report(text)
+    gemm_ptxas = gemm_ptxas_report(text, gemm_kernels(kg))
 
     def done(phase):
         log(f"phase {phase} done at {time.perf_counter() - t0:.1f}s")
@@ -6068,6 +6131,7 @@ def main() -> None:
     done(3)
     dlm = build_dlm()
     era_launches, drain_s, per_nfe_ms, era_busy_ms = phase_slice(ku, kf, kd, dlm)
+    check(era_launches["gemm"] > 0, f"the ERA path launched no gemm: {era_launches}")
     mesh_launches, mesh = phase_mesh(ku, kf, kd, dlm)
     request_flops = phase_request_flops(era_busy_ms)
     done(4)
@@ -6192,9 +6256,11 @@ def main() -> None:
 
     def row_kernel(name, route, source, replaces, errs, shape, **extra):
         t = inv_t[shape]
+        by_path = {"batch_invariance": invariance_launches[name]}
+        if name in COUNTED:
+            by_path |= counts(name)["launches_by_path"]
         return dict(name=name, route=route, source=source, replaces=replaces,
-                    launches=invariance_launches[name],
-                    launches_by_path={"batch_invariance": invariance_launches[name]},
+                    launches=sum(by_path.values()), launches_by_path=by_path,
                     max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
                     ms=t["ms"], kernel_ms=t["ms"], ms_l2_cold=t["ms_l2_cold"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

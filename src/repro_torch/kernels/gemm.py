@@ -17,9 +17,14 @@ its end read as exact zeros.  Row i of ``gemm(x[:m], w)`` is then bitwise
 row i of ``gemm(x, w)`` for every m.
 
 bf16 (x and w bf16, float32 accumulation) rounds as ``x @ w + b`` rounds in
-PyTorch: the product to bf16, then the bias add again.  float32 (TimeMLP,
-no TF32) is a SIMT kernel: K in eight slices of one fmaf chain each, the
-slices summed in order.
+PyTorch: the product to bf16, then the bias add again.  It is a ``wgmma``
+kernel, one tile a block, fed by a ring of TMA stages, two consumer
+warpgroups taking 64 rows of the tile each.  float32
+(TimeMLP, the MoE router, the xLSTM and Mamba products; no TF32) is a
+register-tiled SIMT kernel (128 x 64 block tiles, 8 x 4 outputs a thread,
+K through a cp.async ring, one fmaf chain an output over its split of K),
+or at N = 1 a dot kernel (a warp a row and a fixed shuffle tree, or at K <=
+32 a thread a row).
 Built with ``nvcc`` for ``sm_90a`` at first use and bound with ctypes; the
 C entry point returns ``cudaGetLastError()`` and the wrapper raises if it
 is not 0.  Under autograd the wrapper is a ``torch.autograd.Function``
@@ -31,13 +36,14 @@ CPU tensors take :func:`gemm_plain`.  An unsupported call on a CUDA tensor
 back.
 
 :func:`bgemm` is the batched instance, ``y[g] = x[g] @ w[g] (+ b[g])`` for
-x (G, M, K) and w (G, K, N): the same kernels with the batch as a grid
-axis, at the same :func:`gemm_config` (no M, no G), so row i of batch g
-depends on row i of x[g] and on w[g] alone.  It runs the products that do
-not go through ``Linear``: the MoE experts (bf16, G = the experts), the
-mLSTM products and the sLSTM's recurrent product (float32, G = the batch
-times the heads, or the heads).  Under cuBLAS each was a ``bmm`` whose
-kernel chose by the batch.  :func:`bgemm_shapes` lists the (K, N, dtype) a
+x (G, M, K) and w (G, K, N): the same kernels with the batch folded into
+the tile order (a grid axis of the float32 ones), at the same
+:func:`gemm_config` (no M, no G), so row i of batch g depends on row i of
+x[g] and on w[g] alone.  It runs the products that do not go through
+``Linear``: the MoE experts (bf16, G = the experts), the mLSTM products,
+the sLSTM's recurrent product and Mamba's readout (float32, G = the batch
+times the heads, the heads, or the batch times the positions).  Under
+cuBLAS each was a ``bmm`` whose kernel chose by the batch.  :func:`bgemm_shapes` lists the (K, N, dtype) a
 config gives it.
 """
 
@@ -54,16 +60,28 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 SOURCE = "gemm.cu"
 
-#: rows and K of the bf16 instance's block tile (two warpgroups of 64 rows,
+#: rows and K of the bf16 instance's tile (a consumer warpgroup's 128 rows,
 #: one 128-byte swizzled row of bf16)
 BM, BK = 128, 64
 #: the bf16 kernel's (BN, stages) instances
-BF16_INSTANCES = ((64, 4), (128, 4))
-#: the float32 kernel's block: rows, columns, and the slices of K (a warp
-#: each) whose sums it adds in order
-F32_TILE = (16, 32, 8)
-#: most K splits, and the fewest K tiles a split takes
+BF16_INSTANCES = ((64, 8), (128, 4), (256, 4))
+#: N from which a bf16 tile is 256 columns wide (one wgmma m64n256k16 a
+#: warpgroup and k16 step): below it, 128 (64 at N <= 64)
+BF16_WIDE_N = 4096
+#: the float32 tiled kernel: block rows, columns, K a stage, stages
+F32_TILE = (128, 64, 16, 3)
+#: the float32 dot kernel (N = 1): rows a block of 256 threads, a warp a
+#: row or, at K <= ``DOT_THREAD_MAX_K``, a thread a row
+DOT_WARP_ROWS, DOT_THREAD_ROWS, DOT_THREAD_MAX_K = 8, 256, 32
+#: the float32 instances, by the C entry point's ``mode``
+F32_MODES = {"simt": 0, "dot_warp": 1, "dot_thread": 2}
+#: most K splits, and the fewest K tiles a split takes (bf16, float32)
 MAX_SPLIT, MIN_SPLIT_TILES = 4, 8
+F32_MAX_SPLIT, F32_MIN_SPLIT_TILES = 8, 8
+#: float32 widths whose products split K: N >= F32_WIDE_N (TimeMLP, the
+#: sLSTM step: a few rows, so the column tiles alone leave the card idle)
+#: and N <= F32_NARROW_N (the MoE router: one column tile over a long K)
+F32_WIDE_N, F32_NARROW_N = 1024, 64
 MAX_GRID_Y = 65535
 
 
@@ -71,9 +89,10 @@ MAX_GRID_Y = 65535
 class GemmConfig:
     """One launch configuration: ``loader`` is ``"tma"`` (2-D tensor maps),
     ``"ldg"`` (guarded loads into the same swizzled tiles, where a row pitch
-    is not a multiple of 16 bytes) or ``"simt"`` (the float32 kernel, whose
-    K tile is one value); ``k_per_split`` K tiles a split (``split`` of
-    them, summed in order)."""
+    is not a multiple of 16 bytes), ``"simt"`` (the float32 tiled kernel),
+    ``"dot_warp"`` or ``"dot_thread"`` (the float32 dot at N = 1, a warp or
+    a thread a row; ``bm`` rows a block, ``bk`` = K); ``k_per_split`` K
+    tiles a split (``split`` of them, summed in order)."""
 
     bm: int
     bn: int
@@ -87,25 +106,39 @@ class GemmConfig:
 @functools.cache
 def gemm_config(k: int, n: int, dtype: torch.dtype) -> GemmConfig:
     """The launch configuration of a (K, N) product in ``dtype``: a
-    function of the weight's shape alone, never of M.  K splits (at most
-    :data:`MAX_SPLIT`, each of at least :data:`MIN_SPLIT_TILES` K tiles)
-    only where N gives at most two column tiles (qwen2's ``wk`` / ``wv``,
-    1536 -> 256), so that a few rows still spread over the card."""
+    function of the weight's shape alone, never of M (nor of a batch).
+    bf16 splits K (at most :data:`MAX_SPLIT`, each of at least
+    :data:`MIN_SPLIT_TILES` K tiles) only where N gives at most two column
+    tiles (qwen2's ``wk`` / ``wv``, 1536 -> 256), so that a few rows still
+    spread over the card.  float32 takes the dot instance at N = 1, else
+    the tiled one, which splits K (at most :data:`F32_MAX_SPLIT`, each of
+    at least :data:`F32_MIN_SPLIT_TILES` K tiles) at the widths that leave
+    the card idle (:data:`F32_WIDE_N`, :data:`F32_NARROW_N`)."""
     if k < 1 or n < 1:
         raise ValueError(f"gemm: K {k} and N {n} must be positive")
     if dtype == torch.float32:
-        fm, fn, slices = F32_TILE
-        return GemmConfig(fm, fn, 1, 1, slices, -(-k // slices), "simt")
+        if n == 1:
+            if k <= DOT_THREAD_MAX_K:
+                return GemmConfig(DOT_THREAD_ROWS, 1, k, 1, 1, 1, "dot_thread")
+            return GemmConfig(DOT_WARP_ROWS, 1, k, 1, 1, 1, "dot_warp")
+        fm, fn, fk, stages = F32_TILE
+        return GemmConfig(fm, fn, fk, stages, *_split(
+            -(-k // fk), F32_MAX_SPLIT, F32_MIN_SPLIT_TILES,
+            n >= F32_WIDE_N or n <= F32_NARROW_N), "simt")
     if dtype != torch.bfloat16:
         raise TypeError(f"gemm: no instance for {dtype} (bf16 and float32 only)")
-    bn = 64 if n <= 64 else 128
-    k_tiles = -(-k // BK)
-    split = 1
-    if -(-n // bn) <= 2:
-        split = max(1, min(MAX_SPLIT, k_tiles // MIN_SPLIT_TILES))
-    kps = -(-k_tiles // split)
+    bn = 64 if n <= 64 else 256 if n >= BF16_WIDE_N else 128
+    stages = dict(BF16_INSTANCES)[bn]
     loader = "tma" if k % 8 == 0 and n % 8 == 0 else "ldg"
-    return GemmConfig(BM, bn, BK, 4, split, kps, loader)
+    return GemmConfig(BM, bn, BK, stages, *_split(
+        -(-k // BK), MAX_SPLIT, MIN_SPLIT_TILES, -(-n // bn) <= 2), loader)
+
+
+def _split(k_tiles: int, most: int, fewest: int, wanted: bool) -> tuple[int, int]:
+    """(splits, K tiles a split): ``k_tiles`` cut into at most ``most``
+    splits of at least ``fewest`` tiles each where ``wanted``, else one."""
+    split = max(1, min(most, k_tiles // fewest)) if wanted else 1
+    return split, -(-k_tiles // split)
 
 
 def gemm_plain(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
@@ -135,6 +168,11 @@ def _check(x: Tensor, w: Tensor, b: Tensor | None) -> None:
                              f"{x.dtype} on {x.device}")
 
 
+def library_constants() -> tuple[int, ...]:
+    """The constants ``repro_gemm_constants`` reports, in its order."""
+    return (BM, BK, *F32_TILE, DOT_WARP_ROWS, DOT_THREAD_ROWS, DOT_THREAD_MAX_K)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
@@ -142,19 +180,19 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.repro_gemm_bf16.restype = ctypes.c_int
     lib.repro_gemm_f32.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.repro_gemm_f32.restype = ctypes.c_int
     lib.repro_bgemm_bf16.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.repro_bgemm_bf16.restype = ctypes.c_int
     lib.repro_bgemm_f32.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.repro_bgemm_f32.restype = ctypes.c_int
-    consts = (ctypes.c_int * 5)()
+    consts = (ctypes.c_int * 9)()
     lib.repro_gemm_constants(consts)
-    if tuple(consts) != (BM, BK, *F32_TILE):
+    if tuple(consts) != library_constants():
         raise RuntimeError(f"gemm: the library's tiles {tuple(consts)} are not "
-                           f"the wrapper's {(BM, BK, *F32_TILE)}")
+                           f"the wrapper's {library_constants()}")
     return lib
 
 
@@ -175,21 +213,22 @@ def _launch(x: Tensor, w: Tensor, b: Tensor | None) -> Tensor:
     cfg = gemm_config(k, n, x.dtype)
     x, w = _aligned(x), _aligned(w)
     b = None if b is None else _aligned(b)
-    if -(-m // cfg.bm) > MAX_GRID_Y:
+    if cfg.loader == "simt" and -(-m // cfg.bm) > MAX_GRID_Y:
         raise ValueError(f"gemm: {m} rows exceed {MAX_GRID_Y} row tiles")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
-    if cfg.loader == "simt":
-        err = _library().repro_gemm_f32(x.data_ptr(), w.data_ptr(), bias,
-                                        y.data_ptr(), m, k, n, stream)
+    ws = (torch.empty(cfg.split, m, n, dtype=torch.float32, device=x.device)
+          if cfg.split > 1 else None)
+    wsp = None if ws is None else ws.data_ptr()
+    if cfg.loader in F32_MODES:
+        err = _library().repro_gemm_f32(
+            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(), wsp, m, k, n,
+            cfg.split, cfg.k_per_split, F32_MODES[cfg.loader], stream)
     else:
-        ws = (torch.empty(cfg.split, m, n, dtype=torch.float32, device=x.device)
-              if cfg.split > 1 else None)
         err = _library().repro_gemm_bf16(
-            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, k, n, cfg.bn,
-            cfg.stages, cfg.split, cfg.k_per_split, int(cfg.loader == "tma"),
-            stream)
+            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(), wsp, m, k, n,
+            cfg.bn, cfg.stages, cfg.split, cfg.k_per_split,
+            int(cfg.loader == "tma"), stream)
     if err != 0:
         raise RuntimeError(f"gemm launch failed: cudaError {err}")
     gemm.launches += 1
@@ -251,7 +290,15 @@ def bgemm_plain(x: Tensor, w: Tensor, b: Tensor | None = None) -> Tensor:
     N), b (G, N).  On the CPU a lone row goes through the product beside a
     copy of itself, as in :func:`gemm_plain`, and so does a lone batch
     (``bmm`` of one batch is a plain matrix product, whose sums at N = 1
-    run in another order)."""
+    run in another order).  At N = 1 the CPU folds K in index order
+    (elementwise ops, the same bits at every batch and row count: its
+    ``bmm`` picks a matrix-vector path by the sizes)."""
+    if x.device.type == "cpu" and w.shape[2] == 1:
+        y = x[..., 0] * w[:, 0]
+        for i in range(1, x.shape[2]):
+            y.addcmul_(x[..., i], w[:, i])
+        y = y[..., None]
+        return y if b is None else y + b[:, None, :]
     if x.device.type == "cpu" and x.shape[0] == 1:
         two = None if b is None else torch.cat([b, b])
         return bgemm_plain(torch.cat([x, x]), torch.cat([w, w]), two)[:1]
@@ -286,7 +333,7 @@ def _launch_batched(x: Tensor, w: Tensor, b: Tensor | None) -> Tensor:
     if g == 0 or m == 0:
         return x.new_empty(g, m, n)
     cfg = gemm_config(k, n, x.dtype)
-    if -(-m // cfg.bm) > MAX_GRID_Y:
+    if cfg.loader == "simt" and -(-m // cfg.bm) > MAX_GRID_Y:
         raise ValueError(f"bgemm: {m} rows exceed {MAX_GRID_Y} row tiles")
     ys = [_launch_batch(x[i:i + MAX_BATCH], w[i:i + MAX_BATCH],
                         None if b is None else b[i:i + MAX_BATCH], cfg)
@@ -303,17 +350,18 @@ def _launch_batch(x: Tensor, w: Tensor, b: Tensor | None, cfg) -> Tensor:
     b = None if b is None else _aligned(b)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
-    if cfg.loader == "simt":
-        err = _library().repro_bgemm_f32(x.data_ptr(), w.data_ptr(), bias,
-                                         y.data_ptr(), g, m, k, n, stream)
+    ws = (torch.empty(cfg.split, g, m, n, dtype=torch.float32, device=x.device)
+          if cfg.split > 1 else None)
+    wsp = None if ws is None else ws.data_ptr()
+    if cfg.loader in F32_MODES:
+        err = _library().repro_bgemm_f32(
+            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(), wsp, g, m, k, n,
+            cfg.split, cfg.k_per_split, F32_MODES[cfg.loader], stream)
     else:
-        ws = (torch.empty(cfg.split, g, m, n, dtype=torch.float32, device=x.device)
-              if cfg.split > 1 else None)
         err = _library().repro_bgemm_bf16(
-            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(),
-            None if ws is None else ws.data_ptr(), g, m, k, n, cfg.bn,
-            cfg.stages, cfg.split, cfg.k_per_split, int(cfg.loader == "tma"),
-            stream)
+            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(), wsp, g, m, k, n,
+            cfg.bn, cfg.stages, cfg.split, cfg.k_per_split,
+            int(cfg.loader == "tma"), stream)
     if err != 0:
         raise RuntimeError(f"bgemm launch failed: cudaError {err}")
     bgemm.launches += 1
@@ -422,9 +470,9 @@ def bgemm_shapes(cfg, seq_len: int) -> set[tuple[int, int, torch.dtype]]:
     config arithmetic (nothing is built): the MoE experts' three products,
     the mLSTM's seven products over a chunk of ``L = min(chunk, seq_len)``
     positions (inter-chunk, scores, intra-chunk, normaliser, the ``den``
-    dot and the two carry products) and the sLSTM's recurrent product.
-    Empty for a family whose products all go through ``Linear``, and for
-    hymba (Mamba's readout stays an einsum, ``models/ssm.py::mamba_readout``)."""
+    dot and the two carry products), the sLSTM's recurrent product and
+    Mamba's readout (hymba: the states against ``C``, K = the state width,
+    N = 1).  Empty for a family whose products all go through ``Linear``."""
     d, dt, f32 = cfg.d_model, cfg.dtype, torch.float32
     out = set()
     for kind, _ in cfg.blocks:
@@ -440,4 +488,6 @@ def bgemm_shapes(cfg, seq_len: int) -> set[tuple[int, int, torch.dtype]]:
         elif kind == "slstm":
             hd = d // cfg.num_heads
             out.add((hd, 4 * hd, f32))
+        elif kind in ("hymba_full", "hymba_swa"):
+            out.add((cfg.ssm.state_dim, 1, f32))
     return out

@@ -28,15 +28,14 @@ reference's names and its chunking:
   (over the stacked ``rz, ri, rf, ro``), with the state kept head-major
   inside the loop.
 
-The xLSTM's products outside a ``Linear`` (the mLSTM's seven products,
-the sLSTM's recurrent one) are each one
+The products outside a ``Linear`` (the mLSTM's seven products, the
+sLSTM's recurrent one, Mamba's readout) are each one
 :func:`~repro_torch.kernels.gemm.bgemm` over the batch (and heads): on
 the card a row's sums then run in an order fixed by its (K, N), not by
 the batch, so a request's output does not depend on the rows beside it
 (``docs/serving.md``; under cuBLAS, xlstm-350m's x0 moved across batch
-buckets).  Mamba's readout (:func:`mamba_readout`) stays an einsum on the
-card, whose cuBLAS kernel was measured not to move with the batch.  ``meta`` tensors
-keep the einsums and ``baddbmm``, which the dry run counts.
+buckets).  ``meta`` tensors keep the einsums and ``baddbmm``, which the
+dry run counts.
 
 Every scan's padding is an identity step, as in the reference (``a`` = 1,
 ``dt`` = 0, ``i_pre`` = -1e30 with ``logf`` = 0), so the last state of a
@@ -204,19 +203,12 @@ def chunked_linear_scan(a: Tensor, b: Tensor, h0: Tensor, chunk: int):
 
 def mamba_readout(hh: Tensor, c: Tensor) -> Tensor:
     """Mamba's readout ``y[b, s, d] = sum_n hh[b, s, d, n] c[b, s, n]`` (hh
-    (B, L, d, N), c (B, L, N)): the einsum, a ``bmm`` over B·L.  On the
-    H100 its cuBLAS kernel gives a row the same bits at every batch bucket
-    (hymba-1.5b at buckets 1, 8 and 64; ``chip_smoke.py`` phase 16 holds
-    it at 1 to 64 rows of 256 and 128 positions), where the batched GEMM's
-    float32 instance took 9 times as long (PERF.md).  The CPU's einsum
-    picks its path by the batch, so on the CPU the states are folded in
-    index order (elementwise ops, the same bits at every batch)."""
-    if hh.device.type != "cpu":
-        return torch.einsum("bsdn,bsn->bsd", hh, c)
-    y = hh[..., 0] * c[:, :, None, 0]
-    for i in range(1, hh.shape[-1]):
-        y.addcmul_(hh[..., i], c[:, :, None, i])
-    return y
+    (B, L, d, N), c (B, L, N)): one :func:`~repro_torch.kernels.gemm.bgemm`
+    over B·L (``layers.contract``), N = 1, whose dot instance sums a row's
+    N states in one chain set by N alone; cuBLAS's einsum picked its kernel
+    by the batch.  On the CPU the plain version folds the states in index
+    order."""
+    return L.contract("bsdn,bsn->bsd", hh, c)
 
 
 def chunked_ssm_outputs(

@@ -9,19 +9,20 @@ weight's shape or the row's width alone; ``chip_smoke.py``'s
 * ``gemm_config`` takes no M, and has a configuration for every ``Linear``
   (K, N) of every full-width registry config (``linear_shapes``, config
   arithmetic, checked against the modules of the model built on ``meta``,
-  which allocates nothing);
+  which allocates nothing) and every batched product (``bgemm_shapes``),
+  each an instance the library lists (its constants read from
+  ``gemm.cu``), with splits that cover K once and the dot instance at
+  N = 1;
 * the plain versions against the reference's ``x @ w + b``, ``rmsnorm``,
   ``layernorm`` and ``_seq_sq_sums`` (numpy inputs from a seed);
 * ``row_sq_sums`` bitwise padding- and batch-invariant, ``gemm_plain``
   row-invariant (the lone row too);
 * the smoke qwen2 and llama engines, and those of the families whose
   products do not all go through ``Linear`` (deepseek-v2-lite, mixtral,
-  hymba, xlstm: the MoE experts and the mLSTM / sLSTM products run the
-  batched GEMM, ``bgemm``; Mamba's readout stays an einsum on the card,
-  whose cuBLAS kernel phase 16 holds invariant, and folds its states on
-  the CPU), bitwise equal at batch
-  buckets 1, 8 and 64, and within tolerance of the reference's
-  ``BatchedSampler``;
+  hymba, xlstm: the MoE experts, the mLSTM / sLSTM products and Mamba's
+  readout run the batched GEMM, ``bgemm``, whose plain version folds K in
+  index order at N = 1 on the CPU), bitwise equal at batch buckets 1, 8
+  and 64, and within tolerance of the reference's ``BatchedSampler``;
 * ``bgemm_plain`` and ``layers.contract`` against the reference's
   ``jnp.matmul`` / ``jnp.einsum``, Mamba's readout against the reference's einsum,
   ``bgemm_shapes`` against the products a smoke forward of each of those
@@ -32,6 +33,8 @@ weight's shape or the row's width alone; ``chip_smoke.py``'s
 """
 
 import inspect
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,23 +102,51 @@ def test_linear_shapes_are_the_modules(arch):
     assert kg.linear_shapes(cfg) == _module_shapes(cfg)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_gemm_config_covers_every_linear(arch):
-    for k, n, dt in sorted(kg.linear_shapes(get_config(arch)), key=str):
-        c = kg.gemm_config(k, n, dt)
-        if dt == torch.float32:
-            assert c.loader == "simt"
-            assert (c.bm, c.bn, c.split) == kg.F32_TILE
-            assert (c.split - 1) * c.k_per_split < k <= c.split * c.k_per_split
-            continue
+def _held_by_the_rule(k: int, n: int, dt: torch.dtype) -> kg.GemmConfig:
+    """``gemm_config(k, n, dt)``, checked against the instances the library
+    lists: its tile constants, its split covering K's tiles once (every
+    split non-empty), the dot instance exactly at N = 1."""
+    c = kg.gemm_config(k, n, dt)
+    if dt == torch.float32:
+        if n == 1:
+            rows = (kg.DOT_THREAD_ROWS if k <= kg.DOT_THREAD_MAX_K
+                    else kg.DOT_WARP_ROWS)
+            assert c.loader == ("dot_thread" if rows == kg.DOT_THREAD_ROWS
+                                else "dot_warp")
+            assert (c.bm, c.bn, c.bk, c.split, c.k_per_split) == (rows, 1, k, 1, 1)
+            return c
+        assert c.loader == "simt"
+        assert (c.bm, c.bn, c.bk, c.stages) == kg.F32_TILE
+        k_tiles = -(-k // kg.F32_TILE[2])
+        assert 1 <= c.split <= kg.F32_MAX_SPLIT
+        wide = n >= kg.F32_WIDE_N or n <= kg.F32_NARROW_N
+        assert c.split == 1 or (wide and c.k_per_split >= kg.F32_MIN_SPLIT_TILES)
+    else:
         assert (c.bm, c.bk) == (kg.BM, kg.BK)
         assert (c.bn, c.stages) in kg.BF16_INSTANCES
         k_tiles = -(-k // kg.BK)
-        # every split has K tiles, and together they cover K once
         assert 1 <= c.split <= kg.MAX_SPLIT
-        assert (c.split - 1) * c.k_per_split < k_tiles <= c.split * c.k_per_split
         # TMA needs 16-byte row pitches; the guarded loads take the rest
         assert (c.loader == "tma") == (k % 8 == 0 and n % 8 == 0)
+    # every split has K tiles, and together they cover K once
+    assert (c.split - 1) * c.k_per_split < k_tiles <= c.split * c.k_per_split
+    return c
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gemm_config_covers_every_linear(arch):
+    for k, n, dt in sorted(kg.linear_shapes(get_config(arch)), key=str):
+        _held_by_the_rule(k, n, dt)
+
+
+@pytest.mark.parametrize("seq", [256, 128])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gemm_config_covers_every_batched_product(arch, seq):
+    """Every (K, N, dtype) ``bgemm_shapes`` gives a full-width registry
+    config at the path's 256 and 128 positions maps to an instance the
+    library lists (the same rule as the ``Linear`` shapes')."""
+    for k, n, dt in sorted(kg.bgemm_shapes(get_config(arch), seq), key=str):
+        _held_by_the_rule(k, n, dt)
 
 
 def test_gemm_config_splits_only_narrow_weights():
@@ -126,6 +157,62 @@ def test_gemm_config_splits_only_narrow_weights():
         assert kg.gemm_config(k, n, torch.bfloat16).split == 1
     with pytest.raises(TypeError, match="no instance"):
         kg.gemm_config(64, 64, torch.float16)
+
+
+@pytest.mark.parametrize("k,n,split", [
+    (1536, 1536, 8),   # TimeMLP's w2 at a few rows: split
+    (256, 1536, 2),    # TimeMLP's w1
+    (256, 1024, 2),    # xlstm's sLSTM step (4 x hd)
+    (2048, 64, 8),     # deepseek's router: one column tile over a long K
+    (4096, 8, 8),      # mixtral's router
+    (512, 256, 1),     # xlstm's mLSTM scores: many batches and rows
+    (512, 512, 1),     # the mLSTM's inter-chunk product
+    (100, 1024, 1),    # too few K tiles to split
+])
+def test_gemm_config_float32_split(k, n, split):
+    """float32 splits K by the width alone: at N >= ``F32_WIDE_N`` and N <=
+    ``F32_NARROW_N``, into splits of at least ``F32_MIN_SPLIT_TILES`` K
+    tiles; the widths between (the mLSTM's) keep one chain over K."""
+    c = _held_by_the_rule(k, n, torch.float32)
+    assert c.split == split
+
+
+@pytest.mark.parametrize("k,loader", [(16, "dot_thread"), (32, "dot_thread"),
+                                      (33, "dot_warp"), (256, "dot_warp"),
+                                      (512, "dot_warp"), (7, "dot_thread")])
+def test_gemm_config_n1_takes_the_dot(k, loader):
+    """N = 1 (the mLSTM's ``den`` and normaliser, Mamba's readout) takes the
+    dot instance: a warp a row, or a thread a row at K <= 32; bf16 has no
+    dot instance and keeps its tile at N = 1."""
+    assert _held_by_the_rule(k, 1, torch.float32).loader == loader
+    assert kg.gemm_config(k, 1, torch.bfloat16).loader in ("tma", "ldg")
+    assert kg.gemm_config(k, 2, torch.float32).loader == "simt"
+
+
+def _source_constants(text: str, names) -> dict:
+    """``constexpr int NAME = value`` of each of ``names`` in ``text``, in
+    order (a value may name an earlier one)."""
+    values = {}
+    for name in names:
+        m = re.search(rf"\b{name} = ([^,;]+)[,;]", text)
+        assert m, name
+        values[name] = int(eval(m.group(1), {}, values))
+    return values
+
+
+def test_library_constants_are_the_sources():
+    """The constants ``repro_gemm_constants`` reports (which the wrapper
+    checks when it loads the library on the card) are ``gemm.cu``'s, and
+    its ``GEMM_INSTANCES`` are ``BF16_INSTANCES``."""
+    text = (Path(kg.build.CSRC_DIR) / kg.SOURCE).read_text()
+    names = ("BM", "BK", "F_BM", "F_BN", "F_BK", "F_STAGES", "F_THREADS",
+             "DOT_WARP_ROWS", "DOT_THREAD_ROWS", "DOT_THREAD_MAX_K")
+    values = _source_constants(text, names)
+    assert tuple(values[n] for n in names if n != "F_THREADS") == (
+        kg.library_constants())
+    m = re.search(r"#define GEMM_INSTANCES\(X\) (.+)", text)
+    assert tuple(tuple(int(v) for v in pair) for pair in re.findall(
+        r"X\((\d+), (\d+)\)", m.group(1))) == kg.BF16_INSTANCES
 
 
 # ---------------------------------------------------------------------------
@@ -318,9 +405,10 @@ def test_contract_matches_reference_einsum(eq, a, b):
 
 @pytest.mark.parametrize("shape", [(2, 6, 7, 16), (1, 3, 5, 4)])
 def test_mamba_readout_fold_matches_reference_einsum(shape):
-    """The readout (on the CPU an in-order fold over the states; on the card
-    the einsum) against the reference's ``jnp.einsum("bsdn,bsn->bsd")``,
-    and bitwise row-invariant."""
+    """The readout (a ``bgemm`` at N = 1: on the CPU its plain version's
+    in-order fold over the states; on the card the dot instance) against
+    the reference's ``jnp.einsum("bsdn,bsn->bsd")``, and bitwise
+    row-invariant."""
     rng = np.random.default_rng(sum(shape))
     hh = rng.standard_normal(shape, np.float32)
     c = rng.standard_normal((shape[0], shape[1], shape[3]), np.float32)
@@ -359,8 +447,9 @@ def test_bgemm_shapes_are_the_forward_products(arch, seq, monkeypatch):
     with torch.no_grad():
         forward()
     assert seen == kg.bgemm_shapes(cfg, seq)
-    # hymba's only product outside Linear, Mamba's readout, is no bgemm
-    assert bool(seen) == (arch != "hymba-1.5b")
+    # every one of these families has a product outside Linear (hymba's:
+    # Mamba's readout)
+    assert seen
 
 
 PRODUCTS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
@@ -387,8 +476,7 @@ def test_no_product_outside_the_kernel_wrappers(arch, monkeypatch):
     ``gemm``'s, ``bgemm``'s or the flash kernel's plain version, or the
     CPU's SDPA (MLA asks for impl "auto", which CUDA tensors send to the
     flash kernel): what the CPU runs for the card's kernels.  None runs as
-    a bare PyTorch product (Mamba's readout, an einsum on the card, folds
-    on the CPU)."""
+    a bare PyTorch product."""
     _, forward = _smoke_forward(arch, 24)
     rec = _ProductRecorder()
 
